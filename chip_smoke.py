@@ -1,0 +1,357 @@
+"""Chip smoke test of the PyTorch + CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a) into
+``build/repro_torch/``, holds every kernel against its plain PyTorch
+version on the card at the shapes the main path gives it, then drives the
+port's main path through the tasking runtime:
+
+  * the Fig. 3 double DGEMM at n = 4096 float32 (two ``matmul`` launches);
+  * the over-decomposed Jacobi3D proxy on a 768^3 float32 domain, 8 chunks
+    of 384^3, 10 iterations (80 ``jacobi3d_faces`` launches), which must
+    equal the plain PyTorch ``run_reference`` on the card bit for bit.
+
+Launch counters are zeroed just before each main-path run and read just
+after. The second-to-last line is a JSON object with one entry per kernel of
+the main path; the last line is the device summary. Exits non-zero, and
+prints no result, on any failure or where there is no CUDA device.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SEED = 0
+JACOBI_N, JACOBI_OD, JACOBI_ITERS = 768, 8, 10
+DGEMM_N = 4096
+
+# Published peaks (NVIDIA data sheets, dense): float32 outside the tensor
+# cores, bf16 tensor cores, HBM bandwidth. Matched on the name nvidia-smi
+# gives; the SXM part is the default H100.
+PEAKS = {  # name fragment: (fp32 FLOP/s, bf16 FLOP/s, bytes/s)
+    "H100 PCIe": (51.2e12, 756e12, 2.0e12),
+    "H100 NVL": (60e12, 835e12, 3.9e12),
+    "H100": (67e12, 989e12, 3.35e12),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def peaks(name: str):
+    for frag, p in PEAKS.items():
+        if frag in name:
+            return frag, p
+    raise SmokeFailure(f"no published peaks for card {name!r}")
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of one call, by CUDA events over ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, nops: float, op_rate: float, mem_rate: float):
+    """Least time (ms) for the work, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / op_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def stencil_weight(device) -> torch.Tensor:
+    """conv3d weight of the 7-point stencil: 1/6 on the six face
+    neighbours (the library yardstick for the Jacobi kernels)."""
+    w = torch.zeros((1, 1, 3, 3, 3), device=device)
+    for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                (1, 1, 2)):
+        w[(0, 0) + idx] = 1.0 / 6.0
+    return w
+
+
+def sweep_trace(run_tasked, Runtime, RuntimeConfig, u0) -> dict:
+    """A second, traced run of the Jacobi main path: where its sweeps'
+    time goes on the device. The sweeps span from the first stencil
+    kernel's start to the last one's end; inside it, the device is busy
+    for the union of all its kernels and copies."""
+    from torch.profiler import ProfilerActivity, profile
+    rt = Runtime(RuntimeConfig())
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_tasked(u0, JACOBI_ITERS, rt, over_decomposition=JACOBI_OD)
+            wall_s = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    dev = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    stencil = [(a, b) for n, a, b in dev if "jacobi3d_faces" in n]
+    if len(stencil) != JACOBI_OD * JACOBI_ITERS:
+        return {"wall_s": wall_s, "device_trace": "not measured",
+                "stencil_kernels_traced": len(stencil)}
+    lo, hi = min(a for a, _ in stencil), max(b for _, b in stencil)
+    busy = _busy_us(dev, lo, hi)
+    span_ms = (hi - lo) / 1e3
+    return {"wall_s": wall_s, "sweeps_span_ms": span_ms,
+            "ms_per_sweep": span_ms / (JACOBI_ITERS - 1),
+            "stencil_kernel_ms": sum(b - a for a, b in stencil) / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (hi - lo),
+            "by_name_ms": {k: round(v, 3) for k, v in sorted(
+                _by_name(dev, lo, hi).items(), key=lambda kv: -kv[1])[:6]}}
+
+
+def _busy_us(dev, lo, hi) -> float:
+    """Length of the union of the device intervals, clipped to [lo, hi]."""
+    busy, end = 0.0, lo
+    for _, a, b in sorted(dev, key=lambda x: x[1]):
+        a, b = max(a, end), min(b, hi)
+        if b > a:
+            busy, end = busy + b - a, b
+    return busy
+
+
+def _by_name(dev, lo, hi) -> dict:
+    out: dict = {}
+    for n, a, b in dev:
+        if b > lo and a < hi:
+            key = "jacobi3d_faces" if "jacobi3d_faces" in n else n[:40]
+            out[key] = out.get(key, 0.0) + (b - a) / 1e3
+    return out
+
+
+def kernel_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
+    """Phase 2: each kernel against its plain version at main-path shapes.
+    Returns the per-kernel numbers for the JSON line."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    res = {}
+
+    # jacobi3d (padded contract) on a 770^3 slab: must equal the plain
+    # version, and both must equal a true float32 division of the sum
+    n = JACOBI_N
+    u_pad = torch.randn((n + 2,) * 3, generator=gen, device=dev)
+    got = ops.jacobi3d(u_pad)
+    plain = ops.jacobi3d_plain(u_pad)
+    s = u_pad[:-2, 1:-1, 1:-1] + u_pad[2:, 1:-1, 1:-1]
+    for sl in ((slice(1, -1), slice(None, -2), slice(1, -1)),
+               (slice(1, -1), slice(2, None), slice(1, -1)),
+               (slice(1, -1), slice(1, -1), slice(None, -2)),
+               (slice(1, -1), slice(1, -1), slice(2, None))):
+        s += u_pad[sl]
+    true_div = (s.double() / 6.0).float()   # correctly rounded s / 6
+    del s
+    torch.cuda.synchronize()
+    err = (got - plain).abs().max().item()
+    check(torch.equal(got, plain), f"jacobi3d != plain (max err {err})")
+    plain_true = bool(torch.equal(plain, true_div))
+    del true_div, plain
+    w = stencil_weight(dev)
+    lib_out = F.conv3d(u_pad[None, None], w)[0, 0]
+    lib_err = (lib_out - got).abs().max().item()
+    del lib_out, got
+    nb = 4 * ((n + 2) ** 3 + n ** 3)
+    b_ms, b_by = bound(nb, 6 * n ** 3, fp32, mem_rate)
+    res["jacobi3d"] = dict(
+        shape=[n + 2] * 3, max_abs_err=err, tol=0.0,
+        ms=time_ms(lambda: ops.jacobi3d(u_pad), 10),
+        plain_ms=time_ms(lambda: ops.jacobi3d_plain(u_pad), 3),
+        library_ms=time_ms(lambda: F.conv3d(u_pad[None, None], w), 3),
+        library_max_abs_err=lib_err, plain_is_true_division=plain_true,
+        bound_ms=b_ms, bound_by=b_by)
+    del u_pad
+
+    # jacobi3d_faces on one 384^3 chunk with random face halos
+    c = n // 2
+    u = torch.randn((c,) * 3, generator=gen, device=dev)
+    faces = [torch.randn(shape, generator=gen, device=dev)
+             for shape in ((c, c),) * 6]
+    got = ops.jacobi3d_faces(u, *faces)
+    plain = ops.jacobi3d_faces_plain(u, *faces)
+    torch.cuda.synchronize()
+    err = (got - plain).abs().max().item()
+    check(torch.equal(got, plain), f"jacobi3d_faces != plain (max err {err})")
+    up = F.pad(u, (1,) * 6)
+    nb = 4 * (2 * c ** 3 + 6 * c * c)
+    b_ms, b_by = bound(nb, 6 * c ** 3, fp32, mem_rate)
+    res["jacobi3d_faces"] = dict(
+        shape=[c] * 3, max_abs_err=err, tol=0.0,
+        ms=time_ms(lambda: ops.jacobi3d_faces(u, *faces), 20),
+        plain_ms=time_ms(lambda: ops.jacobi3d_faces_plain(u, *faces), 5),
+        library_ms=time_ms(lambda: F.conv3d(up[None, None], w), 5),
+        bound_ms=b_ms, bound_by=b_by)
+    del u, faces, up, got, plain
+
+    # matmul at the DGEMM's 4096^3, float32 (the main path) and bf16
+    m = DGEMM_N
+    for dtype, tol, rate, key in ((torch.float32, 1e-3, fp32, "matmul"),
+                                  (torch.bfloat16, 2e-2, bf16,
+                                   "matmul_bf16")):
+        a = torch.randn((m, m), generator=gen, device=dev).to(dtype)
+        b = torch.randn((m, m), generator=gen, device=dev).to(dtype)
+        got = ops.matmul(a, b).float()
+        want = ops.matmul_plain(a, b).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(bool(torch.allclose(got, want, rtol=tol, atol=tol)),
+              f"{key} outside {tol} of plain (max err {err})")
+        b_ms, b_by = bound(3 * m * m * a.element_size(), 2 * m ** 3, rate,
+                           mem_rate)
+        res[key] = dict(
+            shape=[m, m, m], dtype=str(dtype), max_abs_err=err, tol=tol,
+            ms=time_ms(functools.partial(ops.matmul, a, b), 5),
+            plain_ms=time_ms(functools.partial(ops.matmul_plain, a, b), 5),
+            library_ms=time_ms(functools.partial(torch.matmul, a, b), 5),
+            bound_ms=b_ms, bound_by=b_by)
+        del a, b, got, want
+    return res
+
+
+def main() -> int:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this test "
+              "needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.apps.dgemm import run_double_dgemm
+    from repro_torch.apps.jacobi3d import run_reference, run_tasked
+    from repro_torch.core import Runtime, RuntimeConfig
+    from repro_torch.kernels import _build, ops
+
+    # -- phase 1: card and build --------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    sku, (fp32, bf16, mem_rate) = peaks(name)
+    print(card)
+    print(f"peaks of the {sku}: fp32 {fp32:.3g} FLOP/s, bf16 {bf16:.3g} "
+          f"FLOP/s, {mem_rate:.3g} B/s; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    t0 = time.perf_counter()
+    log = _build.build_all()
+    print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} over "
+          f"src/repro_torch/csrc/{{{','.join(sorted(_build.SIGNATURES))}}}.cu"
+          f" in {time.perf_counter() - t0:.3f} s")
+    for lib, (secs, out) in sorted(log.items()):
+        regs = [ln.strip() for ln in out.splitlines()
+                if "registers" in ln or "Compiling entry" in ln]
+        print(f"build: lib{lib}.so {secs:.3f} s; " + " | ".join(regs))
+
+    # -- phase 2: kernels against their plain versions ------------------------
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    res = kernel_checks(ops, gen, fp32, bf16, mem_rate)
+    for key, r in res.items():
+        print(f"kernel {key}: {json.dumps(r)}")
+
+    # -- phase 3: double DGEMM through the runtime -----------------------------
+    rt = Runtime(RuntimeConfig())
+    try:
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        a, b, d = run_double_dgemm(rt, DGEMM_N, SEED)
+        dgemm_ms = (time.perf_counter() - t0) * 1e3
+        dgemm_launches = dict(ops.LAUNCHES)
+        stats = rt.stats()
+    finally:
+        rt.shutdown()
+    ta, tb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    want = ops.matmul_plain(ops.matmul_plain(ta, tb), tb).cpu().numpy()
+    del ta, tb
+    dgemm_err = float(np.max(np.abs(d - want)))
+    check(bool(np.allclose(d, want, rtol=1e-3, atol=1e-3)),
+          f"runtime DGEMM outside 1e-3 of plain (max err {dgemm_err})")
+    check(dgemm_launches["matmul"] == 2,
+          f"DGEMM launched matmul {dgemm_launches['matmul']} times, not 2")
+    print(f"dgemm: n={DGEMM_N} {dgemm_ms:.3f} ms wall (incl. staging); "
+          f"launches {dgemm_launches}; max abs err vs plain {dgemm_err}; "
+          + json.dumps({k: stats[k] for k in (
+              "tasks", "transfers_h2d", "transfers_d2h", "transfers_d2d",
+              "bytes_h2d", "bytes_d2h", "staging_hits", "staging_misses",
+              "prefetch_hits", "prefetch_stalls", "prefetch_misses")}))
+
+    # -- phase 4: Jacobi3D through the runtime ---------------------------------
+    u0 = np.random.default_rng(SEED).random((JACOBI_N,) * 3,
+                                            dtype=np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    rt = Runtime(RuntimeConfig())
+    try:
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        got = run_tasked(u0, JACOBI_ITERS, rt,
+                         over_decomposition=JACOBI_OD)
+        jac_s = time.perf_counter() - t0
+        jac_launches = dict(ops.LAUNCHES)
+        stats = rt.stats()
+    finally:
+        rt.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trace = sweep_trace(run_tasked, Runtime, RuntimeConfig, u0)
+    t0 = time.perf_counter()
+    want = run_reference(u0, JACOBI_ITERS, device="cuda")
+    ref_s = time.perf_counter() - t0
+    n_diff = int(np.count_nonzero(got != want))
+    check(n_diff == 0, f"run_tasked differs from run_reference at "
+          f"{n_diff} points (max {float(np.max(np.abs(got - want)))})")
+    want_launches = JACOBI_OD * JACOBI_ITERS
+    check(jac_launches["jacobi3d_faces"] == want_launches,
+          f"run_tasked launched jacobi3d_faces "
+          f"{jac_launches['jacobi3d_faces']} times, not {want_launches}")
+    check(bool(np.isfinite(got).all()), "non-finite Jacobi result")
+    print(f"jacobi: {JACOBI_N}^3 od={JACOBI_OD} iters={JACOBI_ITERS} "
+          f"run_tasked {jac_s * 1e3 / JACOBI_ITERS:.3f} ms/iteration wall "
+          f"(incl. staging in and out); run_reference {ref_s:.3f} s; "
+          f"tasks {stats['tasks']}; launches {jac_launches}; equal to "
+          f"run_reference: True")
+    print(f"jacobi peak device memory {peak_gb:.3f} GB; traced run: "
+          + json.dumps(trace))
+
+    launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
+                "matmul": dgemm_launches["matmul"]}
+    replaces = {"jacobi3d_faces": "src/repro/kernels/jacobi3d.py:19",
+                "matmul": "src/repro/kernels/matmul.py:18"}
+    kernels = [dict(
+        name=k, route="cuda",
+        source=f"src/repro_torch/csrc/{k.split('_')[0]}.cu",
+        replaces=replaces[k], launches=launches[k],
+        max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
+        plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
+        bound_by=res[k]["bound_by"], library_ms=res[k]["library_ms"])
+        for k in ("jacobi3d_faces", "matmul")]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,109 @@
+"""Jacobi-3D stencil: the CUDA kernel (``csrc/jacobi3d.cu``) and its plain
+PyTorch version.
+
+Replaces the Pallas TPU kernel ``_jacobi_kernel`` / ``jacobi3d`` of
+``repro/kernels/jacobi3d.py``. Two entry points:
+
+  ``jacobi3d(u_pad)``                the Pallas contract: halo-padded slab
+                                     [X+2, Y+2, Z+2] → interior [X, Y, Z];
+  ``jacobi3d_faces(u, lo0, ..., hi2)`` ``stencil_update``'s contract: a
+                                     chunk and its six face halos, without
+                                     building the padded copy.
+
+Both sum the six neighbours in the reference's order and divide truly by
+6. PyTorch's CUDA division by a Python scalar multiplies by its
+reciprocal, so the plain versions divide by a 0-dim tensor on the same
+device, which is a true division; kernel and plain version then agree bit
+for bit. The kernel is memory-bound: see the note in the CUDA source.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import count_launch
+
+
+def _six(t: torch.Tensor) -> torch.Tensor:
+    # filled on the device: no host round trip, no stream sync
+    return torch.full((), 6.0, dtype=t.dtype, device=t.device)
+
+
+def _sweep(up: torch.Tensor) -> torch.Tensor:
+    s = up[:-2, 1:-1, 1:-1] + up[2:, 1:-1, 1:-1]
+    s += up[1:-1, :-2, 1:-1]
+    s += up[1:-1, 2:, 1:-1]
+    s += up[1:-1, 1:-1, :-2]
+    s += up[1:-1, 1:-1, 2:]
+    return s / _six(s)
+
+
+def jacobi3d_plain(u_pad: torch.Tensor) -> torch.Tensor:
+    """u_pad: [X+2, Y+2, Z+2] → updated interior [X, Y, Z]."""
+    return _sweep(u_pad)
+
+
+def jacobi3d_faces_plain(u, lo0, hi0, lo1, hi1, lo2, hi2) -> torch.Tensor:
+    """One sweep of chunk ``u`` [X, Y, Z] given its face halos (lo0/hi0
+    [Y, Z], lo1/hi1 [X, Z], lo2/hi2 [X, Y]; zeros at physical
+    boundaries)."""
+    up = F.pad(u, (1, 1, 1, 1, 1, 1))
+    up[0, 1:-1, 1:-1] = lo0
+    up[-1, 1:-1, 1:-1] = hi0
+    up[1:-1, 0, 1:-1] = lo1
+    up[1:-1, -1, 1:-1] = hi1
+    up[1:-1, 1:-1, 0] = lo2
+    up[1:-1, 1:-1, -1] = hi2
+    return _sweep(up)
+
+
+def _check(*ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if t.device != dev or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError("jacobi3d kernels take contiguous float32 "
+                             f"tensors on one device; got {t.dtype} on "
+                             f"{t.device}, contiguous={t.is_contiguous()}")
+
+
+def jacobi3d(u_pad: torch.Tensor) -> torch.Tensor:
+    """u_pad: [X+2, Y+2, Z+2] → interior [X, Y, Z]."""
+    if u_pad.device.type == "cpu":
+        return jacobi3d_plain(u_pad)
+    _check(u_pad)
+    if u_pad.dim() != 3 or min(u_pad.shape) < 2:
+        raise ValueError(f"jacobi3d: bad padded shape {tuple(u_pad.shape)}")
+    from repro_torch.kernels import _build
+    x, y, z = (n - 2 for n in u_pad.shape)
+    out = torch.empty((x, y, z), dtype=u_pad.dtype, device=u_pad.device)
+    lib = _build.library("jacobi3d")
+    with torch.cuda.device(u_pad.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.jacobi3d_f32(u_pad.data_ptr(), out.data_ptr(),
+                                      x, y, z, stream), "jacobi3d")
+    count_launch("jacobi3d")
+    return out
+
+
+def jacobi3d_faces(u, lo0, hi0, lo1, hi1, lo2, hi2) -> torch.Tensor:
+    """One sweep of chunk ``u`` given its six face halos."""
+    if u.device.type == "cpu":
+        return jacobi3d_faces_plain(u, lo0, hi0, lo1, hi1, lo2, hi2)
+    faces = (lo0, hi0, lo1, hi1, lo2, hi2)
+    _check(u, *faces)
+    x, y, z = u.shape
+    want = [(y, z), (y, z), (x, z), (x, z), (x, y), (x, y)]
+    if [tuple(f.shape) for f in faces] != want:
+        raise ValueError(f"jacobi3d_faces: faces {[tuple(f.shape) for f in faces]}"
+                         f" do not fit chunk {tuple(u.shape)}")
+    from repro_torch.kernels import _build
+    out = torch.empty_like(u)
+    lib = _build.library("jacobi3d")
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.jacobi3d_faces_f32(
+            u.data_ptr(), *(f.data_ptr() for f in faces), out.data_ptr(),
+            x, y, z, stream), "jacobi3d_faces")
+    count_launch("jacobi3d_faces")
+    return out

@@ -1,0 +1,14 @@
+"""Public wrappers for the hand-written kernels.
+
+A CPU tensor runs the kernel's plain PyTorch version; a CUDA tensor
+launches the CUDA kernel (built at first use) or raises. ``LAUNCHES``
+counts the kernel launches of each wrapper.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import LAUNCHES  # noqa: F401
+from repro_torch.kernels.jacobi3d import (jacobi3d,  # noqa: F401
+                                          jacobi3d_faces,
+                                          jacobi3d_faces_plain,
+                                          jacobi3d_plain)
+from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: F401

@@ -33,3 +33,8 @@ def pytest_sessionfinish(session, exitstatus):
         session.exitstatus = 1
         raise sanitizer.SanitizerError(
             f"lock-order cycles observed across the suite: {cycles}")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips where there is none)")

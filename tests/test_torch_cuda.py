@@ -1,0 +1,151 @@
+"""The port on a CUDA card: each kernel against its plain PyTorch version,
+the Device API's stream and event contracts, and the runtime driving the
+kernels. Every test skips where there is no card.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.apps import jacobi3d as app
+from repro_torch.convert import to_torch
+from repro_torch.core import Runtime, RuntimeConfig
+from repro_torch.core.device_api import discover_devices, transfer
+from repro_torch.kernels import LAUNCHES, ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _faces(rng, shape):
+    x, y, z = shape
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((y, z), (y, z), (x, z), (x, z), (x, y), (x, y))]
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(18, 10, 12), (3, 70, 33)])
+def test_jacobi3d_equals_plain(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    u_pad = torch.randn(shape, generator=g, device=cuda)
+    n = LAUNCHES["jacobi3d"]
+    got = ops.jacobi3d(u_pad)
+    assert LAUNCHES["jacobi3d"] == n + 1
+    assert torch.equal(got, ops.jacobi3d_plain(u_pad))
+
+
+@pytest.mark.parametrize("shape", [(8, 6, 4), (5, 40, 33)])
+def test_jacobi3d_faces_equals_plain(cuda, shape):
+    rng = np.random.default_rng(1)
+    u = to_torch(rng.standard_normal(shape).astype(np.float32), cuda)
+    faces = [to_torch(f, cuda) for f in _faces(rng, shape)]
+    n = LAUNCHES["jacobi3d_faces"]
+    got = ops.jacobi3d_faces(u, *faces)
+    assert LAUNCHES["jacobi3d_faces"] == n + 1
+    assert torch.equal(got, ops.jacobi3d_faces_plain(u, *faces))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+def test_matmul_close_to_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn((128, 512), generator=g, device=cuda).to(dtype)
+    b = torch.randn((512, 192), generator=g, device=cuda).to(dtype)
+    n = LAUNCHES["matmul"]
+    got = ops.matmul(a, b)
+    assert LAUNCHES["matmul"] == n + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), ops.matmul_plain(a, b).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    a = torch.ones((100, 64), device=cuda)
+    with pytest.raises(ValueError):
+        ops.matmul(a, torch.ones((64, 64), device=cuda))     # M % 64
+    with pytest.raises(ValueError):
+        ops.jacobi3d(torch.ones((6, 6, 6), device=cuda).double())
+    u = torch.ones((4, 4, 4), device=cuda)
+    with pytest.raises(ValueError):
+        ops.jacobi3d_faces(u, *[torch.ones((4, 3), device=cuda)] * 6)
+
+
+# ---------------------------------------------------------------------------
+# Device API and runtime
+# ---------------------------------------------------------------------------
+
+def test_device_contracts(cuda):
+    dev = discover_devices(memory_capacity=1 << 30)[0]
+    assert dev.is_cuda and dev.info.device_type == "gpu"
+    host = np.arange(1 << 16, dtype=np.float32)
+    t = dev.upload(host)
+    host[...] = 0.0                   # upload never aliases the host buffer
+    assert dev.synchronize(t) is t and dev.is_ready(t)
+    snap = dev.clone(t)
+    out = dev.launch(lambda u: u.mul_(2.0), (t,), donate=(0,))
+    dev.synchronize(out)
+    np.testing.assert_array_equal(dev.download(snap), np.arange(1 << 16))
+    np.testing.assert_array_equal(dev.download(out), 2.0 * np.arange(1 << 16))
+    view = dev.launch(lambda u: u[:4], (out,), donate=())
+    assert view.untyped_storage().data_ptr() != \
+        out.untyped_storage().data_ptr()
+
+
+def test_runtime_chunked_upload_and_chain(cuda):
+    with Runtime(RuntimeConfig(memory_capacity=1 << 30,
+                               staging_chunk_bytes=1 << 12)) as rt:
+        assert rt.staging.pinned
+        data = np.random.default_rng(0).random((256, 64)).astype(np.float32)
+        x = rt.hetero_object(data.copy())
+        for _ in range(5):
+            rt.run(lambda v: v + 1.0, [(x, "rw")])
+        rt.barrier()
+        want = data
+        for _ in range(5):
+            want = want + np.float32(1.0)
+        np.testing.assert_array_equal(x.get(), want)
+        assert rt.stats()["transfers_h2d"] == 1
+
+
+def test_run_tasked_equals_reference_and_launches_the_kernel(cuda):
+    u0 = np.random.default_rng(2).random((32, 24, 16)).astype(np.float32)
+    with Runtime(RuntimeConfig(memory_capacity=1 << 30)) as rt:
+        before = LAUNCHES["jacobi3d_faces"]
+        got = app.run_tasked(u0, 4, rt, over_decomposition=8)
+        launched = LAUNCHES["jacobi3d_faces"] - before
+        n_dev = len(rt.devices)
+    assert launched == 8 * n_dev * 4
+    np.testing.assert_array_equal(got, app.run_reference(u0, 4))
+
+
+def test_peer_copies_between_cards(cuda):
+    """Across cards: a direct peer copy round trip, and the proxy spread
+    over every card, whose halos then travel card to card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    devs = discover_devices(memory_capacity=1 << 30)
+    host = np.arange(1 << 20, dtype=np.float32)
+    on0 = devs[0].upload(host)
+    on1 = transfer(devs[0], devs[1], on0)
+    assert on1.device == devs[1].torch_device
+    np.testing.assert_array_equal(devs[1].download(on1), host)
+
+    u0 = np.random.default_rng(5).random((64, 48, 32)).astype(np.float32)
+    with Runtime(RuntimeConfig(memory_capacity=1 << 30)) as rt:
+        got = app.run_tasked(u0, 3, rt, over_decomposition=2)
+        stats = rt.stats()
+    assert stats["transfers_d2d"] > 0
+    np.testing.assert_array_equal(got, app.run_reference(u0, 3))

@@ -10,7 +10,13 @@ port's main path through the tasking runtime:
   * the Fig. 3 double DGEMM at n = 4096 float32 (two ``matmul`` launches);
   * the over-decomposed Jacobi3D proxy on a 768^3 float32 domain, 8 chunks
     of 384^3, 10 iterations (80 ``jacobi3d_faces`` launches), which must
-    equal the plain PyTorch ``run_reference`` on the card bit for bit.
+    equal the plain PyTorch ``run_reference`` on the card bit for bit;
+  * dense-LM serving of yi-9b at full width and depth (48 layers, bf16
+    weights from a seed): the ``Engine`` prefills 4 prompts of 2048 tokens
+    (48 ``flash_attention`` launches) and decodes 32 steps; the prefill
+    must match the plain attention path, the greedy tokens the argmax of a
+    full forward, and ``tasked_decode_loop`` through the runtime the
+    Engine's tokens and KV cache.
 
 Launch counters are zeroed just before each main-path run and read just
 after. The second-to-last line is a JSON object with one entry per kernel of
@@ -20,6 +26,7 @@ prints no result, on any failure or where there is no CUDA device.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -32,6 +39,25 @@ import torch
 SEED = 0
 JACOBI_N, JACOBI_OD, JACOBI_ITERS = 768, 8, 10
 DGEMM_N = 4096
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = "yi-9b", 4, 2048, 32
+# bf16 tolerances, each against a plain PyTorch version on the card:
+#  - flash kernel output: 2e-2 absolute and relative. Kernel and plain walk
+#    the same 64-wide kv tiles; only the float32 sum order inside a dot
+#    product differs, which can flip the bf16 rounding of p or of the
+#    output: a few bf16 ulps (2^-8 = 3.9e-3 relative) on outputs below 2.
+#  - prefill hidden state, kernel on vs off (plain blockwise path, 512
+#    blocks), relative L2 error. In bf16, 5e-2: the paths round p to bf16
+#    after different running maxima (64- against 512-wide blocks), and 48
+#    random layers grow that to about 2e-2. So the same prefill also runs
+#    with float32 weights, where the kernel must sit within 1e-4 of the
+#    plain path (rounding of the sum order only).
+#  - greedy decode vs argmax of a full forward: at least 90% agreement.
+#    Random weights give near-ties among 64000 logits, which bf16 noise
+#    between the decode and the full-forward attention paths can flip.
+FLASH_TOL = {"f32": 1e-4, "bf16": 2e-2}
+PREFILL_REL_TOL = {"bf16": 5e-2, "f32": 1e-4}
+GREEDY_MIN_AGREEMENT = 0.9
+GREEDY_MAX_SHORTFALL = 0.25
 
 # Published peaks (NVIDIA data sheets, dense): float32 outside the tensor
 # cores, bf16 tensor cores, HBM bandwidth. Matched on the name nvidia-smi
@@ -226,7 +252,270 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
             library_ms=time_ms(functools.partial(torch.matmul, a, b), 5),
             bound_ms=b_ms, bound_by=b_by)
         del a, b, got, want
+
+    res.update(flash_checks(ops, gen, fp32, bf16, mem_rate))
     return res
+
+
+def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
+    """flash_attention at the serve prefill's shapes: the GQA entry in bf16
+    (the main path, q [4, 2048, 4, 8, 128]) and the Pallas contract in
+    float32 at [128, 2048, 128], both causal. The library yardstick is
+    scaled_dot_product_attention on the same, broadcast, heads."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    cfg_b, s, kh, g, d = SERVE_BATCH, SERVE_PROMPT, 4, 8, 128
+    bh = cfg_b * kh * g
+    # causal work: S(S+1)/2 scored pairs per head, 4*D flops each
+    flops = bh * s * (s + 1) / 2 * 4 * d
+    res = {}
+    q = torch.randn((cfg_b, s, kh, g, d), generator=gen, device=dev)
+    k = torch.randn((cfg_b, s, kh, d), generator=gen, device=dev)
+    v = torch.randn((cfg_b, s, kh, d), generator=gen, device=dev)
+    cases = (
+        ("flash_attention", torch.bfloat16, bf16, FLASH_TOL["bf16"],
+         (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain),
+        ("flash_attention_f32", torch.float32, fp32, FLASH_TOL["f32"],
+         (q.permute(0, 2, 3, 1, 4).reshape(bh, s, d),
+          k.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
+          .reshape(bh, s, d),
+          v.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
+          .reshape(bh, s, d)),
+         ops.flash_attention,
+         lambda a, b, c: ops.flash_attention_plain(
+             a[:, :, None, None], b[:, :, None], c[:, :, None])[:, :, 0, 0]))
+    for key, dtype, rate, tol, args, kernel, plain in cases:
+        args = tuple(x.to(dtype).contiguous() for x in args)
+        got = kernel(*args).float()
+        want = plain(*args).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{key}: non-finite output")
+        check(bool(torch.allclose(got, want, rtol=tol, atol=tol)),
+              f"{key} outside {tol} of plain (max err {err})")
+        del got, want
+        # SDPA on [B, H, S, D] with K and V broadcast to every query head
+        if args[0].dim() == 5:
+            qs = args[0].reshape(cfg_b, s, kh * g, d).transpose(1, 2)
+            ks, vs = (x.transpose(1, 2).repeat_interleave(g, dim=1)
+                      for x in args[1:])
+        else:
+            qs, ks, vs = (x[None] for x in args)
+        qs, ks, vs = (x.contiguous() for x in (qs, ks, vs))
+        nbytes = sum(x.numel() for x in args + (args[0],)) * \
+            args[0].element_size()
+        b_ms, b_by = bound(nbytes, flops, rate, mem_rate)
+        res[key] = dict(
+            shape=list(args[0].shape), dtype=str(dtype), max_abs_err=err,
+            tol=tol, ms=time_ms(functools.partial(kernel, *args), 5),
+            plain_ms=time_ms(functools.partial(plain, *args), 2, warmup=1),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), 5),
+            bound_ms=b_ms, bound_by=b_by)
+        del qs, ks, vs, args
+    return res
+
+
+def _trace_summary(prof, lo_name: str) -> dict:
+    """Device time of a traced window: its span, the union of its kernels
+    and copies (busy), the idle share, the time of kernels whose name holds
+    ``lo_name`` and the six names that took longest."""
+    dev = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return {"device_trace": "not measured"}
+    lo, hi = min(a for _, a, _ in dev), max(b for _, _, b in dev)
+    busy = _busy_us(dev, lo, hi)
+    names: dict = {}
+    for n, a, b in dev:
+        names[n[:60]] = names.get(n[:60], 0.0) + (b - a) / 1e3
+    named = sum(b - a for n, a, b in dev if lo_name in n) / 1e3
+    return {"span_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (hi - lo),
+            f"{lo_name}_ms": named,
+            f"{lo_name}_share_of_busy": named / (busy / 1e3),
+            "by_name_ms": {k: round(v, 3) for k, v in sorted(
+                names.items(), key=lambda kv: -kv[1])[:6]}}
+
+
+def serve_trace(eng, tokens) -> dict:
+    """A traced prefill and four traced decode steps, after the main run:
+    where the device time of each goes."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        nxt, cache = eng.prefill(tokens)
+        torch.cuda.synchronize()
+    out = {"prefill": _trace_summary(prof, "flash_kernel")}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.decode(cache, nxt, tokens.shape[1], 4)
+        torch.cuda.synchronize()
+    out["decode_4_steps"] = _trace_summary(prof, "gemm")
+    return out
+
+
+def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
+    """Phase 5: yi-9b at full width and depth through the Engine (the main
+    path), then the checks and the tasked decode loop from the same
+    prefill state."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_model
+    from repro_torch.serve import tasked_decode_loop
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    check(model.flags.use_flash_kernel
+          and model.flags.param_dtype == torch.bfloat16,
+          f"serve flags {model.flags}: want bf16 and the flash kernel")
+    b, s, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    r = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "prompt": s,
+         "decode_steps": steps, "init_s": time.perf_counter() - t0,
+         "weights_gb": sum(p.numel() * p.element_size()
+                           for p in params.parameters()) / 1e9}
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               SEED + 1))
+    eng = Engine(model, params, b, s + steps)
+    nxt, cache = eng.prefill(tokens)              # warm-up, not counted
+    eng.decode(cache, nxt, s, 2)
+    del nxt, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r["allocated_before_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    # -- the main path: prefill + decode, counters around it --
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    nxt, cache = eng.prefill(tokens)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    start_cache = {k: v.clone() for k, v in cache.items()}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    rest = eng.decode(cache, nxt, s, steps)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    r["launches"] = dict(ops.LAUNCHES)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["kv_cache_gb"] = sum(v.numel() * v.element_size()
+                           for v in cache.values()) / 1e9
+    r["prefill_ms"] = (t1 - t0) * 1e3
+    r["prefill_tok_s"] = b * s / (t1 - t0)
+    r["decode_ms_per_step"] = (t3 - t2) * 1e3 / steps
+    r["decode_tok_s"] = b * steps / (t3 - t2)
+    out = torch.cat([nxt, rest], dim=1)                   # [B, steps + 1]
+    check(r["launches"]["flash_attention"] == cfg.n_layers,
+          f"serve launched flash_attention {r['launches']['flash_attention']}"
+          f" times, not {cfg.n_layers}")
+    check(out.shape == (b, steps + 1) and bool(
+        ((out >= 0) & (out < cfg.vocab)).all()), "tokens out of range")
+
+    # -- the same decode as hetero tasks, from the same prefill state --
+    rt = Runtime(RuntimeConfig())
+    try:
+        t0 = time.perf_counter()
+        tok_obj, len_obj, c_objs = tasked_decode_loop(
+            rt, model, params, start_cache, nxt.clone(),
+            torch.full((b,), s, dtype=torch.int32, device=dev), steps,
+            timeout=600)
+        r["tasked_decode_ms_per_step"] = \
+            (time.perf_counter() - t0) * 1e3 / steps
+        tasked_tok, tasked_len = tok_obj.get(), len_obj.get()
+        # compare the KV caches on the card, through the runtime
+        ref = {k: rt.adopt_device_array(cache[k], 0, name=f"engine-{k}")
+               for k in ("k", "v")}
+        diff = rt.hetero_object(shape=(2,), dtype=np.int64, name="kv-diff")
+        rt.run(lambda k, v, rk, rv, _: torch.stack(
+            [(k != rk).sum(), (v != rv).sum()]),
+            [(c_objs["k"], "r"), (c_objs["v"], "r"), (ref["k"], "r"),
+             (ref["v"], "r"), (diff, "w")])
+        rt.barrier()
+        kv_diff = diff.get().tolist()
+        stats = rt.stats()
+    finally:
+        rt.shutdown()
+    # the runtime's objects (and its lineage records) hold the weights
+    del start_cache, tok_obj, len_obj, c_objs, ref, diff, rt
+    r["tasked_runtime_stats"] = {k: stats[k] for k in (
+        "tasks", "transfers_h2d", "transfers_d2h", "transfers_d2d",
+        "bytes_h2d", "bytes_d2h", "prefetch_hits", "prefetch_misses")}
+    check(np.array_equal(tasked_tok, out[:, -1:].cpu().numpy()),
+          f"tasked decode's last tokens {tasked_tok.ravel().tolist()} != "
+          f"Engine's {out[:, -1].tolist()}")
+    check(bool((tasked_len == s + steps).all()), f"tasked lengths {tasked_len}")
+    check(kv_diff == [0, 0], f"tasked KV cache differs from the Engine's at "
+          f"{kv_diff} elements (k, v)")
+    r["tasked_equals_engine"] = True
+
+    # -- prefill through the kernel vs the plain path on the card --
+    r["prefill_kernel_vs_plain"] = {"bf16": prefill_vs_plain(
+        model, params, tokens, PREFILL_REL_TOL["bf16"])}
+
+    # -- greedy decode vs argmax of a full forward over prompt + tokens --
+    full = torch.cat([tokens, out[:, :-1]], dim=1)
+    n = full.shape[1]
+    blk = max(d for d in range(1, 513) if n % d == 0)
+    fwd = build_model(cfg, dataclasses.replace(
+        model.flags, use_flash_kernel=False, flash_block=blk))
+    hidden, _ = fwd.apply(params, {"tokens": full}, mode="train")
+    logits = fwd.unembed(params, hidden[:, s - 1:]).float()  # [B, steps+1, V]
+    del hidden
+    top2 = logits.topk(2, dim=-1).values
+    # how far below the full forward's best logit each decoded token lies
+    # (0 where the two agree)
+    shortfall = top2[..., 0] - logits.gather(-1, out.long()[..., None])[..., 0]
+    agree = (logits.argmax(dim=-1) == out).float().mean().item()
+    r["greedy_vs_full_forward"] = {
+        "agreement": agree, "threshold": GREEDY_MIN_AGREEMENT,
+        "max_logit_shortfall": shortfall.max().item(),
+        "shortfall_tol": GREEDY_MAX_SHORTFALL,
+        "median_top2_gap": (top2[..., 0] - top2[..., 1]).median().item(),
+        "full_forward_block": blk}
+    del logits
+    check(agree >= GREEDY_MIN_AGREEMENT, f"greedy decode agrees with the full "
+          f"forward on {agree:.4f} of tokens, below {GREEDY_MIN_AGREEMENT}")
+    check(shortfall.max().item() <= GREEDY_MAX_SHORTFALL,
+          f"a decoded token's logit lies {shortfall.max().item()} below the "
+          f"full forward's best, more than {GREEDY_MAX_SHORTFALL}")
+    del cache
+    r["trace"] = serve_trace(eng, tokens)
+    # the same prefill check with float32 weights (35 GB): the bf16 ones go
+    del eng, params
+    torch.cuda.empty_cache()
+    model32 = build_model(cfg, dataclasses.replace(
+        model.flags, param_dtype=torch.float32))
+    params32 = model32.init(torch.Generator(device=dev).manual_seed(SEED),
+                            dev)
+    r["prefill_kernel_vs_plain"]["f32"] = prefill_vs_plain(
+        model32, params32, tokens, PREFILL_REL_TOL["f32"])
+    del params32
+    torch.cuda.empty_cache()
+    return r
+
+
+def prefill_vs_plain(model, params, tokens, tol: float) -> dict:
+    """The prefill's final hidden state through the kernel against the same
+    prefill with the kernel flag off (the plain blockwise path)."""
+    import dataclasses
+    from repro_torch.models import build_model
+    x_on, _ = model.apply(params, {"tokens": tokens}, mode="prefill")
+    off = build_model(model.cfg, dataclasses.replace(
+        model.flags, use_flash_kernel=False))
+    x_off, _ = off.apply(params, {"tokens": tokens}, mode="prefill")
+    x_on, x_off = x_on.float(), x_off.float()
+    check(bool(torch.isfinite(x_on).all()), "non-finite prefill hidden state")
+    rel = ((x_on - x_off).norm() / x_off.norm()).item()
+    check(rel <= tol, f"prefill hidden state through the kernel is {rel} "
+          f"(relative L2) from the plain path, above {tol} "
+          f"({model.flags.param_dtype})")
+    return {"rel_l2": rel, "max_abs": (x_on - x_off).abs().max().item(),
+            "tol_rel_l2": tol}
 
 
 def main() -> int:
@@ -333,19 +622,31 @@ def main() -> int:
           f"run_reference: True")
     print(f"jacobi peak device memory {peak_gb:.3f} GB; traced run: "
           + json.dumps(trace))
+    # the Jacobi runtime's objects (and their lineage records, a cycle)
+    # still hold the domain on the card
+    del rt, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 5: dense-LM serving, yi-9b at full width and depth -------------
+    srv = serve_phase(ops, Runtime, RuntimeConfig)
+    print(f"serve ({card}): " + json.dumps(srv))
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
-                "matmul": dgemm_launches["matmul"]}
-    replaces = {"jacobi3d_faces": "src/repro/kernels/jacobi3d.py:19",
-                "matmul": "src/repro/kernels/matmul.py:18"}
+                "matmul": dgemm_launches["matmul"],
+                "flash_attention": srv["launches"]["flash_attention"]}
+    sources = {"jacobi3d_faces": ("src/repro_torch/csrc/jacobi3d.cu",
+                                  "src/repro/kernels/jacobi3d.py:19"),
+               "matmul": ("src/repro_torch/csrc/matmul.cu",
+                          "src/repro/kernels/matmul.py:18"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:20")}
     kernels = [dict(
-        name=k, route="cuda",
-        source=f"src/repro_torch/csrc/{k.split('_')[0]}.cu",
-        replaces=replaces[k], launches=launches[k],
-        max_abs_err=res[k]["max_abs_err"], ms=res[k]["ms"],
-        plain_ms=res[k]["plain_ms"], bound_ms=res[k]["bound_ms"],
-        bound_by=res[k]["bound_by"], library_ms=res[k]["library_ms"])
-        for k in ("jacobi3d_faces", "matmul")]
+        name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
+        launches=launches[k], max_abs_err=res[k]["max_abs_err"],
+        ms=res[k]["ms"], plain_ms=res[k]["plain_ms"],
+        bound_ms=res[k]["bound_ms"], bound_by=res[k]["bound_by"],
+        library_ms=res[k]["library_ms"]) for k in sources]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

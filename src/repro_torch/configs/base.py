@@ -1,0 +1,125 @@
+"""Configuration dataclasses for models (the port's copy of
+``repro/configs/base.py``, without the dry-run shapes and cells).
+
+Every ported architecture has one module in this package exporting
+``CONFIG`` (the exact published configuration) and ``smoke_config()`` (a
+reduced same-family configuration for CPU tests). The port carries the
+dense decoder-only configurations its serving path runs; the others are
+still to be ported (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Layer kinds used in the per-period layer pattern.
+# ---------------------------------------------------------------------------
+GLOBAL_ATTN = "global_attn"   # full causal attention
+LOCAL_ATTN = "local_attn"     # sliding-window attention
+RGLRU = "rglru"               # RG-LRU recurrent block (recurrentgemma)
+SSD = "ssd"                   # Mamba-2 state-space duality block
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0           # 0 → d_model // n_heads
+    # Layer pattern repeated across depth, e.g. 5×local:1×global for gemma3.
+    # Length of the tuple is the "period"; remainder layers (n_layers % period)
+    # are taken from the prefix of the pattern and unrolled.
+    layer_pattern: Tuple[str, ...] = (GLOBAL_ATTN,)
+    window: int = 1024          # sliding window for LOCAL_ATTN layers
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # gating MLP (SwiGLU) unless False → GELU MLP (whisper)
+    gated_mlp: bool = True
+    # MoE / SSM / RG-LRU sub-configs of the families not ported yet; None
+    # in every ported configuration
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    rglru: Optional[Any] = None
+    # encoder-decoder (whisper): encoder layers use bidirectional attention,
+    # decoder layers add cross attention.
+    enc_dec: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500     # precomputed frame positions (audio stub)
+    # modality frontend stub: 'none' | 'vision' | 'audio'
+    frontend: str = "none"
+    frontend_tokens: int = 0    # e.g. 256 patch embeddings for vlm
+    max_seq: int = 131072
+    # Which shapes this arch supports. long_500k only for sub-quadratic stacks.
+    supports_long_context: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks + norms) of a
+        dense stack of attention + MLP layers, as the JAX package counts
+        it."""
+        d, hd = self.d_model, self.resolved_head_dim
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+        mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        return int(emb + self.n_layers * (attn + mlp + 2 * d))
+
+
+ARCH_IDS = (
+    "recurrentgemma_9b",
+    "gemma3_27b",
+    "phi4_mini_3_8b",
+    "codeqwen15_7b",
+    "yi_9b",
+    "pixtral_12b",
+    "whisper_large_v3",
+    "mamba2_370m",
+    "llama4_scout_17b_a16e",
+    "olmoe_1b_7b",
+)
+
+# CLI ids use dashes (``--arch recurrentgemma-9b``); module names use
+# underscores.
+_ALIASES = {
+    "phi4_mini_38b": "phi4_mini_3_8b",
+    "codeqwen1_5_7b": "codeqwen15_7b",
+    "llama4_scout_17b_16e": "llama4_scout_17b_a16e",
+}
+
+
+def canon(arch_id: str) -> str:
+    s = arch_id.replace("-", "_").replace(".", "_")
+    return _ALIASES.get(s, s)
+
+
+# the architectures whose every layer kind the port runs
+PORTED_ARCH_IDS = ("phi4_mini_3_8b", "codeqwen15_7b", "yi_9b")
+
+
+def _module(arch_id: str):
+    name = canon(arch_id)
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch_id!r}")
+    if name not in PORTED_ARCH_IDS:
+        raise NotImplementedError(
+            f"architecture {arch_id!r} is not ported yet; the port runs "
+            f"{PORTED_ARCH_IDS} (see ROADMAP.md Queue 1 item 6)")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).smoke_config()

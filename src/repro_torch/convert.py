@@ -1,8 +1,10 @@
 """State carried between numpy and torch.
 
-The system holds no weights: its state is numpy arrays (a Jacobi domain,
-DGEMM operands, hetero-object values). These two functions move them into
-and out of torch tensors with the dtype mapped both ways.
+``to_torch`` and ``to_numpy`` move numpy arrays (a Jacobi domain, DGEMM
+operands, hetero-object values) into and out of torch tensors with the
+dtype mapped both ways. ``lm_from_jax`` and ``cache_from_jax`` carry the
+JAX package's model weights and KV caches, handed over as trees of numpy
+arrays, into the port's layout.
 
 bfloat16 has no numpy dtype of its own. Where a numpy bfloat16 exists (it is
 registered by whichever package provides it, e.g. the one JAX ships with), it
@@ -60,7 +62,8 @@ def numpy_dtype(dtype) -> np.dtype:
         try:
             return np.dtype("bfloat16")
         except TypeError:
-            raise TypeError("numpy has no bfloat16 dtype registered in this "
+            raise TypeError("torch.bfloat16 has no numpy counterpart: numpy "
+                            "has no bfloat16 dtype registered in this "
                             "process") from None
     try:
         return _TORCH_TO_NP[dtype]
@@ -91,3 +94,36 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).numpy().view(numpy_dtype(t.dtype))
     return t.numpy()
+
+
+def lm_from_jax(tree: dict, device="cpu"):
+    """The port's weights (a ``ParamTree``) of a JAX decoder-only LM.
+
+    ``tree`` is the JAX package's ``unbox``ed parameter tree with numpy
+    leaves: ``embed``, ``final_norm``, ``unembed`` (absent when tied) and
+    ``periods``, a one-element tuple (the period of a dense stack is one
+    layer) whose block leaves carry the leading layer axis. Names and
+    layouts map one to one; values keep their dtype."""
+    from repro_torch.models.transformer import ParamTree
+    extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"})
+    if extra or len(tree["periods"]) != 1:
+        raise NotImplementedError(
+            f"only one-layer periods convert (found {extra} and "
+            f"{len(tree['periods'])} period blocks); see ROADMAP.md")
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return to_torch(np.asarray(node), device)
+
+    params = {k: conv(tree[k]) for k in ("embed", "final_norm", "unembed")
+              if k in tree}
+    params["layers"] = conv(tree["periods"][0])
+    return ParamTree(params)
+
+
+def cache_from_jax(tree: dict, device="cpu") -> dict:
+    """The port's ``{"k", "v"}: [L, B, T, KH, D]`` KV cache from the JAX
+    package's cache tree ``{"periods": ({"k": ..., "v": ...},)}``."""
+    (block,) = tree["periods"]
+    return {k: to_torch(np.asarray(block[k]), device) for k in ("k", "v")}

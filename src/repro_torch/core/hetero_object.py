@@ -17,7 +17,7 @@ from typing import Any, Dict, Optional, Set, Tuple
 
 import numpy as np
 
-from repro_torch.convert import numpy_dtype
+from repro_torch.convert import torch_dtype
 from repro_torch.core import sanitizer
 from repro_torch.core.futures import HFuture
 
@@ -53,21 +53,21 @@ class HeteroObject:
         # compiled-graph replay). Lineage records are valid for exactly
         # one generation — the cycle-safety anchor for in-place chains.
         self.generation = 0
+        # the element type is a torch dtype always (numpy dtypes are
+        # mapped): a bfloat16 object needs no numpy bfloat16 until a host
+        # copy of it is made
         if value is not None:
             value = np.asarray(value)
-            self.shape, self.dtype = value.shape, value.dtype
+            self.shape, self.dtype = value.shape, torch_dtype(value.dtype)
             self.copies[HOST] = value
         else:
             assert shape is not None and dtype is not None
-            # a numpy dtype always; torch dtypes are mapped
-            self.shape, self.dtype = tuple(shape), numpy_dtype(dtype)
+            self.shape, self.dtype = tuple(shape), torch_dtype(dtype)
 
     # ------------------------------------------------------------------
     @property
     def nbytes(self) -> int:
-        return int(np.prod(self.shape, dtype=np.int64) *
-                   np.dtype(self.dtype).itemsize) if self.shape else \
-            np.dtype(self.dtype).itemsize
+        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
 
     def valid_spaces(self) -> Set[int]:
         with self.lock:
@@ -100,7 +100,8 @@ class HeteroObject:
         self._rt._release_host(self)
 
     def get(self, timeout: Optional[float] = None) -> np.ndarray:
-        """Convenience: request, wait, copy out, release."""
+        """Convenience: request, wait, copy out, release. A bfloat16 object
+        raises ``TypeError`` where numpy has no bfloat16 registered."""
         fut = self.request_host(write=False)
         arr = np.array(fut.get(timeout))
         self.release()

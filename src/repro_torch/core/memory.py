@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, List, Tuple
 import numpy as np
 import torch
 
-from repro_torch.convert import torch_dtype
+from repro_torch.convert import numpy_dtype, torch_dtype
 from repro_torch.core import sanitizer
 
 
@@ -42,10 +42,13 @@ class StagingPool:
         self.misses = 0
 
     def acquire(self, shape: Tuple[int, ...], dtype) -> np.ndarray:
+        """A host buffer; ``dtype`` is a numpy or torch dtype (a torch
+        bfloat16 needs a numpy bfloat16 registered, or raises TypeError)."""
+        dtype = numpy_dtype(dtype)
         if not self.enabled:
             self.misses += 1
             return np.empty(shape, dtype)
-        key = (tuple(shape), np.dtype(dtype).str)
+        key = (tuple(shape), dtype.str)
         with self._lock:
             lst = self._free.get(key)
             if lst:
@@ -57,7 +60,6 @@ class StagingPool:
     def _new(self, shape: Tuple[int, ...], dtype) -> np.ndarray:
         if not self.pinned:
             return np.empty(shape, dtype)
-        dtype = np.dtype(dtype)
         # bfloat16 has no numpy counterpart torch can hand out: allocate
         # its bits and view them as the caller's dtype
         tdt = torch.int16 if dtype.name == "bfloat16" else torch_dtype(dtype)

@@ -252,7 +252,7 @@ class Runtime:
         HeteroObject without a host bounce — the receiver half of the
         distributed DIRECT payload path (paper §3.2.3)."""
         obj = HeteroObject(self, shape=tuple(dev_array.shape),
-                           dtype=numpy_dtype(dev_array.dtype), name=name)
+                           dtype=dev_array.dtype, name=name)
         self.residency.ensure_capacity(device_id, obj.nbytes, self._evict)
         with obj.lock:
             obj.copies[device_id] = dev_array
@@ -399,7 +399,14 @@ class Runtime:
         fut = self.futures.acquire()
 
         def deliver():
-            arr = self._stage_to_host(obj)
+            try:
+                arr = self._stage_to_host(obj)
+            except TypeError as e:
+                # no host dtype for the object (a bfloat16 where numpy has
+                # none registered): fail the request, drop its pin
+                self.residency.unpin(obj)
+                fut.set_error(e)
+                return
             with obj.lock:
                 if write and not arr.flags.writeable:
                     # downloads can be read-only zero-copy views of device
@@ -452,7 +459,7 @@ class Runtime:
                     elif HOST in obj.copies:
                         snap = np.array(obj.copies[HOST])
                     else:
-                        snap = np.zeros(obj.shape, obj.dtype)
+                        snap = np.zeros(obj.shape, numpy_dtype(obj.dtype))
                 if dev_sp is not None:
                     # clone must finish reading
                     self._device(dev_sp).synchronize(snap)
@@ -555,8 +562,7 @@ class Runtime:
             # no pool: still a private copy, never an aliasing view
             return np.array(device.download(dev_arr)), False
         shape = tuple(dev_arr.shape)
-        dtype = numpy_dtype(dev_arr.dtype)
-        buf = self.staging.acquire(shape, dtype)
+        buf = self.staging.acquire(shape, dev_arr.dtype)
         chunk = self.cfg.staging_chunk_bytes
         nbytes = buf.nbytes
         if (chunk <= 0 or nbytes <= chunk or buf.ndim == 0
@@ -664,7 +670,7 @@ class Runtime:
                     # any correctly-shaped array will do (and avoids
                     # recursing into the object we are recovering)
                     dev_args.append(device.upload(
-                        np.zeros(iobj.shape, iobj.dtype)))
+                        np.zeros(iobj.shape, numpy_dtype(iobj.dtype))))
             handle = device.launch(rec.kernel, tuple(dev_args), donate=())
             device.synchronize(handle)
             outs = handle if isinstance(handle, (tuple, list)) else (handle,)

@@ -23,7 +23,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points of each library: name -> argtypes (all return int, the
 # launch's cudaGetLastError())
 SIGNATURES = {
@@ -34,6 +34,10 @@ SIGNATURES = {
     "matmul": {
         "matmul_f32": [_P, _P, _P, _I, _I, _I, _P],
         "matmul_bf16": [_P, _P, _P, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
+        "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
     },
 }
 

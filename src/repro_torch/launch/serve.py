@@ -1,0 +1,103 @@
+"""Serving entry point: batched prefill + greedy decode engine
+(``repro/launch/serve.py`` at the same path), without a mesh.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
+        --device cpu --batch 4 --prompt-len 32 --gen 16
+
+Runs on the CUDA card unless ``--device cpu`` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs import canon, get_config, get_smoke_config
+from repro_torch.models import build_model, build_smoke
+from repro_torch.serve import make_decode_step, make_prefill_step
+
+
+class Engine:
+    """Minimal batched engine: one prefill, then token-by-token decode.
+    The decode cache is allocated at capacity ``[L, B, max_len, KH, D]``;
+    the prefill writes slots ``[0, S)`` and each decode step writes slot
+    ``lengths[b]``, all in place."""
+
+    def __init__(self, model, params, batch: int, max_len: int):
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.batch = batch
+        self._prefill = make_prefill_step(model)
+        self._decode = make_decode_step(model)
+
+    def prefill(self, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens [B,S] → (next token [B,1] int32, cache at capacity)."""
+        b, s = tokens.shape
+        if s > self.max_len:
+            raise ValueError(f"prompt of {s} tokens exceeds max_len "
+                             f"{self.max_len}")
+        cache = self.model.init_cache(b, self.max_len, tokens.device)
+        return self._prefill(self.params, {"tokens": tokens}, cache)
+
+    def decode(self, cache: Dict[str, torch.Tensor], cur: torch.Tensor,
+               length: int, steps: int) -> torch.Tensor:
+        """``steps`` greedy steps from token ``cur`` [B,1] at position
+        ``length``; returns their tokens [B, steps]."""
+        if length + steps > self.max_len:
+            raise ValueError(f"{length} + {steps} decode steps exceed "
+                             f"max_len {self.max_len}")
+        lengths = torch.full((cur.shape[0],), length, dtype=torch.int32,
+                             device=cur.device)
+        out = []
+        for _ in range(steps):
+            cur, cache = self._decode(self.params, cache, cur, lengths)
+            lengths = lengths + 1
+            out.append(cur)
+        return torch.cat(out, dim=1) if out else cur[:, :0]
+
+    def generate(self, tokens: torch.Tensor, gen: int) -> torch.Tensor:
+        """``gen`` tokens per request: the prefill's, then ``gen - 1``
+        decode steps. Returns [B, gen] int32."""
+        nxt, cache = self.prefill(tokens)
+        rest = self.decode(cache, nxt, tokens.shape[1], gen - 1)
+        return torch.cat([nxt, rest], dim=1)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA card: pass --device cpu to run on the host")
+    device = torch.device(args.device)
+    arch = canon(args.arch)
+    cfg = get_smoke_config(arch) if args.smoke else get_config(arch)
+    model = build_smoke(cfg) if args.smoke else build_model(cfg)
+    params = model.init(torch.Generator(device).manual_seed(0), device)
+    eng = Engine(model, params, args.batch, args.prompt_len + args.gen)
+    tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                           generator=torch.Generator(device).manual_seed(1),
+                           device=device)
+    t0 = time.perf_counter()
+    out = eng.generate(tokens, args.gen)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"generated {tuple(out.shape)} on {device} in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s)")
+    print("sample:", out[0][:12].tolist())
+    return out
+
+
+if __name__ == "__main__":
+    main()

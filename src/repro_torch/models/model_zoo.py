@@ -1,0 +1,51 @@
+"""Model facade (``repro/models/model_zoo.py`` at the same path), for the
+decoder-only architectures the port runs.
+
+``Model`` exposes:
+  init(gen, device)               -> ParamTree (the weights, an nn.Module)
+  apply(params, batch, mode, cache) -> (hidden, cache)
+  init_cache(batch, cache_len, device) -> {"k", "v"} at capacity
+  unembed(params, x)              -> logits
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.transformer import DEFAULT_FLAGS, SMOKE_FLAGS, Flags
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    flags: Flags = DEFAULT_FLAGS
+
+    def __post_init__(self):
+        T._check_supported(self.cfg)
+
+    def init(self, gen: torch.Generator, device="cuda") -> T.ParamTree:
+        return T.lm_init(gen, self.cfg, self.flags, device)
+
+    def apply(self, params: T.ParamTree, batch: Dict[str, torch.Tensor], *,
+              mode: str, cache: Optional[Dict[str, torch.Tensor]] = None):
+        return T.lm_apply(params, batch, cfg=self.cfg, mode=mode,
+                          flags=self.flags, cache=cache)
+
+    def init_cache(self, batch: int, cache_len: int, device="cuda"):
+        return T.lm_init_cache(self.cfg, batch, cache_len, self.flags,
+                               device)
+
+    def unembed(self, params: T.ParamTree, x: torch.Tensor) -> torch.Tensor:
+        return T.unembed(params, x, self.cfg)
+
+
+def build_model(cfg: ModelConfig, flags: Flags = DEFAULT_FLAGS) -> Model:
+    return Model(cfg, flags)
+
+
+def build_smoke(cfg: ModelConfig, **overrides) -> Model:
+    return Model(cfg, dataclasses.replace(SMOKE_FLAGS, **overrides))

@@ -1,0 +1,115 @@
+"""Serving steps: batched prefill and single-token greedy decode
+(``repro/serve/serve_step.py`` at the same path).
+
+``tasked_decode_loop`` drives the same decode step through the port's task
+runtime: every step is one hetero task over the model state (weights read,
+KV cache, tokens and lengths read and written), followed by
+``Runtime.step_boundary()``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models.model_zoo import Model
+from repro_torch.models.transformer import ParamTree
+
+
+def make_prefill_step(model: Model):
+    def prefill_step(params, batch: Dict[str, torch.Tensor], cache):
+        """Returns (next_token [B,1] int32, cache after prefill)."""
+        x, new_cache = model.apply(params, batch, mode="prefill",
+                                   cache=cache)
+        logits = model.unembed(params, x[:, -1:])
+        return logits.argmax(dim=-1).to(torch.int32), new_cache
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    def decode_step(params, cache, tokens: torch.Tensor,
+                    lengths: torch.Tensor):
+        """tokens: [B,1] current token; lengths: [B] tokens so far.
+        Returns (next_token [B,1] int32, cache), the cache written in
+        place at slot ``lengths[b]``."""
+        batch = {"tokens": tokens, "lengths": lengths}
+        x, new_cache = model.apply(params, batch, mode="decode", cache=cache)
+        logits = model.unembed(params, x)
+        return logits.argmax(dim=-1).to(torch.int32), new_cache
+    return decode_step
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = ""
+             ) -> List[Tuple[str, torch.Tensor]]:
+    out = []
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out += _flatten(val, f"{prefix}{key}.")
+        else:
+            out.append((f"{prefix}{key}", val))
+    return out
+
+
+def _unflatten(names: List[str], leaves) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name, leaf in zip(names, leaves, strict=True):
+        *path, last = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def _device_id(runtime, device: torch.device) -> int:
+    for d in runtime.devices:
+        if d.torch_device == device:
+            return d.info.device_id
+    raise ValueError(f"no runtime device holds {device}")
+
+
+def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
+                       lengths, n_steps: int,
+                       device_type: Optional[str] = None,
+                       timeout: float = 120.0):
+    """Run ``n_steps`` of greedy single-token decode as hetero tasks.
+
+    The weights, the cache ``{"k", "v"}``, ``tokens`` [B,1] and ``lengths``
+    [B] (int32) are tensors on one device; each is adopted in place as a
+    hetero object on the runtime device that holds it, so nothing
+    round-trips through the host. Each step submits ONE task over them
+    (weights read, the rest read-write: the cache is donated and written in
+    place, not copied). Returns ``(tokens_obj, lengths_obj, cache_objs)``
+    after the loop's barrier; ``cache_objs`` is ``{"k": obj, "v": obj}``."""
+    decode = make_decode_step(model)
+    tree = params.tree() if isinstance(params, ParamTree) else params
+    named = _flatten(tree)
+    names = [n for n, _ in named]
+    n_p = len(named)
+    dev = _device_id(runtime, tokens.device)
+    p_objs = [runtime.adopt_device_array(t, dev, name=f"dec-p:{n}")
+              for n, t in named]
+    c_objs = {key: runtime.adopt_device_array(cache[key], dev,
+                                              name=f"dec-kv:{key}")
+              for key in ("k", "v")}
+    tok_obj = runtime.adopt_device_array(tokens, dev, name="dec-tok")
+    len_obj = runtime.adopt_device_array(lengths, dev, name="dec-len")
+
+    # one kernel object for the whole loop: the device's launcher cache
+    # hits every step
+    def step_kernel(tok, lens, *leaves):
+        params_ = _unflatten(names, leaves[:n_p])
+        cache_ = {"k": leaves[n_p], "v": leaves[n_p + 1]}
+        new_tok, new_cache = decode(params_, cache_, tok, lens)
+        # outputs bind to the write-args in arg order: tok, lens, k, v
+        return new_tok, lens + 1, new_cache["k"], new_cache["v"]
+
+    args = ([(tok_obj, "rw"), (len_obj, "rw")]
+            + [(o, "r") for o in p_objs]
+            + [(c_objs["k"], "rw"), (c_objs["v"], "rw")])
+    for _ in range(n_steps):
+        runtime.run(step_kernel, args, device_type=device_type,
+                    name="decode_step")
+        runtime.step_boundary()
+    runtime.barrier(timeout=timeout)
+    return tok_obj, len_obj, c_objs

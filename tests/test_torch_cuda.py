@@ -83,6 +83,79 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ops.jacobi3d_faces(u, *[torch.ones((4, 3), device=cuda)] * 6)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,t,d,causal", [(128, 128, 64, True),
+                                          (256, 128, 8, False),
+                                          (64, 192, 12, True),
+                                          (192, 192, 128, True)])
+def test_flash_attention_close_to_plain(cuda, dtype, tol, s, t, d, causal):
+    """The Pallas contract [BH, S, D]; the plain version walks the same
+    64-wide kv tiles, so only the sum order inside a dot product differs
+    (f32), and where that flips a bf16 rounding of p or of the output, a
+    bf16 ulp (bf16)."""
+    g = torch.Generator(device=cuda).manual_seed(s + t + d)
+    q, k, v = (torch.randn((3, n, d), generator=g, device=cuda).to(dtype)
+               for n in (s, t, t))
+    n = LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert LAUNCHES["flash_attention"] == n + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ops.flash_attention_plain(q[:, :, None, None], k[:, :, None],
+                                     v[:, :, None], causal=causal)[:, :, 0, 0]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_flash_attention_gqa_close_to_plain(cuda, g):
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    q = torch.randn((2, 256, 2, g, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 256, 2, 128), generator=gen, device=cuda)
+            for _ in range(2))
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+        got = ops.flash_attention_gqa(qq, kk, vv)
+        want = ops.flash_attention_plain(qq, kk, vv)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    x = torch.ones((2, 96, 64), device=cuda)                 # S % 64
+    with pytest.raises(ValueError):
+        ops.flash_attention(x, x, x)
+    y = torch.ones((2, 128, 160), device=cuda)               # D > 128
+    with pytest.raises(ValueError):
+        ops.flash_attention(y, y, y)
+    z = torch.ones((2, 128, 64), device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(z, z.half(), z)
+    with pytest.raises(ValueError):
+        ops.flash_attention(z, z.transpose(1, 2).contiguous().transpose(1, 2),
+                            z)
+
+
+def test_serve_prefill_goes_through_the_kernel(cuda):
+    """A smoke model on the card: one kernel launch per layer in a prefill
+    of 128 tokens, and the same hidden state as the plain path."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    cfg = get_smoke_config("yi-9b")
+    on = build_smoke(cfg, use_flash_kernel=True)
+    off = build_smoke(cfg)
+    params = on.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 128), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    n = LAUNCHES["flash_attention"]
+    x_on, _ = on.apply(params, {"tokens": toks}, mode="prefill")
+    assert LAUNCHES["flash_attention"] == n + cfg.n_layers
+    x_off, _ = off.apply(params, {"tokens": toks}, mode="prefill")
+    torch.testing.assert_close(x_on, x_off, rtol=1e-4, atol=1e-4)
+    out = Engine(on, params, 2, 136).generate(toks, 8)
+    assert out.shape == (2, 8) and out.device.type == "cuda"
+
+
 # ---------------------------------------------------------------------------
 # Device API and runtime
 # ---------------------------------------------------------------------------

@@ -62,7 +62,7 @@ def test_raw_dependency_order(rt):
     rt.run(add_one, [(x, "r"), (y, "w")])
     rt.run(scale, [(y, "r"), (z, "w")])
     rt.barrier()
-    assert z.dtype == np.float32
+    assert z.dtype == torch.float32      # objects carry torch dtypes
     np.testing.assert_allclose(z.get(), 2.0)
 
 
@@ -481,3 +481,52 @@ def test_port_runtime_passes_the_runtime_lint(monkeypatch, tmp_path):
                         {"src/repro_torch/core/sanitizer.py"})
     monkeypatch.setattr(lint_runtime, "ALLOWLIST", tmp_path / "none.txt")
     assert lint_runtime.run() == 0
+
+
+_BF16_NO_NUMPY = r"""
+import sys
+import numpy as np
+import torch
+from repro_torch.core import Runtime, RuntimeConfig
+assert "jax" not in sys.modules and "ml_dtypes" not in sys.modules
+try:
+    np.dtype("bfloat16")
+    raise SystemExit("numpy has a bfloat16 here: the test shows nothing")
+except TypeError:
+    pass
+with Runtime(RuntimeConfig(device="cpu", cpu_devices=2,
+                           memory_capacity=1 << 26)) as rt:
+    x = rt.adopt_device_array(
+        torch.arange(8, dtype=torch.bfloat16).reshape(2, 4), name="x")
+    assert x.dtype == torch.bfloat16 and x.nbytes == 16
+    rt.run(lambda v: v * 2 + 1, [(x, "rw")])
+    s = rt.hetero_object(shape=(2,), dtype=np.float32, name="s")
+    rt.run(lambda v, out: v.float().sum(dim=1), [(x, "r"), (s, "w")])
+    rt.barrier()
+    got = s.get()
+    try:
+        x.get()
+        raise SystemExit("reading a bf16 object back did not raise")
+    except TypeError as e:
+        assert "bfloat16" in str(e), e
+    assert rt.stats()["pinned_objects"] == 0
+print("sums", got.tolist())
+"""
+
+
+def test_bf16_objects_need_no_numpy_bfloat16():
+    """In a process that never imports jax or ml_dtypes (numpy then has
+    no bfloat16), a bf16 tensor is adopted, written in place by a task and
+    read by a later task into a float32 object; reading the bf16 object
+    itself back to the host raises a TypeError that names the dtype."""
+    import os
+    import subprocess
+    import sys
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    out = subprocess.run([sys.executable, "-c", _BF16_NO_NUMPY],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=str(repo))
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    # rows [0..3] and [4..7], each value v -> 2v + 1
+    assert "sums [16.0, 48.0]" in out.stdout

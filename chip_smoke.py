@@ -16,7 +16,12 @@ port's main path through the tasking runtime:
     (48 ``flash_attention`` launches) and decodes 32 steps; the prefill
     must match the plain attention path, the greedy tokens the argmax of a
     full forward, and ``tasked_decode_loop`` through the runtime the
-    Engine's tokens and KV cache.
+    Engine's tokens and KV cache;
+  * Mamba-2 serving of mamba2-370m at full width and depth (48 SSD layers,
+    bf16 weights from a seed): the ``Engine`` prefills 8 prompts of 4096
+    tokens (48 ``ssd_chunk`` launches, 16 chunks each) and decodes 32
+    steps with the constant-size recurrent state; the same checks as
+    yi-9b's, on the conv and state caches.
 
 Launch counters are zeroed just before each main-path run and read just
 after. The second-to-last line is a JSON object with one entry per kernel of
@@ -32,6 +37,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,6 +46,13 @@ SEED = 0
 JACOBI_N, JACOBI_OD, JACOBI_ITERS = 768, 8, 10
 DGEMM_N = 4096
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = "yi-9b", 4, 2048, 32
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS = "mamba2-370m", 8, 4096, 32
+# ssd_chunk shapes (bc, q, h, p, n) checked in phase 2: the mamba2 prefill's
+# (8 requests x 16 chunks), the mamba2 smoke config's, the three of
+# tests/test_kernels.py and a ragged chunk (a prompt shorter than 256)
+SSD_MAIN = (SSM_BATCH * SSM_PROMPT // 256, 256, 32, 64, 128)
+SSD_SHAPES = (SSD_MAIN, (4, 16, 4, 32, 16), (2, 16, 4, 8, 16),
+              (1, 32, 2, 16, 8), (4, 8, 8, 4, 4), (8, 100, 32, 64, 128))
 # bf16 tolerances, each against a plain PyTorch version on the card:
 #  - flash kernel output: 2e-2 absolute and relative. Kernel and plain walk
 #    the same 64-wide kv tiles; only the float32 sum order inside a dot
@@ -56,6 +69,17 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = "yi-9b", 4, 2048, 32
 #    between the decode and the full-forward attention paths can flip.
 FLASH_TOL = {"f32": 1e-4, "bf16": 2e-2}
 PREFILL_REL_TOL = {"bf16": 5e-2, "f32": 1e-4}
+#  - ssd_chunk output: largest difference at most 1e-4 of the output's
+#    largest magnitude. Kernel and plain version share cs (a float64 scan
+#    rounded to float32); only the float32 sum order of the products
+#    differs.
+#  - mamba2 prefill hidden state, ssd kernel on vs off (the einsum path),
+#    relative L2: 1e-4 with float32 weights (sum order of the intra-chunk
+#    products only). In bf16, 5e-2: both paths compute the scan in float32
+#    but round its output to bf16, so a sum-order difference can flip a
+#    bf16 rounding that 48 random layers then carry forward.
+SSD_TOL = 1e-4
+SSM_PREFILL_REL_TOL = {"bf16": 5e-2, "f32": 1e-4}
 GREEDY_MIN_AGREEMENT = 0.9
 GREEDY_MAX_SHORTFALL = 0.25
 
@@ -254,6 +278,7 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
         del a, b, got, want
 
     res.update(flash_checks(ops, gen, fp32, bf16, mem_rate))
+    res["ssd_chunk"] = ssd_checks(ops, gen, fp32, mem_rate)
     return res
 
 
@@ -316,10 +341,76 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
     return res
 
 
-def _trace_summary(prof, lo_name: str) -> dict:
+def ssd_inputs(gen, bc, q, h, p, n, model_like: bool):
+    """x, dt, A, B, C on the card. ``model_like`` draws dt and A as the
+    mamba2 block makes them (softplus around dt_bias = log(expm1(0.01)),
+    A = -linspace(1, 16)); otherwise as tests/test_kernels.py does."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    x = torch.randn((bc, q, h, p), generator=gen, device=dev)
+    r = torch.randn((bc, q, h), generator=gen, device=dev)
+    if model_like:
+        dt = F.softplus(r + float(np.log(np.expm1(0.01))))
+        A = -torch.linspace(1.0, 16.0, h, device=dev)
+    else:
+        dt = F.softplus(r)
+        A = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    B = torch.randn((bc, q, n), generator=gen, device=dev)
+    C = torch.randn((bc, q, n), generator=gen, device=dev)
+    return x, dt, A, B, C
+
+
+def ssd_work(bc, q, h, p, n):
+    """(bytes, flops) of one ssd_chunk call: each input read once and each
+    output written once; the products C·Bᵀ over the causal half, w·xdt
+    over it, and the states contraction (the elementwise decay and
+    exponentials, about 1/p of these, are not counted)."""
+    pairs = q * (q + 1) / 2
+    flops = 2 * bc * (pairs * n + h * pairs * p + h * q * p * n)
+    nbytes = 4 * (2 * bc * q * h * p + bc * q * h + h + 2 * bc * q * n
+                  + bc * h * p * n)
+    return nbytes, flops
+
+
+def ssd_checks(ops, gen, fp32, mem_rate) -> dict:
+    """ssd_chunk against its plain version at every shape of SSD_SHAPES,
+    with test-style and model-style dt and A; times at the main path's
+    shape with model-style inputs. No one PyTorch call computes this
+    function, so there is no library time."""
+    worst = {}
+    for shape in SSD_SHAPES:
+        for model_like in (False, True):
+            args = ssd_inputs(gen, *shape, model_like)
+            y, st = ops.ssd_chunk(*args)
+            wy, wst = ops.ssd_chunk_plain(*args)
+            torch.cuda.synchronize()
+            for got, want, what in ((y, wy, "y"), (st, wst, "states")):
+                check(bool(torch.isfinite(got).all()),
+                      f"ssd_chunk {shape}: non-finite {what}")
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                check(err <= SSD_TOL * scale, f"ssd_chunk {shape} {what}: "
+                      f"max err {err} above {SSD_TOL} x {scale}")
+                key = f"{'x'.join(map(str, shape))}/{what}"
+                worst[key] = max(worst.get(key, 0.0), err / scale)
+            if shape == SSD_MAIN and model_like:
+                main_err = max((y - wy).abs().max().item(),
+                               (st - wst).abs().max().item())
+            del args, y, st, wy, wst
+    args = ssd_inputs(gen, *SSD_MAIN, True)
+    b_ms, b_by = bound(*ssd_work(*SSD_MAIN), fp32, mem_rate)
+    return dict(
+        shape=list(SSD_MAIN), dtype="torch.float32", max_abs_err=main_err,
+        tol=f"{SSD_TOL} x max|plain|", rel_err_by_shape=worst,
+        ms=time_ms(functools.partial(ops.ssd_chunk, *args), 10),
+        plain_ms=time_ms(functools.partial(ops.ssd_chunk_plain, *args), 3),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def _trace_summary(prof, lo_name: Optional[str] = None) -> dict:
     """Device time of a traced window: its span, the union of its kernels
     and copies (busy), the idle share, the time of kernels whose name holds
-    ``lo_name`` and the six names that took longest."""
+    ``lo_name`` (where given) and the six names that took longest."""
     dev = [(e.name, e.time_range.start, e.time_range.end)
            for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -330,46 +421,59 @@ def _trace_summary(prof, lo_name: str) -> dict:
     names: dict = {}
     for n, a, b in dev:
         names[n[:60]] = names.get(n[:60], 0.0) + (b - a) / 1e3
-    named = sum(b - a for n, a, b in dev if lo_name in n) / 1e3
-    return {"span_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1.0 - busy / (hi - lo),
-            f"{lo_name}_ms": named,
-            f"{lo_name}_share_of_busy": named / (busy / 1e3),
-            "by_name_ms": {k: round(v, 3) for k, v in sorted(
-                names.items(), key=lambda kv: -kv[1])[:6]}}
+    out = {"span_ms": (hi - lo) / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1.0 - busy / (hi - lo),
+           "by_name_ms": {k: round(v, 3) for k, v in sorted(
+               names.items(), key=lambda kv: -kv[1])[:6]}}
+    if lo_name is not None:
+        named = sum(b - a for n, a, b in dev if lo_name in n) / 1e3
+        out[f"{lo_name}_ms"] = named
+        out[f"{lo_name}_share_of_busy"] = named / (busy / 1e3)
+    return out
 
 
-def serve_trace(eng, tokens) -> dict:
+def serve_trace(eng, tokens, kernel: str) -> dict:
     """A traced prefill and four traced decode steps, after the main run:
-    where the device time of each goes."""
+    where the device time of each goes (``kernel``: the prefill kernels'
+    name fragment)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         nxt, cache = eng.prefill(tokens)
         torch.cuda.synchronize()
-    out = {"prefill": _trace_summary(prof, "flash_kernel")}
+    out = {"prefill": _trace_summary(prof, kernel)}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.decode(cache, nxt, tokens.shape[1], 4)
         torch.cuda.synchronize()
-    out["decode_4_steps"] = _trace_summary(prof, "gemm")
+    out["decode_4_steps"] = _trace_summary(prof)
     return out
 
 
-def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
-    """Phase 5: yi-9b at full width and depth through the Engine (the main
-    path), then the checks and the tasked decode loop from the same
-    prefill state."""
+# the serving phases: (arch, batch, prompt tokens, decode steps, the kernel
+# flag, the kernel's LAUNCHES key, its name in a trace, prefill tolerances)
+SERVE_SPECS = {
+    5: (SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, "use_flash_kernel",
+        "flash_attention", "flash_kernel", PREFILL_REL_TOL),
+    6: (SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS, "use_ssd_kernel",
+        "ssd_chunk", "ssd_", SSM_PREFILL_REL_TOL),   # ssd_y + ssd_states
+}
+
+
+def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
+    """Phase 5 (yi-9b) or 6 (mamba2-370m) at full width and depth through
+    the Engine (the main path), then the checks and the tasked decode loop
+    from the same prefill state."""
     import dataclasses
-    from repro_torch.configs import get_config
+    from repro_torch.configs import GLOBAL_ATTN, get_config
     from repro_torch.launch.serve import Engine
     from repro_torch.models import build_model
     from repro_torch.serve import tasked_decode_loop
+    arch, b, s, steps, flag, kernel, trace_name, tols = SERVE_SPECS[phase]
     dev = torch.device("cuda")
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
-    check(model.flags.use_flash_kernel
+    check(getattr(model.flags, flag)
           and model.flags.param_dtype == torch.bfloat16,
-          f"serve flags {model.flags}: want bf16 and the flash kernel")
-    b, s, steps = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+          f"serve flags {model.flags}: want bf16 and {flag}")
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
@@ -395,6 +499,7 @@ def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
     nxt, cache = eng.prefill(tokens)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    r["launches_in_prefill"] = dict(ops.LAUNCHES)
     start_cache = {k: v.clone() for k, v in cache.items()}
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -403,20 +508,23 @@ def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
     t3 = time.perf_counter()
     r["launches"] = dict(ops.LAUNCHES)
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    r["kv_cache_gb"] = sum(v.numel() * v.element_size()
-                           for v in cache.values()) / 1e9
+    r["cache_gb"] = {k: v.numel() * v.element_size() / 1e9
+                     for k, v in cache.items()}
     r["prefill_ms"] = (t1 - t0) * 1e3
     r["prefill_tok_s"] = b * s / (t1 - t0)
     r["decode_ms_per_step"] = (t3 - t2) * 1e3 / steps
     r["decode_tok_s"] = b * steps / (t3 - t2)
     out = torch.cat([nxt, rest], dim=1)                   # [B, steps + 1]
-    check(r["launches"]["flash_attention"] == cfg.n_layers,
-          f"serve launched flash_attention {r['launches']['flash_attention']}"
-          f" times, not {cfg.n_layers}")
+    check(r["launches"][kernel] == cfg.n_layers
+          and r["launches_in_prefill"][kernel] == cfg.n_layers,
+          f"serve launched {kernel} {r['launches'][kernel]} times "
+          f"({r['launches_in_prefill'][kernel]} in the prefill), not "
+          f"{cfg.n_layers} (all in the prefill)")
     check(out.shape == (b, steps + 1) and bool(
         ((out >= 0) & (out < cfg.vocab)).all()), "tokens out of range")
 
     # -- the same decode as hetero tasks, from the same prefill state --
+    keys = sorted(cache)
     rt = Runtime(RuntimeConfig())
     try:
         t0 = time.perf_counter()
@@ -427,16 +535,18 @@ def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
         r["tasked_decode_ms_per_step"] = \
             (time.perf_counter() - t0) * 1e3 / steps
         tasked_tok, tasked_len = tok_obj.get(), len_obj.get()
-        # compare the KV caches on the card, through the runtime
+        # compare the caches on the card, through the runtime
         ref = {k: rt.adopt_device_array(cache[k], 0, name=f"engine-{k}")
-               for k in ("k", "v")}
-        diff = rt.hetero_object(shape=(2,), dtype=np.int64, name="kv-diff")
-        rt.run(lambda k, v, rk, rv, _: torch.stack(
-            [(k != rk).sum(), (v != rv).sum()]),
-            [(c_objs["k"], "r"), (c_objs["v"], "r"), (ref["k"], "r"),
-             (ref["v"], "r"), (diff, "w")])
+               for k in keys}
+        diff = rt.hetero_object(shape=(len(keys),), dtype=np.int64,
+                                name="cache-diff")
+        n_k = len(keys)
+        rt.run(lambda *a: torch.stack([(a[i] != a[n_k + i]).sum()
+                                       for i in range(n_k)]),
+               [(c_objs[k], "r") for k in keys]
+               + [(ref[k], "r") for k in keys] + [(diff, "w")])
         rt.barrier()
-        kv_diff = diff.get().tolist()
+        cache_diff = dict(zip(keys, diff.get().tolist(), strict=True))
         stats = rt.stats()
     finally:
         rt.shutdown()
@@ -449,20 +559,26 @@ def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
           f"tasked decode's last tokens {tasked_tok.ravel().tolist()} != "
           f"Engine's {out[:, -1].tolist()}")
     check(bool((tasked_len == s + steps).all()), f"tasked lengths {tasked_len}")
-    check(kv_diff == [0, 0], f"tasked KV cache differs from the Engine's at "
-          f"{kv_diff} elements (k, v)")
+    check(not any(cache_diff.values()), f"tasked cache differs from the "
+          f"Engine's at {cache_diff} elements")
     r["tasked_equals_engine"] = True
 
     # -- prefill through the kernel vs the plain path on the card --
     r["prefill_kernel_vs_plain"] = {"bf16": prefill_vs_plain(
-        model, params, tokens, PREFILL_REL_TOL["bf16"])}
+        model, params, tokens, tols["bf16"], flag)}
 
     # -- greedy decode vs argmax of a full forward over prompt + tokens --
     full = torch.cat([tokens, out[:, :-1]], dim=1)
     n = full.shape[1]
-    blk = max(d for d in range(1, 513) if n % d == 0)
-    fwd = build_model(cfg, dataclasses.replace(
-        model.flags, use_flash_kernel=False, flash_block=blk))
+    fwd_flags = model.flags
+    if cfg.layer_pattern == (GLOBAL_ATTN,):
+        # the flash kernel takes multiples of 64 only: the plain path, in
+        # the largest block that divides prompt + steps
+        blk = max(d for d in range(1, 513) if n % d == 0)
+        fwd_flags = dataclasses.replace(fwd_flags, use_flash_kernel=False,
+                                        flash_block=blk)
+        r["full_forward_block"] = blk
+    fwd = build_model(cfg, fwd_flags)
     hidden, _ = fwd.apply(params, {"tokens": full}, mode="train")
     logits = fwd.unembed(params, hidden[:, s - 1:]).float()  # [B, steps+1, V]
     del hidden
@@ -475,8 +591,7 @@ def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
         "agreement": agree, "threshold": GREEDY_MIN_AGREEMENT,
         "max_logit_shortfall": shortfall.max().item(),
         "shortfall_tol": GREEDY_MAX_SHORTFALL,
-        "median_top2_gap": (top2[..., 0] - top2[..., 1]).median().item(),
-        "full_forward_block": blk}
+        "median_top2_gap": (top2[..., 0] - top2[..., 1]).median().item()}
     del logits
     check(agree >= GREEDY_MIN_AGREEMENT, f"greedy decode agrees with the full "
           f"forward on {agree:.4f} of tokens, below {GREEDY_MIN_AGREEMENT}")
@@ -484,8 +599,8 @@ def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
           f"a decoded token's logit lies {shortfall.max().item()} below the "
           f"full forward's best, more than {GREEDY_MAX_SHORTFALL}")
     del cache
-    r["trace"] = serve_trace(eng, tokens)
-    # the same prefill check with float32 weights (35 GB): the bf16 ones go
+    r["trace"] = serve_trace(eng, tokens, trace_name)
+    # the same prefill check with float32 weights: the bf16 ones go
     del eng, params
     torch.cuda.empty_cache()
     model32 = build_model(cfg, dataclasses.replace(
@@ -493,20 +608,20 @@ def serve_phase(ops, Runtime, RuntimeConfig) -> dict:
     params32 = model32.init(torch.Generator(device=dev).manual_seed(SEED),
                             dev)
     r["prefill_kernel_vs_plain"]["f32"] = prefill_vs_plain(
-        model32, params32, tokens, PREFILL_REL_TOL["f32"])
+        model32, params32, tokens, tols["f32"], flag)
     del params32
     torch.cuda.empty_cache()
     return r
 
 
-def prefill_vs_plain(model, params, tokens, tol: float) -> dict:
+def prefill_vs_plain(model, params, tokens, tol: float, flag: str) -> dict:
     """The prefill's final hidden state through the kernel against the same
-    prefill with the kernel flag off (the plain blockwise path)."""
+    prefill with the kernel ``flag`` off (the plain path)."""
     import dataclasses
     from repro_torch.models import build_model
     x_on, _ = model.apply(params, {"tokens": tokens}, mode="prefill")
-    off = build_model(model.cfg, dataclasses.replace(
-        model.flags, use_flash_kernel=False))
+    off = build_model(model.cfg, dataclasses.replace(model.flags,
+                                                     **{flag: False}))
     x_off, _ = off.apply(params, {"tokens": tokens}, mode="prefill")
     x_on, x_off = x_on.float(), x_off.float()
     check(bool(torch.isfinite(x_on).all()), "non-finite prefill hidden state")
@@ -629,18 +744,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 5: dense-LM serving, yi-9b at full width and depth -------------
-    srv = serve_phase(ops, Runtime, RuntimeConfig)
+    srv = serve_phase(ops, Runtime, RuntimeConfig, 5)
     print(f"serve ({card}): " + json.dumps(srv))
+
+    # -- phase 6: Mamba-2 serving, mamba2-370m at full width and depth -------
+    ssm = serve_phase(ops, Runtime, RuntimeConfig, 6)
+    print(f"serve ssm ({card}): " + json.dumps(ssm))
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],
-                "flash_attention": srv["launches"]["flash_attention"]}
+                "flash_attention": srv["launches"]["flash_attention"],
+                "ssd_chunk": ssm["launches"]["ssd_chunk"]}
     sources = {"jacobi3d_faces": ("src/repro_torch/csrc/jacobi3d.cu",
                                   "src/repro/kernels/jacobi3d.py:19"),
                "matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:20")}
+                                   "src/repro/kernels/flash_attention.py:20"),
+               "ssd_chunk": ("src/repro_torch/csrc/ssd.cu",
+                             "src/repro/kernels/ssd.py:22")}
     kernels = [dict(
         name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
         launches=launches[k], max_abs_err=res[k]["max_abs_err"],

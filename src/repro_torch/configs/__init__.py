@@ -7,6 +7,7 @@ from repro_torch.configs.base import (  # noqa: F401
     RGLRU,
     SSD,
     ModelConfig,
+    SSMConfig,
     canon,
     get_config,
     get_smoke_config,

@@ -4,8 +4,9 @@
 Every ported architecture has one module in this package exporting
 ``CONFIG`` (the exact published configuration) and ``smoke_config()`` (a
 reduced same-family configuration for CPU tests). The port carries the
-dense decoder-only configurations its serving path runs; the others are
-still to be ported (``ROADMAP.md``).
+decoder-only configurations its serving path runs (dense global-attention
+stacks and the Mamba-2 SSD stack); the others are still to be ported
+(``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,16 @@ GLOBAL_ATTN = "global_attn"   # full causal attention
 LOCAL_ATTN = "local_attn"     # sliding-window attention
 RGLRU = "rglru"               # RG-LRU recurrent block (recurrentgemma)
 SSD = "ssd"                   # Mamba-2 state-space duality block
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    expand: int = 2
+    headdim: int = 64          # mamba2 P (head dim)
+    chunk_size: int = 256      # SSD chunk length
+    conv_width: int = 4
+    ngroups: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,10 +54,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     # gating MLP (SwiGLU) unless False → GELU MLP (whisper)
     gated_mlp: bool = True
-    # MoE / SSM / RG-LRU sub-configs of the families not ported yet; None
-    # in every ported configuration
+    # MoE / RG-LRU sub-configs of the families not ported yet; None in
+    # every ported configuration
     moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     rglru: Optional[Any] = None
     # encoder-decoder (whisper): encoder layers use bidirectional attention,
     # decoder layers add cross attention.
@@ -64,15 +75,30 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def attention_free(self) -> bool:
+        return all(k in (SSD, RGLRU) for k in self.layer_pattern)
+
     def param_count(self) -> int:
-        """Approximate parameter count (embedding + blocks + norms) of a
-        dense stack of attention + MLP layers, as the JAX package counts
-        it."""
+        """Approximate parameter count (embedding + blocks + norms), as the
+        JAX package counts it, for stacks of attention + MLP and of SSD
+        layers."""
         d, hd = self.d_model, self.resolved_head_dim
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
         mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
-        return int(emb + self.n_layers * (attn + mlp + 2 * d))
+        per_layer = {GLOBAL_ATTN: attn + mlp, LOCAL_ATTN: attn + mlp}
+        if self.ssm is not None:
+            di = self.ssm.expand * d
+            nh = di // self.ssm.headdim
+            in_proj = d * (2 * di + 2 * self.ssm.ngroups * self.ssm.d_state
+                           + nh)
+            per_layer[SSD] = in_proj + di * d + di * self.ssm.conv_width
+        total = emb
+        for i in range(self.n_layers):
+            kind = self.layer_pattern[i % len(self.layer_pattern)]
+            total += per_layer[kind] + 2 * d  # norms
+        return int(total)
 
 
 ARCH_IDS = (
@@ -103,7 +129,8 @@ def canon(arch_id: str) -> str:
 
 
 # the architectures whose every layer kind the port runs
-PORTED_ARCH_IDS = ("phi4_mini_3_8b", "codeqwen15_7b", "yi_9b")
+PORTED_ARCH_IDS = ("phi4_mini_3_8b", "codeqwen15_7b", "yi_9b",
+                   "mamba2_370m")
 
 
 def _module(arch_id: str):

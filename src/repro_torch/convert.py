@@ -3,8 +3,8 @@
 ``to_torch`` and ``to_numpy`` move numpy arrays (a Jacobi domain, DGEMM
 operands, hetero-object values) into and out of torch tensors with the
 dtype mapped both ways. ``lm_from_jax`` and ``cache_from_jax`` carry the
-JAX package's model weights and KV caches, handed over as trees of numpy
-arrays, into the port's layout.
+JAX package's model weights and caches (KV, or SSD conv and state), handed
+over as trees of numpy arrays, into the port's layout.
 
 bfloat16 has no numpy dtype of its own. Where a numpy bfloat16 exists (it is
 registered by whichever package provides it, e.g. the one JAX ships with), it
@@ -96,20 +96,33 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+# block layouts the port runs: global attention + MLP, and Mamba-2 SSD
+_BLOCK_KEYS = ({"norm1", "attn", "norm2", "mlp"}, {"norm1", "ssd"})
+_CACHE_KEYS = ({"k", "v"}, {"conv", "state"})
+
+
 def lm_from_jax(tree: dict, device="cpu"):
     """The port's weights (a ``ParamTree``) of a JAX decoder-only LM.
 
     ``tree`` is the JAX package's ``unbox``ed parameter tree with numpy
     leaves: ``embed``, ``final_norm``, ``unembed`` (absent when tied) and
-    ``periods``, a one-element tuple (the period of a dense stack is one
-    layer) whose block leaves carry the leading layer axis. Names and
-    layouts map one to one; values keep their dtype."""
+    ``periods``, a one-element tuple (the period of these stacks is one
+    layer) whose block leaves carry the leading layer axis: ``norm1``,
+    ``attn``, ``norm2``, ``mlp`` for a dense block, ``norm1`` and ``ssd``
+    (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``,
+    ``norm``, ``out_proj``) for an SSD block. Names and layouts map one to
+    one; values keep their dtype."""
     from repro_torch.models.transformer import ParamTree
     extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"})
     if extra or len(tree["periods"]) != 1:
         raise NotImplementedError(
             f"only one-layer periods convert (found {extra} and "
             f"{len(tree['periods'])} period blocks); see ROADMAP.md")
+    block = tree["periods"][0]
+    if set(block) not in _BLOCK_KEYS:
+        raise NotImplementedError(
+            f"block layout {sorted(block)} is not ported; the port runs "
+            f"{[sorted(k) for k in _BLOCK_KEYS]} (see ROADMAP.md)")
 
     def conv(node):
         if isinstance(node, dict):
@@ -118,12 +131,17 @@ def lm_from_jax(tree: dict, device="cpu"):
 
     params = {k: conv(tree[k]) for k in ("embed", "final_norm", "unembed")
               if k in tree}
-    params["layers"] = conv(tree["periods"][0])
+    params["layers"] = conv(block)
     return ParamTree(params)
 
 
 def cache_from_jax(tree: dict, device="cpu") -> dict:
-    """The port's ``{"k", "v"}: [L, B, T, KH, D]`` KV cache from the JAX
-    package's cache tree ``{"periods": ({"k": ..., "v": ...},)}``."""
+    """The port's cache from the JAX package's cache tree
+    ``{"periods": (block,)}``: ``{"k", "v"}: [L, B, T, KH, D]`` for a KV
+    cache, ``{"conv": [L, B, W-1, C], "state": [L, B, H, P, N]}`` for an SSD
+    cache."""
     (block,) = tree["periods"]
-    return {k: to_torch(np.asarray(block[k]), device) for k in ("k", "v")}
+    if set(block) not in _CACHE_KEYS:
+        raise NotImplementedError(
+            f"cache layout {sorted(block)} is not ported (see ROADMAP.md)")
+    return {k: to_torch(np.asarray(block[k]), device) for k in sorted(block)}

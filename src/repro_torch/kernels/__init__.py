@@ -10,7 +10,7 @@ went through the kernels.
 import threading
 
 LAUNCHES = {"jacobi3d": 0, "jacobi3d_faces": 0, "matmul": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "ssd_chunk": 0}
 _launch_lock = threading.Lock()
 
 

@@ -39,6 +39,9 @@ SIGNATURES = {
         "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
         "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
     },
+    "ssd": {
+        "ssd_chunk_f32": [_P] * 7 + [_I] * 5 + [_P],
+    },
 }
 
 _lock = threading.Lock()

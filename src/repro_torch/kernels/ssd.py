@@ -1,0 +1,108 @@
+"""Mamba-2 SSD intra-chunk form: the CUDA kernel (``csrc/ssd.cu``) and its
+plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``_ssd_chunk_kernel`` / ``ssd_chunk`` of
+``repro/kernels/ssd.py``. For every (batch x chunk) index of
+``x [bc,q,h,p]``, ``dt [bc,q,h]``, ``A [h]``, ``B, C [bc,q,n]``
+(ngroups = 1):
+
+  * ``cs = cumsum(dt·A)`` over q;
+  * ``y[l,h,p] = Σ_{s≤l} (C_l·B_s)·exp(cs_l − cs_s)·dt_s·x[s,h,p]``;
+  * ``states[h,p,n] = Σ_s B_s[n]·exp(cs_last − cs_s)·dt_s·x[s,h,p]``;
+
+both float32. The cumulative sum is accumulated in float64 and rounded to
+float32, which is what ``torch.cumsum`` of a float32 tensor computes on the
+CPU; on the card it keeps the kernel's and the plain version's ``cs``
+equal (see the note in the CUDA source).
+
+The kernel takes float32, 1 ≤ q ≤ 256, p ≤ 64 and n ≤ 128. It is bound
+by operations.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import count_launch
+
+MAX_Q, MAX_P, MAX_N = 256, 64, 128     # the kernel's limits (csrc/ssd.cu)
+
+
+def cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Cumulative sum accumulated in float64, rounded to float32."""
+    return torch.cumsum(x.double(), dim=dim).float()
+
+
+def _shapes(x, dt, A, B, C) -> Tuple[int, int, int, int, int]:
+    if x.dim() != 4:
+        raise ValueError(f"ssd_chunk: x{tuple(x.shape)} is not [bc,q,h,p]")
+    bc, q, h, p = x.shape
+    n = B.shape[-1]
+    want = {"dt": (bc, q, h), "A": (h,), "B": (bc, q, n), "C": (bc, q, n)}
+    for name, t in (("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"ssd_chunk: {name}{tuple(t.shape)}, want "
+                             f"{want[name]} for x{tuple(x.shape)}")
+    return bc, q, h, p, n
+
+
+def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function in plain PyTorch, one head at a time: the largest
+    temporary is one head's ``[bc, q, q]`` decay."""
+    bc, q, h, p, n = _shapes(x, dt, A, B, C)
+    cs = cumsum_f32(dt * A, dim=1)                          # [bc,q,h]
+    scores = torch.bmm(C, B.transpose(1, 2))                # [bc,l,s]
+    xdt = x * dt[..., None]
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    y = torch.empty((bc, q, h, p), dtype=torch.float32, device=x.device)
+    for hh in range(h):
+        c = cs[:, :, hh]
+        L = torch.where(causal, torch.exp(c[:, :, None] - c[:, None, :]),
+                        0.0)
+        y[:, :, hh] = torch.bmm(scores * L, xdt[:, :, hh])
+    decay = torch.exp(cs[:, -1:] - cs)                      # [bc,q,h]
+    u = x * (decay * dt)[..., None]                         # [bc,s,h,p]
+    st = torch.bmm(u.permute(0, 2, 3, 1).reshape(bc, h * p, q), B)
+    return y, st.reshape(bc, h, p, n).float()
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [bc,q,h,p]; dt: [bc,q,h]; A: [h]; B, C: [bc,q,n] →
+    (y_diag [bc,q,h,p], states [bc,h,p,n]), float32 (the Pallas kernel's
+    contract)."""
+    bc, q, h, p, n = _shapes(x, dt, A, B, C)
+    if x.device.type == "cpu":
+        return ssd_chunk_plain(x, dt, A, B, C)
+    args = (x, dt, A, B, C)
+    if any(t.dtype != torch.float32 for t in args):
+        raise ValueError(f"ssd_chunk: dtypes {[t.dtype for t in args]}; the "
+                         f"kernel takes float32")
+    if any(t.device != x.device for t in args) or x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk: operands on "
+                         f"{[str(t.device) for t in args]}; the kernel needs "
+                         f"one CUDA device")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("ssd_chunk: operands must be contiguous")
+    if not (1 <= q <= MAX_Q and 1 <= p <= MAX_P and 1 <= n <= MAX_N):
+        raise ValueError(f"ssd_chunk: (q, p, n) = {(q, p, n)} outside the "
+                         f"kernel's limits q <= {MAX_Q}, p <= {MAX_P}, "
+                         f"n <= {MAX_N}")
+    if h > 65535:
+        raise ValueError(f"ssd_chunk: {h} heads exceed the grid")
+    from repro_torch.kernels import _build
+    y = torch.empty((bc, q, h, p), dtype=torch.float32, device=x.device)
+    st = torch.empty((bc, h, p, n), dtype=torch.float32, device=x.device)
+    lib = _build.library("ssd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.ssd_chunk_f32(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), st.data_ptr(), bc, q, h, p, n,
+            stream), "ssd_chunk")
+    count_launch("ssd_chunk")
+    return y, st

@@ -3,8 +3,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
         --device cpu --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --smoke --device cpu
 
-Runs on the CUDA card unless ``--device cpu`` is given.
+Serves the dense global-attention configurations and mamba2-370m. Runs on
+the CUDA card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -21,9 +24,12 @@ from repro_torch.serve import make_decode_step, make_prefill_step
 
 class Engine:
     """Minimal batched engine: one prefill, then token-by-token decode.
-    The decode cache is allocated at capacity ``[L, B, max_len, KH, D]``;
-    the prefill writes slots ``[0, S)`` and each decode step writes slot
-    ``lengths[b]``, all in place."""
+    A KV cache is allocated at capacity ``[L, B, max_len, KH, D]``; the
+    prefill writes slots ``[0, S)`` and each decode step writes slot
+    ``lengths[b]``, all in place. An SSD stack's cache (``conv``
+    ``[L, B, W-1, C]`` and ``state`` ``[L, B, H, P, N]``) does not grow
+    with length: the prefill and every decode step overwrite it in
+    place."""
 
     def __init__(self, model, params, batch: int, max_len: int):
         self.model = model
@@ -35,7 +41,8 @@ class Engine:
 
     def prefill(self, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """tokens [B,S] → (next token [B,1] int32, cache at capacity)."""
+        """tokens [B,S] → (next token [B,1] int32, cache after the
+        prefill)."""
         b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(f"prompt of {s} tokens exceeds max_len "

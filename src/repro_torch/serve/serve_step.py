@@ -3,7 +3,7 @@
 
 ``tasked_decode_loop`` drives the same decode step through the port's task
 runtime: every step is one hetero task over the model state (weights read,
-KV cache, tokens and lengths read and written), followed by
+cache, tokens and lengths read and written), followed by
 ``Runtime.step_boundary()``.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ def make_decode_step(model: Model):
                     lengths: torch.Tensor):
         """tokens: [B,1] current token; lengths: [B] tokens so far.
         Returns (next_token [B,1] int32, cache), the cache written in
-        place at slot ``lengths[b]``."""
+        place (a KV cache at slot ``lengths[b]``)."""
         batch = {"tokens": tokens, "lengths": lengths}
         x, new_cache = model.apply(params, batch, mode="decode", cache=cache)
         logits = model.unembed(params, x)
@@ -74,24 +74,26 @@ def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
                        timeout: float = 120.0):
     """Run ``n_steps`` of greedy single-token decode as hetero tasks.
 
-    The weights, the cache ``{"k", "v"}``, ``tokens`` [B,1] and ``lengths``
-    [B] (int32) are tensors on one device; each is adopted in place as a
-    hetero object on the runtime device that holds it, so nothing
-    round-trips through the host. Each step submits ONE task over them
-    (weights read, the rest read-write: the cache is donated and written in
-    place, not copied). Returns ``(tokens_obj, lengths_obj, cache_objs)``
-    after the loop's barrier; ``cache_objs`` is ``{"k": obj, "v": obj}``."""
+    The weights, the cache (``{"k", "v"}`` or ``{"conv", "state"}``),
+    ``tokens`` [B,1] and ``lengths`` [B] (int32) are tensors on one device;
+    each is adopted in place as a hetero object on the runtime device that
+    holds it, so nothing round-trips through the host. Each step submits
+    ONE task over them (weights read, the rest read-write: the cache is
+    donated and written in place, not copied). Returns ``(tokens_obj,
+    lengths_obj, cache_objs)`` after the loop's barrier; ``cache_objs``
+    maps each of the cache's keys to its object."""
     decode = make_decode_step(model)
     tree = params.tree() if isinstance(params, ParamTree) else params
     named = _flatten(tree)
     names = [n for n, _ in named]
     n_p = len(named)
+    keys = sorted(cache)
     dev = _device_id(runtime, tokens.device)
     p_objs = [runtime.adopt_device_array(t, dev, name=f"dec-p:{n}")
               for n, t in named]
     c_objs = {key: runtime.adopt_device_array(cache[key], dev,
-                                              name=f"dec-kv:{key}")
-              for key in ("k", "v")}
+                                              name=f"dec-cache:{key}")
+              for key in keys}
     tok_obj = runtime.adopt_device_array(tokens, dev, name="dec-tok")
     len_obj = runtime.adopt_device_array(lengths, dev, name="dec-len")
 
@@ -99,14 +101,14 @@ def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
     # hits every step
     def step_kernel(tok, lens, *leaves):
         params_ = _unflatten(names, leaves[:n_p])
-        cache_ = {"k": leaves[n_p], "v": leaves[n_p + 1]}
+        cache_ = dict(zip(keys, leaves[n_p:], strict=True))
         new_tok, new_cache = decode(params_, cache_, tok, lens)
-        # outputs bind to the write-args in arg order: tok, lens, k, v
-        return new_tok, lens + 1, new_cache["k"], new_cache["v"]
+        # outputs bind to the write-args in arg order: tok, lens, cache
+        return (new_tok, lens + 1, *(new_cache[k] for k in keys))
 
     args = ([(tok_obj, "rw"), (len_obj, "rw")]
             + [(o, "r") for o in p_objs]
-            + [(c_objs["k"], "rw"), (c_objs["v"], "rw")])
+            + [(c_objs[k], "rw") for k in keys])
     for _ in range(n_steps):
         runtime.run(step_kernel, args, device_type=device_type,
                     name="decode_step")

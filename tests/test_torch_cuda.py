@@ -156,6 +156,29 @@ def test_serve_prefill_goes_through_the_kernel(cuda):
     assert out.shape == (2, 8) and out.device.type == "cuda"
 
 
+def test_mamba2_prefill_goes_through_the_ssd_kernel(cuda):
+    """The mamba2 smoke model on the card: one ``ssd_chunk`` launch per
+    layer in a prefill of 40 tokens (two chunks of 16 and a padded third),
+    none in decode, and the same hidden state as the einsum path."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    cfg = get_smoke_config("mamba2-370m")
+    on = build_smoke(cfg, use_ssd_kernel=True)
+    off = build_smoke(cfg)
+    params = on.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    n = LAUNCHES["ssd_chunk"]
+    x_on, _ = on.apply(params, {"tokens": toks}, mode="prefill")
+    assert LAUNCHES["ssd_chunk"] == n + cfg.n_layers
+    x_off, _ = off.apply(params, {"tokens": toks}, mode="prefill")
+    torch.testing.assert_close(x_on, x_off, rtol=1e-4, atol=1e-4)
+    out = Engine(on, params, 2, 48).generate(toks, 8)
+    assert LAUNCHES["ssd_chunk"] == n + 2 * cfg.n_layers
+    assert out.shape == (2, 8) and out.device.type == "cuda"
+
+
 # ---------------------------------------------------------------------------
 # Device API and runtime
 # ---------------------------------------------------------------------------

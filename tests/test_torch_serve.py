@@ -1,11 +1,12 @@
-"""Parity of the port's dense-LM serving path (``repro_torch.configs``,
-``models``, ``serve`` and ``launch.serve``) with the JAX package's, at the
-smoke configurations, without a mesh.
+"""Parity of the port's serving path (``repro_torch.configs``, ``models``,
+``serve`` and ``launch.serve``) with the JAX package's, for the dense
+configurations and mamba2-370m, at the smoke configurations, without a
+mesh.
 
 The same numpy inputs and the JAX package's own weights (carried across by
 ``repro_torch.convert.lm_from_jax``) go through both. The JAX Pallas flash
 kernel runs in interpret mode where ``use_pallas_flash`` routes to it; the
-port's kernel wrapper runs its plain version on CPU tensors.
+port's kernel wrappers run their plain versions on CPU tensors.
 """
 import dataclasses
 
@@ -34,7 +35,7 @@ from repro_torch.models import layers as TL
 from repro_torch.serve import tasked_decode_loop
 
 TOL = 1e-4
-ARCHS = ("yi_9b", "phi4_mini_3_8b", "codeqwen15_7b")
+ARCHS = ("yi_9b", "phi4_mini_3_8b", "codeqwen15_7b", "mamba2_370m")
 
 
 def _jax_model(arch, **flags):
@@ -64,6 +65,8 @@ def test_configs_equal_the_jax_packages(arch):
                          (tconfigs.get_smoke_config, jget_smoke)):
         assert dataclasses.asdict(get_t(arch)) == \
             dataclasses.asdict(get_j(arch))
+        assert get_t(arch).param_count() == get_j(arch).param_count()
+        assert get_t(arch).attention_free == get_j(arch).attention_free
 
 
 def test_unported_configs_raise():
@@ -72,6 +75,7 @@ def test_unported_configs_raise():
     with pytest.raises(ValueError):
         tconfigs.get_config("no-such-arch")
     assert tconfigs.get_config("yi-9b").param_count() == 8_829_403_136
+    assert tconfigs.get_config("mamba2-370m").param_count() == 368_123_904
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +222,8 @@ def test_engine_matches_jax_engine(arch):
                                np.asarray(jm.unembed(jp, jx)), rtol=TOL,
                                atol=TOL)
     want_cache = cache_from_jax(jax.tree.map(np.asarray, jcache))
-    for key in ("k", "v"):
+    assert set(tcache) == set(want_cache)
+    for key in want_cache:
         torch.testing.assert_close(tcache[key], want_cache[key], rtol=TOL,
                                    atol=TOL)
 
@@ -237,6 +242,27 @@ def test_kernel_flag_matches_jax_pallas_flag(arch):
         tx = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode=mode)[0]
         np.testing.assert_allclose(to_numpy(tx), np.asarray(jx), rtol=2e-4,
                                    atol=2e-4)
+
+
+def test_ssd_kernel_flag_gives_the_same_hidden_state():
+    """``use_ssd_kernel`` takes the intra-chunk form from the kernel's
+    wrapper, off takes it from the einsums: the same hidden states, and the
+    JAX model's, in train and prefill mode (40 tokens: two chunks of 16 and
+    a padded third)."""
+    cfg, jm, jp = _jax_model("mamba2_370m")
+    on, tp = _port_model("mamba2_370m", jp, use_ssd_kernel=True)
+    off, _ = _port_model("mamba2_370m", jp)
+    assert not off.flags.use_ssd_kernel
+    toks = _tokens(6, (2, 40), cfg.vocab)
+    for mode in ("train", "prefill"):
+        x_on = to_numpy(on.apply(tp, {"tokens": torch.from_numpy(toks)},
+                                 mode=mode)[0])
+        x_off = to_numpy(off.apply(tp, {"tokens": torch.from_numpy(toks)},
+                                   mode=mode)[0])
+        jx = np.asarray(jm.apply(jp, {"tokens": jnp.asarray(toks)},
+                                 mode=mode, cache=jm.init_cache(2, 40))[0])
+        np.testing.assert_allclose(x_on, x_off, rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(x_on, jx, rtol=2e-4, atol=2e-4)
 
 
 def test_bf16_prefill_matches_jax():
@@ -299,6 +325,42 @@ def test_tasked_decode_loop_matches_engine():
                                           cache[key].numpy())
 
 
+def test_tasked_decode_loop_matches_engine_mamba2():
+    """The same for the SSD stack: the loop adopts the cache's own keys
+    (conv, state), written in place every step."""
+    cfg, jm, jp = _jax_model("mamba2_370m")
+    tm, tp = _port_model("mamba2_370m", jp, use_ssd_kernel=True)
+    prompt, steps = 24, 5
+    toks = torch.from_numpy(_tokens(7, (2, prompt), cfg.vocab))
+    eng = TEngine(tm, tp, 2, prompt + steps)
+    nxt, cache = eng.prefill(toks)
+    assert set(cache) == {"conv", "state"}
+    tasked_cache = {k: v.clone() for k, v in cache.items()}
+    want = eng.decode(cache, nxt, prompt, steps)
+    lengths = torch.full((2,), prompt, dtype=torch.int32)
+    with Runtime(RuntimeConfig(device="cpu", cpu_devices=2,
+                               memory_capacity=1 << 28)) as rt:
+        tok_obj, len_obj, c_objs = tasked_decode_loop(
+            rt, tm, tp, tasked_cache, nxt.clone(), lengths, steps)
+        assert rt.stats()["tasks"] == steps
+        assert sorted(c_objs) == ["conv", "state"]
+        np.testing.assert_array_equal(tok_obj.get(), want[:, -1:].numpy())
+        np.testing.assert_array_equal(len_obj.get(),
+                                      np.full(2, prompt + steps))
+        for key in ("conv", "state"):
+            np.testing.assert_array_equal(c_objs[key].get(),
+                                          cache[key].numpy())
+
+
+def test_serve_main_runs_mamba2_on_the_cpu(capsys):
+    n = LAUNCHES["ssd_chunk"]
+    out = tserve.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "20", "--gen", "3"])
+    assert tuple(out.shape) == (2, 3)
+    assert LAUNCHES["ssd_chunk"] == n             # no kernel on the CPU
+    assert "generated (2, 3) on cpu" in capsys.readouterr().out
+
+
 def test_serve_main_runs_on_the_cpu(capsys):
     n = LAUNCHES["flash_attention"]
     out = tserve.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
@@ -313,3 +375,26 @@ def test_lm_from_jax_rejects_unported_layouts():
     tree = dict(jax.tree.map(np.asarray, jp), rem_0={})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         lm_from_jax(tree)
+    block = dict(tree["periods"][0], moe={})
+    tree = dict(jax.tree.map(np.asarray, jp), periods=(block,))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lm_from_jax(tree)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cache_from_jax({"periods": ({"state": np.zeros(2)},)})
+
+
+def test_lm_from_jax_carries_the_ssd_block():
+    """The SSD block tree keeps its leading layer axis and dtypes: under
+    bf16 weights A_log, D, dt_bias and both norms stay float32."""
+    cfg, _, jp = _jax_model("mamba2_370m", param_dtype=jnp.bfloat16)
+    tree = lm_from_jax(jax.tree.map(np.asarray, jp)).tree()
+    assert set(tree["layers"]) == {"norm1", "ssd"}
+    ssd = tree["layers"]["ssd"]
+    assert set(ssd) == {"in_proj", "conv_w", "conv_b", "A_log", "D",
+                        "dt_bias", "norm", "out_proj"}
+    assert all(v.shape[0] == cfg.n_layers for v in ssd.values())
+    for key in ("A_log", "D", "dt_bias", "norm"):
+        assert ssd[key].dtype == torch.float32, key
+    for key in ("in_proj", "conv_w", "conv_b", "out_proj"):
+        assert ssd[key].dtype == torch.bfloat16, key
+    assert tree["layers"]["norm1"].dtype == torch.float32

@@ -53,6 +53,16 @@ SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS = "mamba2-370m", 8, 4096, 32
 SSD_MAIN = (SSM_BATCH * SSM_PROMPT // 256, 256, 32, 64, 128)
 SSD_SHAPES = (SSD_MAIN, (4, 16, 4, 32, 16), (2, 16, 4, 8, 16),
               (1, 32, 2, 16, 8), (4, 8, 8, 4, 4), (8, 100, 32, 64, 128))
+# matmul shapes (m, k, n) checked in phase 2: the DGEMM's, and one whose N
+# is not a multiple of the float32 kernel's 128-wide tile
+MATMUL_SHAPES = ((DGEMM_N,) * 3, (192, 48, 320))
+# flash_attention_gqa shapes (b, s, t, kh, g, d, causal) checked in phase 2
+# in bf16 beside the main one: head dims below, between and at the tensor-
+# core kernel's two compiled widths (8 and 12 load element by element),
+# S != T with and without the mask, one and eight query heads a KV head
+FLASH_SHAPES = tuple((2, s, t, 2, g, d, causal) for d in (8, 12, 64, 128)
+                     for s, t, causal in ((128, 192, True), (192, 128, False))
+                     for g in (1, 8))
 # bf16 tolerances, each against a plain PyTorch version on the card:
 #  - flash kernel output: 2e-2 absolute and relative. Kernel and plain walk
 #    the same 64-wide kv tiles; only the float32 sum order inside a dot
@@ -254,28 +264,38 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
         bound_ms=b_ms, bound_by=b_by)
     del u, faces, up, got, plain
 
-    # matmul at the DGEMM's 4096^3, float32 (the main path) and bf16
-    m = DGEMM_N
+    # matmul at MATMUL_SHAPES, float32 (the main path) and bf16; timed at
+    # the DGEMM's 4096^3
     for dtype, tol, rate, key in ((torch.float32, 1e-3, fp32, "matmul"),
                                   (torch.bfloat16, 2e-2, bf16,
                                    "matmul_bf16")):
-        a = torch.randn((m, m), generator=gen, device=dev).to(dtype)
-        b = torch.randn((m, m), generator=gen, device=dev).to(dtype)
-        got = ops.matmul(a, b).float()
-        want = ops.matmul_plain(a, b).float()
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        check(bool(torch.allclose(got, want, rtol=tol, atol=tol)),
-              f"{key} outside {tol} of plain (max err {err})")
+        errs = {}
+        for m, k, n in MATMUL_SHAPES:
+            a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+            got = ops.matmul(a, b).float()
+            want = ops.matmul_plain(a, b).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(bool(torch.allclose(got, want, rtol=tol, atol=tol)),
+                  f"{key} {(m, k, n)} outside {tol} of plain (max err {err})")
+            errs[f"{m}x{k}x{n}"] = err
+            if (m, k, n) == MATMUL_SHAPES[0]:
+                main = (a, b)
+            del a, b, got, want
+        a, b = main
+        m = DGEMM_N
         b_ms, b_by = bound(3 * m * m * a.element_size(), 2 * m ** 3, rate,
                            mem_rate)
         res[key] = dict(
-            shape=[m, m, m], dtype=str(dtype), max_abs_err=err, tol=tol,
+            shape=[m, m, m], dtype=str(dtype),
+            max_abs_err=errs[f"{m}x{m}x{m}"], tol=tol,
+            max_abs_err_by_shape=errs,
             ms=time_ms(functools.partial(ops.matmul, a, b), 5),
             plain_ms=time_ms(functools.partial(ops.matmul_plain, a, b), 5),
             library_ms=time_ms(functools.partial(torch.matmul, a, b), 5),
             bound_ms=b_ms, bound_by=b_by)
-        del a, b, got, want
+        del a, b, main
 
     res.update(flash_checks(ops, gen, fp32, bf16, mem_rate))
     res["ssd_chunk"] = ssd_checks(ops, gen, fp32, mem_rate)
@@ -284,11 +304,29 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
 
 def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
     """flash_attention at the serve prefill's shapes: the GQA entry in bf16
-    (the main path, q [4, 2048, 4, 8, 128]) and the Pallas contract in
-    float32 at [128, 2048, 128], both causal. The library yardstick is
-    scaled_dot_product_attention on the same, broadcast, heads."""
+    (the main path, q [4, 2048, 4, 8, 128]; also at FLASH_SHAPES) and the
+    Pallas contract in float32 at [128, 2048, 128], both causal. The
+    library yardstick is scaled_dot_product_attention on the same,
+    broadcast, heads."""
     F = torch.nn.functional
     dev = torch.device("cuda")
+    edge_errs = {}
+    for b_, s_, t_, kh_, g_, d_, causal in FLASH_SHAPES:
+        q = torch.randn((b_, s_, kh_, g_, d_), generator=gen, device=dev)
+        k, v = (torch.randn((b_, t_, kh_, d_), generator=gen, device=dev)
+                for _ in range(2))
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        got = ops.flash_attention_gqa(q, k, v, causal=causal).float()
+        want = ops.flash_attention_plain(q, k, v, causal=causal).float()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        key = f"s{s_}t{t_}g{g_}d{d_}{'c' if causal else ''}"
+        check(bool(torch.isfinite(got).all()), f"flash {key}: non-finite")
+        check(bool(torch.allclose(got, want, rtol=FLASH_TOL["bf16"],
+                                  atol=FLASH_TOL["bf16"])),
+              f"flash {key} outside {FLASH_TOL['bf16']} of plain (max err "
+              f"{err})")
+        edge_errs[key] = err
     cfg_b, s, kh, g, d = SERVE_BATCH, SERVE_PROMPT, 4, 8, 128
     bh = cfg_b * kh * g
     # causal work: S(S+1)/2 scored pairs per head, 4*D flops each
@@ -338,6 +376,7 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
                 qs, ks, vs, is_causal=True), 5),
             bound_ms=b_ms, bound_by=b_by)
         del qs, ks, vs, args
+    res["flash_attention"]["max_abs_err_by_shape"] = edge_errs
     return res
 
 
@@ -452,7 +491,7 @@ def serve_trace(eng, tokens, kernel: str) -> dict:
 # flag, the kernel's LAUNCHES key, its name in a trace, prefill tolerances)
 SERVE_SPECS = {
     5: (SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, "use_flash_kernel",
-        "flash_attention", "flash_kernel", PREFILL_REL_TOL),
+        "flash_attention", "flash_mma", PREFILL_REL_TOL),
     6: (SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS, "use_ssd_kernel",
         "ssd_chunk", "ssd_", SSM_PREFILL_REL_TOL),   # ssd_y + ssd_states
 }
@@ -600,6 +639,9 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
           f"full forward's best, more than {GREEDY_MAX_SHORTFALL}")
     del cache
     r["trace"] = serve_trace(eng, tokens, trace_name)
+    share = r["trace"]["prefill"].get(f"{trace_name}_share_of_busy", 0.0)
+    check(share > 0, f"no {trace_name!r} kernel time in the traced prefill "
+          f"({r['trace']['prefill']})")
     # the same prefill check with float32 weights: the bf16 ones go
     del eng, params
     torch.cuda.empty_cache()

@@ -3,14 +3,16 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 ``build/repro_torch/lib<name>.so`` under the repository root, with a plain
 C interface loaded through ``ctypes``. All sources compile in parallel, at
-the first call that needs a kernel, and again whenever a source is newer
-than its library. Imported only when a CUDA tensor reaches a wrapper.
+the first call that needs a kernel, and again whenever a source, or a
+header of ``csrc`` that it includes (``ptx.cuh``), is newer than its
+library. Imported only when a CUDA tensor reaches a wrapper.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -60,10 +62,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the headers of ``csrc`` it includes by a
+    quoted name."""
+    cu = CSRC / f"{name}.cu"
+    return [cu] + [CSRC / h for h in _INCLUDE.findall(cu.read_text())]
+
+
 def _stale(name: str) -> bool:
     lib = BUILD_DIR / f"lib{name}.so"
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    return not lib.exists() or any(
+        lib.stat().st_mtime < src.stat().st_mtime for src in _sources(name))
 
 
 def build_all() -> Dict[str, tuple]:

@@ -18,9 +18,11 @@ strides and a group size ``G``:
     place, without the broadcast copies and transposes of the JAX
     package's ``_pallas_flash``.
 
-The kernel takes float32 and bfloat16, D up to 128, and S and T that are
-multiples of its 64-row tile. It is bound by operations: see the note in
-the CUDA source.
+The kernel takes float32 and bfloat16, D up to 128, S and T that are
+multiples of its 64-row tile, and 16-byte aligned operands (the bf16
+arm's cp.async and ldmatrix copy 16 bytes at a time). bfloat16 runs on the
+tensor cores (mma.sync), float32 on the CUDA cores. It is bound by
+operations: see the note in the CUDA source.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch
 from repro_torch.kernels import count_launch
 
 NEG_INF = -1e30
-TILE = 64            # the kernel's q and kv tile (csrc/flash_attention.cu)
+TILE = 64            # S, T multiples, and the kernels' kv tile
 MAX_D = 128
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -94,6 +96,8 @@ def _check(q, k, v, what):
                          f"{v.device}; the kernel needs one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: operands must be contiguous")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
     if k.shape != v.shape:
         raise ValueError(f"{what}: k{tuple(k.shape)} != v{tuple(v.shape)}")
 

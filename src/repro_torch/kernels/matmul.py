@@ -3,10 +3,11 @@ PyTorch version.
 
 Replaces the Pallas TPU kernel ``_matmul_kernel`` / ``matmul`` of
 ``repro/kernels/matmul.py``: ``[M, K] · [K, N]`` accumulated in float32
-and cast to the input dtype, for float32 (IEEE FMA, never TF32) and
-bfloat16. The kernel needs M and N to be multiples of 64 and K of 16, as
-the Pallas kernel needs its block sizes to divide the dimensions. It is
-bound by operations: see the note in the CUDA source.
+and cast to the input dtype, for float32 (IEEE FMA, never TF32: a
+register-blocked, double-buffered SGEMM on the CUDA cores) and bfloat16.
+The kernel needs M and N to be multiples of 64, K of 16 and the operands
+16-byte aligned, as the Pallas kernel needs its block sizes to divide the
+dimensions. It is bound by operations: see the note in the CUDA source.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from repro_torch.kernels import count_launch
 
-BM, BN, BK = 64, 64, 16        # the kernel's tile (csrc/matmul.cu)
+BM, BN, BK = 64, 64, 16        # M, N, K multiples the kernel takes
 _ENTRY = {torch.float32: "matmul_f32", torch.bfloat16: "matmul_bf16"}
 
 

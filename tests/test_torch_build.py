@@ -1,0 +1,90 @@
+"""The CUDA build without a compiler: the ctypes signatures of
+``repro_torch.kernels._build`` against the ``extern "C"`` prototypes of
+``csrc/*.cu``, and the rebuild rule for headers.
+
+A prototype and its ``argtypes`` that disagree still load and run: ctypes
+then passes a pointer as a 32-bit int, or a float as an int, and the
+kernel reads garbage. Nothing here needs nvcc or a card."""
+import os
+import re
+
+import pytest
+
+from repro_torch.kernels import _build
+
+PROTOTYPE = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
+KIND = {_build.ctypes.c_void_p: "pointer", _build.ctypes.c_int: "int",
+        _build.ctypes.c_float: "float"}
+
+
+def _kind(param: str) -> str:
+    """pointer, int or float, from a C parameter declaration."""
+    if "*" in param or "cudaStream_t" in param:
+        return "pointer"
+    base = param.split()[-2] if len(param.split()) > 1 else param
+    if base in ("int", "float"):
+        return base
+    raise AssertionError(f"parameter kind unknown to the test: {param!r}")
+
+
+def _prototypes() -> dict:
+    """{library: {entry point: [kinds]}} from every csrc/*.cu."""
+    out = {}
+    for cu in sorted(_build.CSRC.glob("*.cu")):
+        text = re.sub(r"//[^\n]*", "", cu.read_text())
+        out[cu.stem] = {name: [_kind(p.strip()) for p in params.split(",")]
+                        for name, params in PROTOTYPE.findall(text)}
+    return out
+
+
+def test_signatures_match_the_c_prototypes():
+    """Every library's entry points, in number, arity and kind, exactly as
+    the sources declare them, and one library per source."""
+    found = _prototypes()
+    assert sorted(found) == sorted(_build.SIGNATURES)
+    for lib, entries in found.items():
+        assert entries, f"{lib}.cu declares no extern \"C\" entry point"
+        listed = {fn: [KIND[t] for t in argtypes]
+                  for fn, argtypes in _build.SIGNATURES[lib].items()}
+        assert listed == entries, lib
+
+
+@pytest.fixture()
+def tree(tmp_path, monkeypatch):
+    """A csrc with one source that includes a header; a build directory;
+    the module pointed at both."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    (csrc / "h.cuh").write_text("#pragma once\n")
+    (csrc / "unused.cuh").write_text("#pragma once\n")
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                               '#include "h.cuh"\n')
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    for p in csrc.iterdir():
+        os.utime(p, (100, 100))
+    return csrc, build
+
+
+def test_editing_an_included_header_marks_its_library_stale(tree):
+    csrc, build = tree
+    assert _build._stale("k")                       # never built
+    lib = build / "libk.so"
+    lib.write_bytes(b"")
+    os.utime(lib, (200, 200))
+    assert not _build._stale("k")
+    os.utime(csrc / "unused.cuh", (300, 300))       # not included: no rebuild
+    assert not _build._stale("k")
+    os.utime(csrc / "h.cuh", (300, 300))            # included
+    assert _build._stale("k")
+    os.utime(lib, (400, 400))
+    assert not _build._stale("k")
+    os.utime(csrc / "k.cu", (500, 500))
+    assert _build._stale("k")
+
+
+def test_the_sources_that_share_the_ptx_header_depend_on_it():
+    for name in ("flash_attention", "matmul"):
+        assert _build.CSRC / "ptx.cuh" in _build._sources(name)
+    assert _build._sources("jacobi3d") == [_build.CSRC / "jacobi3d.cu"]

@@ -72,6 +72,23 @@ def test_matmul_close_to_plain(cuda, dtype, tol):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,k,n", [(4096, 4096, 4096), (192, 48, 320)])
+def test_matmul_close_to_plain_at_main_and_edge_shapes(cuda, dtype, tol, m, k,
+                                                       n):
+    """The DGEMM's 4096^3, and a shape whose N is not a multiple of the
+    float32 kernel's 128-wide tile (an edge tile reads clamped columns and
+    stores only the ones inside)."""
+    g = torch.Generator(device=cuda).manual_seed(m + n + k)
+    a = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    b = torch.randn((k, n), generator=g, device=cuda).to(dtype)
+    got = ops.matmul(a, b)
+    assert got.shape == (m, n) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), ops.matmul_plain(a, b).float(),
+                               rtol=tol, atol=tol)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     a = torch.ones((100, 64), device=cuda)
     with pytest.raises(ValueError):
@@ -118,6 +135,42 @@ def test_flash_attention_gqa_close_to_plain(cuda, g):
         want = ops.flash_attention_plain(qq, kk, vv)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("d", [8, 12, 64, 128])
+@pytest.mark.parametrize("s,t,causal", [(128, 192, True), (192, 128, True),
+                                        (128, 256, False), (256, 64, False)])
+def test_flash_gqa_bf16_close_to_plain(cuda, g, d, s, t, causal):
+    """The tensor-core arm at its limits: head dims below, between and at
+    its two compiled widths (8 and 12 load element by element), S != T
+    with and without the causal mask, one and eight query heads a KV
+    head."""
+    gen = torch.Generator(device=cuda).manual_seed(g * 1000 + d + s + t)
+    q = torch.randn((2, s, 2, g, d), generator=gen, device=cuda)
+    k, v = (torch.randn((2, t, 2, d), generator=gen, device=cuda)
+            for _ in range(2))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    n = LAUNCHES["flash_attention"]
+    got = ops.flash_attention_gqa(q, k, v, causal=causal)
+    assert LAUNCHES["flash_attention"] == n + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_flash_wrapper_raises_on_misaligned_operands(cuda):
+    """A contiguous view two bytes into its storage is not 16-byte aligned:
+    the wrapper raises before cp.async or ldmatrix could fault."""
+    shape = (2, 128, 64)
+    buf = torch.zeros(2 * 128 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    x = buf[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    y = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    for args in ((x, y, y), (y, x, y), (y, y, x)):
+        with pytest.raises(ValueError, match="aligned"):
+            ops.flash_attention(*args)
 
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):

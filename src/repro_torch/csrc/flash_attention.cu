@@ -52,16 +52,36 @@
 // tensor-core bound; at 48 launches a prefill the GEMMs and elementwise
 // passes around the kernel then dominate, so they are left for later.
 //
-// float32 (`flash_kernel`, the Pallas contract, not on a serving path)
-// stays on the CUDA cores: tensor cores would compute it in TF32, which is
-// not the Pallas float32 function. One block of 128 threads per (64-row q
-// tile, query head); the q tile stays in shared memory and each 64-row K
-// and V tile is staged there. Thread (ty, tx) owns q rows ty*8 .. ty*8+7:
-// for the scores it holds columns tx*4 .. tx*4+3 of the 64-wide tile, for
-// the output columns tx, tx+16, ... of D, so the row statistics m and l it
-// keeps serve both products. A row's 16 threads are one half-warp and
-// reduce with shuffles. p goes through shared memory between the two
-// products.
+// float32 (`flash_f32_kernel`, the Pallas contract, not on a serving
+// path) stays on the CUDA cores in IEEE float32: tensor cores would
+// compute it in TF32, which is not the Pallas float32 function. Its bound
+// is the 67 TFLOP/s of the FMA pipes (2.05 ms at [128, 2048, 128]
+// causal); what holds a CUDA-core kernel back from it is feeding the FMAs
+// from shared memory and waiting for tiles. One block of 256 threads per
+// (128-row q tile, query head), with the G query heads of a KV head side
+// by side in the grid (their K and V tiles come from L2) and the longest
+// causal rows first. Thread (ty, tx) owns q rows ty*8 .. ty*8+7 in both
+// products, so the row statistics m and l it keeps serve both: an 8 x 4
+// register block of scores (kv columns tx + 16c) and an 8 x DP/16 block of
+// the output (columns g*64 + tx*4 ..). Both products read shared memory as
+// float4 along their reduction: per 4 columns of D, 8 broadcast reads of
+// Q and 4 of K (rows padded by 16 bytes, so a quarter-warp's 8 rows fall
+// on 8 bank groups) feed 128 FMAs; per 4 kv rows, 8 broadcast reads of P
+// and 4 * DP/64 of V feed 32 * DP/16. Reading along D needs no transposed
+// copy of Q or K. Q is copied once; K and V stream through two stages
+// filled by 16-byte cp.async, so tile j+1 loads while tile j computes, with
+// one barrier per tile. A row's 16 threads are one half-warp: they reduce
+// its max and sum with shuffles and are the only readers of the p they
+// write, so P takes a __syncwarp, not a barrier. The mask applies only on
+// tiles that cross a warp's diagonal, and a warp skips tiles wholly above
+// its rows. Head dims are compiled for 64 and 128; a smaller D is
+// zero-padded in shared memory and rows that are not 16-byte aligned
+// (D % 4 != 0) load element by element. Shared memory is 226 KB at DP =
+// 128, so one block runs on an SM. On an H100 SXM at 700 W (chip_smoke.py
+// phase 2) it took 3.72-3.73 ms at [128, 2048, 128] causal, about 37
+// TFLOP/s, against 3.24-3.28 ms for SDPA in float32 and 12.25 ms for the
+// earlier design (64-row tiles loaded element by element, three barriers
+// a tile).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -69,118 +89,171 @@
 
 namespace {
 
-constexpr int kTile = 64;                 // q rows and kv rows per tile
-constexpr int kThreads = 128;             // 8 (ty) x 16 (tx)
-constexpr int kRows = 8;                  // q rows per thread
-constexpr int kCols = 4;                  // score columns per thread
+constexpr int kTile = 64;                 // S, T multiples; kv rows per tile
 constexpr int kMaxD = 128;
-constexpr int kDPer = kMaxD / 16;         // output columns per thread
-constexpr int kPStride = kTile + 1;       // p tile row stride (floats)
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
+// ---- float32 on the CUDA cores ----------------------------------------------
 
-// Bytes of dynamic shared memory: q, k, v tiles (row stride D+1 elements of
-// T, against bank conflicts) and the float p tile.
-__host__ __device__ inline size_t tile_bytes(int D, size_t elt) {
-  return ((size_t)kTile * (D + 1) * elt + 15) / 16 * 16;
-}
-inline size_t smem_bytes(int D, size_t elt) {
-  return 3 * tile_bytes(D, elt) + (size_t)kTile * kPStride * sizeof(float);
-}
+constexpr int kFBM = 128;                 // q rows per block
+constexpr int kFThreads = 256;            // 16 (ty) x 16 (tx)
+constexpr int kFRows = kFBM / 16;         // q rows per thread: ty*8 + i
+constexpr int kFCols = kTile / 16;        // scores per row: tx + 16c
 
-// Copy a 64 x D tile (row stride `ld` elements in global memory) into
-// shared memory at row stride D+1.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
-                                          long long ld, int D) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    dst[r * (D + 1) + d] = src[r * ld + d];
+// Shared memory of flash_f32_kernel<DP>, in floats: Q [128][DP], two
+// stages of K [64][DP+4] and V [64][DP], P [128][64]. K's rows are padded
+// by 16 bytes so that the 8 rows a quarter-warp reads fall on 8 distinct
+// bank groups; Q and P are read by broadcast, V along its rows.
+template <int DP>
+struct FlashF32Smem {
+  static constexpr int kKStride = DP + 4;
+  static constexpr int kQ = kFBM * DP;
+  static constexpr int kK = kTile * kKStride;
+  static constexpr int kKV = kK + kTile * DP;   // one stage
+  static constexpr int kP = kFBM * kTile;
+  static constexpr size_t kBytes = (size_t)(kQ + 2 * kKV + kP) * sizeof(float);
+};
+
+// Copy rows [0, rows) x columns [0, D) of a float tile (row stride `ld` in
+// global memory) to shared memory at row stride `stride`: 16-byte cp.async
+// where rows are 16-byte aligned (D % 4 == 0), else element by element.
+template <int DP>
+__device__ __forceinline__ void load_tile_f32(float* dst, int stride,
+                                              const float* __restrict__ src,
+                                              long long ld, int rows, int D) {
+  if ((D & 3) == 0) {
+    constexpr int kChunks = DP / 4;
+    for (int i = threadIdx.x; i < rows * kChunks; i += kFThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      if (c < D) ptx::cp_async16(dst + r * stride + c, src + r * ld + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * D; i += kFThreads) {
+      const int r = i / D, c = i - r * D;
+      dst[r * stride + c] = src[r * ld + c];
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int S, int T_len,
-             int KH, int G, int D, int causal, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = reinterpret_cast<T*>(smem + tile_bytes(D, sizeof(T)));
-  T* Vs = reinterpret_cast<T*>(smem + 2 * tile_bytes(D, sizeof(T)));
-  float* Ps = reinterpret_cast<float*>(smem + 3 * tile_bytes(D, sizeof(T)));
+// One block of 256 threads per (128-row q tile, query head). Thread
+// (ty, tx) = (tid / 16, tid % 16) owns q rows ty*8 .. ty*8+7 in both
+// products: scores in kv columns tx + 16c (c < 4), output columns
+// g*64 + tx*4 .. +3 (g < DP/64). The 16 threads of a row are one
+// half-warp, which reduces the row's max and sum with shuffles and is the
+// only reader of the p it writes, so P needs a __syncwarp, not a barrier.
+template <int DP>
+__global__ void __launch_bounds__(kFThreads, 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S,
+                 int T_len, int KH, int G, int D, int causal, float scale) {
+  using L = FlashF32Smem<DP>;
+  constexpr int kOC = DP / 16;            // output columns per thread
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_f32);
+  float* KVs = Qs + L::kQ;                // stage s: K, then V
+  float* Ps = KVs + 2 * L::kKV;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  // longest causal rows first: the last q tile has the most kv tiles
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qt * kTile;
-  const int head = blockIdx.y;            // (b, kh, g) over B*KH*G
-  const int g = head % G;
-  const int kh = (head / G) % KH;
-  const long long b = head / (G * KH);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int g = blockIdx.x;               // query head in its group
+  const int kh = blockIdx.y % KH;
+  const long long b = blockIdx.y / KH;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // longest causal rows first
+  const int q0 = qt * kFBM;
 
   const long long q_ld = (long long)KH * G * D;
   const long long kv_ld = (long long)KH * D;
-  const T* q_base = q + ((b * S + q0) * KH + kh) * G * D + (long long)g * D;
-  T* o_base = o + ((b * S + q0) * KH + kh) * G * D + (long long)g * D;
-  const T* k_base = k + (b * T_len * KH + kh) * D;
-  const T* v_base = v + (b * T_len * KH + kh) * D;
+  const long long q_off =
+      ((b * S + q0) * KH + kh) * G * D + (long long)g * D;
+  const float* k_base = k + (b * T_len * KH + kh) * D;
+  const float* v_base = v + (b * T_len * KH + kh) * D;
 
-  load_tile(Qs, q_base, q_ld, D);
+  if (D != DP) {  // the padding columns stay zero: no copy writes them
+    float4* p = reinterpret_cast<float4*>(smem_f32);
+    for (int i = tid; i < (int)(L::kBytes / 16); i += kFThreads)
+      p[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    __syncthreads();
+  }
 
-  float m[kRows], l[kRows], acc[kRows][kDPer];
+  // the last q tile may hold only 64 rows: rows from S on are neither
+  // loaded nor stored, and the warps that own them skip every tile
+  const int q_rows = min(kFBM, S - q0);
+  const int n_kv_all = T_len / kTile;
+  const int n_kv =
+      causal ? min(n_kv_all, (q0 + q_rows - 1) / kTile + 1) : n_kv_all;
+  auto load_kv = [&](int j) {
+    float* ks = KVs + (j & 1) * L::kKV;
+    load_tile_f32<DP>(ks, L::kKStride, k_base + (long long)j * kTile * kv_ld,
+                      kv_ld, kTile, D);
+    load_tile_f32<DP>(ks + L::kK, DP, v_base + (long long)j * kTile * kv_ld,
+                      kv_ld, kTile, D);
+  };
+  load_tile_f32<DP>(Qs, DP, q + q_off, q_ld, q_rows, D);
+  load_kv(0);
+  ptx::cp_async_commit();
+
+  float m[kFRows], l[kFRows], acc[kFRows][kOC];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kFRows; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kDPer; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kOC; ++j) acc[i][j] = 0.f;
   }
+  const int r0 = ty * kFRows;             // first of this thread's rows
+  const int wq0 = q0 + (tid / 32) * 16;   // first q row of this warp
+  const int dq = (D + 3) & ~3;            // Q, K columns past D are zero
 
-  const int n_kv_all = T_len / kTile;
-  const int n_kv = causal ? min(n_kv_all, qt + 1) : n_kv_all;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();                      // previous tile's readers are done
-    load_tile(Ks, k_base + (long long)k0 * kv_ld, kv_ld, D);
-    load_tile(Vs, v_base + (long long)k0 * kv_ld, kv_ld, D);
-    __syncthreads();
+  for (int j = 0; j < n_kv; ++j) {
+    ptx::cp_async_wait<0>();  // tile j (and Q) landed
+    __syncthreads();          // ... for every thread; tile j-1 is done
+    if (j + 1 < n_kv) load_kv(j + 1);  // in flight during tile j
+    ptx::cp_async_commit();
+    const float* Ks = KVs + (j & 1) * L::kKV;
+    const float* Vs = Ks + L::kK;
+    const int k0 = j * kTile;
+    // a warp past S, or whose every score in the tile is masked, has
+    // nothing to add (p = 0 at alpha = 1)
+    if (wq0 >= S || (causal && k0 > wq0 + 15)) continue;
 
-    // scores: rows ty*8+i, columns tx*4+c
-    float s[kRows][kCols];
+    // S = Q . K^T: per 4 columns of D, 8 broadcast float4 reads of Q and
+    // 4 of K feed 128 FMAs
+    float s[kFRows][kFCols];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < kFRows; ++i)
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) s[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
+      for (int c = 0; c < kFCols; ++c) s[i][c] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < dq; d += 4) {
+      float4 kv[kFCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        qv[i] = to_f(Qs[(ty * kRows + i) * (D + 1) + d]);
+      for (int c = 0; c < kFCols; ++c)
+        kv[c] = *reinterpret_cast<const float4*>(
+            Ks + (tx + 16 * c) * L::kKStride + d);
 #pragma unroll
-      for (int c = 0; c < kCols; ++c)
-        kv[c] = to_f(Ks[(tx * kCols + c) * (D + 1) + d]);
+      for (int i = 0; i < kFRows; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(Qs + (r0 + i) * DP + d);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
+        for (int c = 0; c < kFCols; ++c) {
+          s[i][c] = fmaf(qv.x, kv[c].x, s[i][c]);
+          s[i][c] = fmaf(qv.y, kv[c].y, s[i][c]);
+          s[i][c] = fmaf(qv.z, kv[c].z, s[i][c]);
+          s[i][c] = fmaf(qv.w, kv[c].w, s[i][c]);
+        }
+      }
     }
 
-    // online softmax, row by row
+    // online softmax, row by row; the mask only on tiles that cross the
+    // diagonal of this warp's rows
+    const bool diag = causal && k0 + kTile - 1 > wq0;
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + ty * kRows + i;
+    for (int i = 0; i < kFRows; ++i) {
+      const int qpos = q0 + r0 + i;
       float mx = kNegInf;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
+      for (int c = 0; c < kFCols; ++c) {
         float x = s[i][c] * scale;
-        if (causal && k0 + tx * kCols + c > qpos) x = kNegInf;
+        if (diag && k0 + tx + 16 * c > qpos) x = kNegInf;
         s[i][c] = x;
         mx = fmaxf(mx, x);
       }
@@ -191,11 +264,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
+      for (int c = 0; c < kFCols; ++c) {
+        // p rounded to v's type is p itself in float32
         const float p = expf(s[i][c] - m_new);
         sum += p;
-        Ps[(ty * kRows + i) * kPStride + tx * kCols + c] =
-            to_f(from_f<T>(p));
+        Ps[(r0 + i) * kTile + tx + 16 * c] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -203,36 +276,63 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < kDPer; ++j) acc[i][j] *= alpha;
+      for (int j2 = 0; j2 < kOC; ++j2) acc[i][j2] *= alpha;
     }
-    __syncthreads();
+    __syncwarp();  // this half-warp's p rows are written
 
-    // acc += p . v: rows ty*8+i, output columns tx + 16*j
-    for (int c = 0; c < kTile; ++c) {
-      float pv[kRows];
+    // O += P . V: per 4 kv rows, 8 broadcast float4 reads of P and
+    // 4 * DP/64 of V feed 32 * kOC FMAs
+#pragma unroll 2
+    for (int c = 0; c < kTile; c += 4) {
+      float4 pv[kFRows];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        pv[i] = Ps[(ty * kRows + i) * kPStride + c];
+      for (int i = 0; i < kFRows; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (r0 + i) * kTile + c);
 #pragma unroll
-      for (int j = 0; j < kDPer; ++j) {
-        const int d = tx + 16 * j;
-        if (d < D) {
-          const float vv = to_f(Vs[c * (D + 1) + d]);
+      for (int u = 0; u < 4; ++u) {
+        float4 vv[kOC / 4];
 #pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+        for (int gq = 0; gq < kOC / 4; ++gq)
+          vv[gq] = *reinterpret_cast<const float4*>(Vs + (c + u) * DP +
+                                                    gq * 64 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < kFRows; ++i) {
+          const float p = u == 0 ? pv[i].x
+                        : u == 1 ? pv[i].y
+                        : u == 2 ? pv[i].z
+                                 : pv[i].w;
+#pragma unroll
+          for (int gq = 0; gq < kOC / 4; ++gq) {
+            acc[i][gq * 4 + 0] = fmaf(p, vv[gq].x, acc[i][gq * 4 + 0]);
+            acc[i][gq * 4 + 1] = fmaf(p, vv[gq].y, acc[i][gq * 4 + 1]);
+            acc[i][gq * 4 + 2] = fmaf(p, vv[gq].z, acc[i][gq * 4 + 2]);
+            acc[i][gq * 4 + 3] = fmaf(p, vv[gq].w, acc[i][gq * 4 + 3]);
+          }
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kFRows; ++i) {
+    if (q0 + r0 + i >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* row = o_base + (long long)(ty * kRows + i) * q_ld;
+    float* row = o + q_off + (long long)(r0 + i) * q_ld;
 #pragma unroll
-    for (int j = 0; j < kDPer; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) row[d] = from_f<T>(acc[i][j] / denom);
+    for (int gq = 0; gq < kOC / 4; ++gq) {
+      const int c = gq * 64 + tx * 4;
+      if (c >= D) continue;
+      const float4 x = make_float4(
+          acc[i][gq * 4 + 0] / denom, acc[i][gq * 4 + 1] / denom,
+          acc[i][gq * 4 + 2] / denom, acc[i][gq * 4 + 3] / denom);
+      if ((D & 3) == 0) {
+        *reinterpret_cast<float4*>(row + c) = x;
+      } else {
+        row[c] = x.x;
+        if (c + 1 < D) row[c + 1] = x.y;
+        if (c + 2 < D) row[c + 2] = x.z;
+        if (c + 3 < D) row[c + 3] = x.w;
+      }
     }
   }
 }
@@ -471,18 +571,18 @@ int check_shape(int S, int T_len, int D) {
   return 0;
 }
 
+template <int DP>
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                int B, int S, int T_len, int KH, int G, int D, int causal,
                float scale, cudaStream_t stream) {
-  if (int err = check_shape(S, T_len, D)) return err;
-  if (B == 0 || S == 0 || KH == 0 || G == 0) return (int)cudaGetLastError();
-  const size_t smem = smem_bytes(D, sizeof(float));
+  const size_t smem = FlashF32Smem<DP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(S / kTile, B * KH * G);
-  flash_kernel<float><<<grid, kThreads, smem, stream>>>(
+  // x: the G query heads of one KV head side by side; z: q tiles
+  const dim3 grid(G, B * KH, (S + kFBM - 1) / kFBM);
+  flash_f32_kernel<DP><<<grid, kFThreads, smem, stream>>>(
       q, k, v, o, S, T_len, KH, G, D, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -513,7 +613,12 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, int B, int S,
                                    int T, int KH, int G, int D, int causal,
                                    float scale, cudaStream_t stream) {
-  return launch_f32(q, k, v, o, B, S, T, KH, G, D, causal, scale, stream);
+  if (int err = check_shape(S, T, D)) return err;
+  if (B == 0 || S == 0 || KH == 0 || G == 0) return (int)cudaGetLastError();
+  return D <= 64 ? launch_f32<64>(q, k, v, o, B, S, T, KH, G, D, causal,
+                                  scale, stream)
+                 : launch_f32<128>(q, k, v, o, B, S, T, KH, G, D, causal,
+                                   scale, stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,

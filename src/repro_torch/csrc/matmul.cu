@@ -7,14 +7,13 @@
 //
 //   matmul_f32   float32 in and out, IEEE float32 FMA (no TF32):
 //                `sgemm_kernel`, the DGEMM's path;
-//   matmul_bf16  bfloat16 in and out, float32 accumulation
-//                (__bfloat162float on load, __float2bfloat16 on store):
-//                `matmul_kernel`, on no main path.
+//   matmul_bf16  bfloat16 in and out, float32 accumulation, rounded once to
+//                nearest even on store: `hgemm_wgmma_kernel`, on the tensor
+//                cores, on no main path.
 //
 // Bound on an H100 SXM: operations. 2*M*N*K flops over the card's peak:
 // the float32 arm runs on the CUDA cores (67 TFLOP/s, 2.05 ms at
-// M=N=K=4096); the bf16 arm's bound is the 989 TFLOP/s tensor-core peak
-// (0.139 ms at 4096^3), which its CUDA-core FMAs cannot approach.
+// M=N=K=4096); the bf16 arm on the tensor cores (989 TFLOP/s, 0.139 ms).
 //
 // float32: what bounds an SGEMM on the CUDA cores is feeding the FMA pipes
 // from shared memory and hiding the load latencies. Each thread holds an
@@ -36,80 +35,55 @@
 // torch.matmul; 128x128 tiles of 8 warps took 2.94-2.96 ms, 8-deep steps
 // 3.03-3.09 ms, one block of 8 warps to an SM 3.24 ms.
 //
-// bfloat16: the first design, 64x64 tiles of 16 k with a 4x4 register
-// block per thread, one shared stage and two barriers per step; wgmma and
-// TMA are later work.
+// bfloat16: only the tensor cores reach the bound, and on Hopper only
+// through wgmma, which reads its operands from shared memory while the
+// products before it run. What bounds the kernel then is keeping the
+// tensor cores fed: tiles must arrive without costing the consumers
+// instructions, in the layout wgmma reads without bank conflicts. A block
+// of three warpgroups computes 128 x 256 output tiles. The last
+// warpgroup is the producer: one of its threads issues TMA copies of A's
+// [128, 64] and B's [64, 256] tiles into a ring of four 48 KB slots in
+// shared memory, each completing on the slot's "full" mbarrier; it gives
+// up registers (setmaxnreg 40) to the two consumer warpgroups (232), each
+// of which owns 64 rows of the tile, keeps 128 float32 accumulators a
+// thread in registers and runs wgmma.m64n256k16 over the slot, then frees
+// the slot on its "empty" mbarrier once the next slot's products are
+// issued. TMA writes the tiles with the 128-byte swizzle that the wgmma
+// descriptors name: A is K-major ([M, K] row-major), B is MN-major ([K, N]
+// row-major, the transpose-B immediate) in four boxes of 64 k rows x 64
+// columns. TMA fills reads past M, N or K with zeros, so a K tail
+// (K % 64) and overhanging tiles add nothing; the epilogue stores only
+// rows and columns inside C, as bf16 pairs rounded to nearest even. One
+// block runs on each SM and walks its tiles, loading the next tile during
+// the current one's epilogue. The tensor maps come from the driver's
+// cuTensorMapEncodeTiled, found through the runtime's driver entry point
+// (no link against libcuda), encoded on every call. Measured on an H100
+// SXM at 700 W (chip_smoke.py phase 2, tools/kernel_variants.py): 4096^3
+// in 0.208-0.220 ms, about 650 TFLOP/s, against 0.174-0.191 ms for
+// torch.matmul; a call through the wrapper, encoding included, takes the
+// kernel's own time. The variants, timed in turns with it by the tool: a
+// block per tile instead of one per SM 2-3% slower, three slots 2-5%,
+// accumulators zeroed by instructions at each tile instead of by the
+// first step's scale-d = 0 0-2% (zeroing them once before the tile loop
+// made ptxas serialize the products, its warning C7515). 128 x 128 tiles,
+// and clusters of two blocks sharing B's boxes by TMA multicast, were
+// tried in builds that are not kept and were not faster.
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "ptx.cuh"
 
 namespace {
-
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 16;
-constexpr int kThreads = 256;   // 16 x 16, each a 4x4 block of C
-constexpr int kPadM = kBM + 4;  // A tile row stride: fewer bank conflicts
 
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  for (int j = 0; j < 4; ++j) v[j] = __bfloat162float(p[j]);
-}
-
 __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  for (int j = 0; j < 4; ++j) p[j] = __float2bfloat16(v[j]);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
-              T* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[kBK][kPadM];  // As[k][m]
-  __shared__ __align__(16) float Bs[kBK][kBN];    // Bs[k][n]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;        // output columns tx*4 .. tx*4+3
-  const int ty = tid / 16;        // output rows    ty*4 .. ty*4+3
-  const long long row0 = (long long)blockIdx.y * kBM;
-  const long long col0 = (long long)blockIdx.x * kBN;
-
-  // loaders: A tile 64 rows x 16 k, B tile 16 k x 64 cols, 4 values each
-  const int a_m = tid / 4, a_k = (tid % 4) * 4;
-  const int b_k = tid / 16, b_n = (tid % 16) * 4;
-  const T* a_src = A + (row0 + a_m) * K + a_k;
-  const T* b_src = B + (long long)b_k * N + col0 + b_n;
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    float va[4], vb[4];
-    load4(a_src + k0, va);
-    load4(b_src + (long long)k0 * N, vb);
-    for (int j = 0; j < 4; ++j) As[a_k + j][a_m] = va[j];
-    for (int j = 0; j < 4; ++j) Bs[b_k][b_n + j] = vb[j];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[4], b[4];
-      load4(&As[k][ty * 4], a);
-      load4(&Bs[k][tx * 4], b);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 4; ++i)
-    store4(C + (row0 + ty * 4 + i) * N + col0 + tx * 4, acc[i]);
 }
 
 // ---- float32: register-blocked, double-buffered SGEMM -------------------
@@ -221,12 +195,293 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-int launch_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                __nv_bfloat16* c, int M, int N, int K, cudaStream_t stream) {
-  if (M > 0 && N > 0 && K > 0) {
-    matmul_kernel<__nv_bfloat16>
-        <<<dim3(N / kBN, M / kBM), kThreads, 0, stream>>>(a, b, c, M, N, K);
+// ---- bfloat16: wgmma fed by TMA -----------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kHBM = 128;                  // output rows per tile
+constexpr int kHBN = 256;                  // output columns per tile
+constexpr int kHBK = 64;                   // k per slot: 128-byte bf16 rows
+constexpr int kHStages = 4;                // ring slots
+constexpr int kHConsumers = 2;             // warpgroups of 64 rows each
+constexpr int kHThreads = 128 * (kHConsumers + 1);
+constexpr uint32_t kHABytes = kHBM * kHBK * 2;  // A: [128][64]
+constexpr uint32_t kHBox = kHBK * 64 * 2;       // B box: [64 k][64 n]
+constexpr uint32_t kHBBytes = kHBK * kHBN * 2;  // B: 4 boxes
+constexpr int kSwizzleBytes = 1024;             // 8 rows of 128 bytes
+// the ring, its barriers, and slack to align the ring to 1024 bytes
+constexpr size_t kHSmem = kHStages * (size_t)(kHABytes + kHBBytes) +
+                          2 * kHStages * sizeof(uint64_t) + kSwizzleBytes;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   ptx::smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          ptx::smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   ptx::smem_addr(bar))
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(ptx::smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box of `map` at element (c0 innermost, c1) into `dst`; its bytes
+// complete on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(ptx::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(ptx::smem_addr(bar)),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled operand at shared
+// address `addr` (1024-byte aligned atoms): LBO and SBO in bytes.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of an accumulator across the
+// asynchronous products.
+__device__ __forceinline__ void reg_fence(float& x) {
+  asm volatile("" : "+f"(x)::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+#define HG_F8(i)                                                    \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[128] = A . B + (scale_d ? d : 0) for one 64 x 256 x 16 step: A
+// K-major, B MN-major (trans-b = 1), bf16 in, float32 accumulators.
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+      "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : HG_F8(0), HG_F8(8), HG_F8(16), HG_F8(24), HG_F8(32), HG_F8(40),
+        HG_F8(48), HG_F8(56), HG_F8(64), HG_F8(72), HG_F8(80), HG_F8(88),
+        HG_F8(96), HG_F8(104), HG_F8(112), HG_F8(120)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+#undef HG_F8
+
+// Output tiles of 128 x 256, tile t at rows (t / tiles_n) * 128 and
+// columns (t % tiles_n) * 256; block b takes tiles b, b + gridDim.x, ...
+// Warpgroups 0 and 1 consume (64 rows each), warpgroup 2 produces. A slot
+// holds A rows [m0, m0+128) x k [kt*64, +64) as 128 rows of 128 bytes,
+// then B k rows [kt*64, +64) as four boxes of 64 k rows x 64 columns, all
+// 128-byte swizzled by TMA. Producer and consumers count slots across
+// tiles, so the loads of a block's next tile run during the epilogue of
+// its current one.
+__global__ void __launch_bounds__(kHThreads, 1)
+hgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                   const __grid_constant__ CUtensorMap tma_b,
+                   bf16* __restrict__ C, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sA = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kSwizzleBytes - 1) &
+      ~(uintptr_t)(kSwizzleBytes - 1));
+  unsigned char* sB = sA + kHStages * kHABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sB + kHStages * kHBBytes);
+  uint64_t* empty = full + kHStages;
+
+  const int wg = threadIdx.x / 128;
+  const int tiles_n = (N + kHBN - 1) / kHBN;
+  const int tiles = tiles_n * ((M + kHBM - 1) / kHBM);
+  const int nk = (K + kHBK - 1) / kHBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHStages; ++s) {
+      mbar_init(&full[s], 1);                // the producer's expect_tx
+      mbar_init(&empty[s], 4 * kHConsumers);  // one arrive a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (wg == kHConsumers) {
+    // producer: the whole warpgroup gives up registers, one thread loads
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kHConsumers * 128) {
+      int it = 0;  // slots filled so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / tiles_n * kHBM, n0 = t % tiles_n * kHBN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kHStages;
+          mbar_wait(&empty[s], ((it / kHStages) & 1) ^ 1);  // round 0 passes
+          mbar_expect_tx(&full[s], kHABytes + kHBBytes);
+          tma_load_2d(sA + s * kHABytes, &tma_a, &full[s], kt * kHBK, m0);
+#pragma unroll
+          for (int j = 0; j < kHBN / 64; ++j)
+            tma_load_2d(sB + s * kHBBytes + j * kHBox, &tma_b, &full[s],
+                        n0 + 64 * j, kt * kHBK);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    // A: K-major, this warpgroup's 64 rows; a 16-deep step is 32 bytes
+    // along the swizzled row. B: MN-major; LBO = 8 KB from one 64-column
+    // box to the next, SBO = 1 KB from one 8-row k group to the next; a
+    // 16-deep step is 16 k rows, 2 KB.
+    const uint32_t a0 = ptx::smem_addr(sA) + wg * 64 * kHBK * 2;
+    const uint32_t b0 = ptx::smem_addr(sB);
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    float acc[kHBN / 2];
+    int it = 0;  // slots consumed so far
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kHStages;
+        mbar_wait(&full[s], (it / kHStages) & 1);
+        wgmma_fence();
+        // the tile's first step overwrites the accumulators (scale-d = 0):
+        // no other instruction writes them while products are in flight
+#pragma unroll
+        for (int kk = 0; kk < kHBK / 16; ++kk)
+          wgmma_m64n256k16(
+              acc, wgmma_desc(a0 + s * kHABytes + kk * 32, 16, 1024),
+              wgmma_desc(b0 + s * kHBBytes + kk * 16 * 128, kHBox, 1024),
+              kt > 0 || kk > 0);
+        wgmma_commit();
+        // the products of the previous slot are done: free it
+        wgmma_wait<1>();
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kHStages]);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < kHBN / 2; ++i) reg_fence(acc[i]);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % kHStages]);
+
+      // accumulator i: row 16*warp + lane/4 + 8*((i/2)%2), column
+      // 8*(i/4) + 2*(lane%4) + i%2 of this warpgroup's 64 x 256
+      const int row0 = t / tiles_n * kHBM + wg * 64 + warp * 16 + lane / 4;
+      const int col0 = t % tiles_n * kHBN + 2 * (lane % 4);
+#pragma unroll
+      for (int j = 0; j < kHBN / 8; ++j) {
+        const int col = col0 + 8 * j;  // even, N % 64 == 0: col + 1 < N
+        if (col >= N) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row < M)
+            *reinterpret_cast<__nv_bfloat162*>(C + (long long)row * N +
+                                               col) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                      acc[4 * j + 2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled from the driver (its CUDA 12.0 form), or null
+// where it is missing. Needs a CUDA 12.5 or later runtime.
+EncodeTiled tensor_map_encoder() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+    return nullptr;
+  }
+  return reinterpret_cast<EncodeTiled>(fn);
+}
+
+// Tensor map of a row-major [rows, cols] bf16 matrix read in boxes of
+// box_rows x 64 columns (128 bytes), 128-byte swizzled; out-of-bounds
+// elements read as zero.
+bool encode_bf16(EncodeTiled encode, CUtensorMap* map, const bf16* base,
+                 int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<bf16*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One block per SM, each walking its tiles (a block per tile took 1-3%
+// longer).
+int launch_bf16(const bf16* a, const bf16* b, bf16* c, int M, int N, int K,
+                cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaGetLastError();
+  static const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap ta, tb;
+  if (!encode_bf16(encode, &ta, a, M, K, kHBM) ||
+      !encode_bf16(encode, &tb, b, K, N, kHBK)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      hgemm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kHSmem);
+  int device = 0, sms = 0;
+  if (err != cudaSuccess || (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess) {
+    return (int)err;
+  }
+  const int tiles = (N + kHBN - 1) / kHBN * ((M + kHBM - 1) / kHBM);
+  hgemm_wgmma_kernel<<<min(tiles, sms), kHThreads, kHSmem, stream>>>(
+      ta, tb, c, M, N, K);
   return (int)cudaGetLastError();
 }
 
@@ -256,3 +511,4 @@ extern "C" int matmul_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
                            cudaStream_t stream) {
   return launch_bf16(a, b, c, M, N, K, stream);
 }
+

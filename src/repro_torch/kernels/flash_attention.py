@@ -19,10 +19,11 @@ strides and a group size ``G``:
     package's ``_pallas_flash``.
 
 The kernel takes float32 and bfloat16, D up to 128, S and T that are
-multiples of its 64-row tile, and 16-byte aligned operands (the bf16
-arm's cp.async and ldmatrix copy 16 bytes at a time). bfloat16 runs on the
-tensor cores (mma.sync), float32 on the CUDA cores. It is bound by
-operations: see the note in the CUDA source.
+multiples of its 64-row tile, and 16-byte aligned operands (both arms
+copy 16 bytes at a time with cp.async). bfloat16 runs on the tensor cores
+(mma.sync), float32 on the CUDA cores in IEEE float32 (register-blocked,
+K and V tiles double-buffered). It is bound by operations: see the note
+in the CUDA source.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ PyTorch version.
 Replaces the Pallas TPU kernel ``_matmul_kernel`` / ``matmul`` of
 ``repro/kernels/matmul.py``: ``[M, K] · [K, N]`` accumulated in float32
 and cast to the input dtype, for float32 (IEEE FMA, never TF32: a
-register-blocked, double-buffered SGEMM on the CUDA cores) and bfloat16.
+register-blocked, double-buffered SGEMM on the CUDA cores) and bfloat16
+(on the tensor cores: ``wgmma`` fed by TMA, rounded once on store).
 The kernel needs M and N to be multiples of 64, K of 16 and the operands
 16-byte aligned, as the Pallas kernel needs its block sizes to divide the
 dimensions. It is bound by operations: see the note in the CUDA source.

@@ -5,7 +5,9 @@
 A prototype and its ``argtypes`` that disagree still load and run: ctypes
 then passes a pointer as a 32-bit int, or a float as an int, and the
 kernel reads garbage. Nothing here needs nvcc or a card."""
+import importlib.util
 import os
+import pathlib
 import re
 
 import pytest
@@ -88,3 +90,25 @@ def test_the_sources_that_share_the_ptx_header_depend_on_it():
     for name in ("flash_attention", "matmul"):
         assert _build.CSRC / "ptx.cuh" in _build._sources(name)
     assert _build._sources("jacobi3d") == [_build.CSRC / "jacobi3d.cu"]
+
+
+def _kernel_variants():
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "kernel_variants.py"
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+KERNEL_VARIANTS = _kernel_variants()
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_VARIANTS.VARIANTS))
+def test_kernel_variants_apply_to_the_committed_source(name):
+    """``tools/kernel_variants.py`` builds each variant from the committed
+    ``matmul.cu`` by text substitution: every substitution must still find
+    its text exactly once, so the tool times what it names."""
+    src = (_build.CSRC / "matmul.cu").read_text()
+    out = KERNEL_VARIANTS.variant_source(name, src)
+    assert (out == src) == (name == "committed")

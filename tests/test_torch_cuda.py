@@ -89,6 +89,26 @@ def test_matmul_close_to_plain_at_main_and_edge_shapes(cuda, dtype, tol, m, k,
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("m,k,n", [(64, 16, 64), (192, 48, 320),
+                                   (320, 1040, 192), (4096, 4096, 4096),
+                                   (256, 8192, 512)])
+def test_matmul_bf16_close_to_plain_at_tile_edges(cuda, m, k, n):
+    """The wgmma arm at its edges, M, N and K distinct where they can be:
+    K below, at and past a 64-deep step (TMA fills the tail with zeros),
+    M and N tiles that overhang the 128 x 256 output tile, a K of 8192. A
+    B operand read K-major, or a wrong descriptor stride, gives wrong
+    numbers at every one of these shapes."""
+    g = torch.Generator(device=cuda).manual_seed(m * 7 + k * 3 + n)
+    a = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    b = torch.randn((k, n), generator=g, device=cuda).to(torch.bfloat16)
+    before = LAUNCHES["matmul"]
+    got = ops.matmul(a, b)
+    assert LAUNCHES["matmul"] == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ops.matmul_plain(a, b).float(),
+                               rtol=2e-2, atol=2e-2)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     a = torch.ones((100, 64), device=cuda)
     with pytest.raises(ValueError):
@@ -158,6 +178,35 @@ def test_flash_gqa_bf16_close_to_plain(cuda, g, d, s, t, causal):
     want = ops.flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.parametrize("g", [1, 8])
+@pytest.mark.parametrize("d", [8, 12, 64, 128])
+@pytest.mark.parametrize("s,t,causal", [(128, 192, True), (192, 128, True),
+                                        (128, 256, False), (256, 64, False)])
+def test_flash_f32_close_to_plain(cuda, g, d, s, t, causal):
+    """The float32 arm at its limits, through both entry points: head dims
+    below, between and at its two compiled widths, S != T with and without
+    the causal mask (a last 64-row q tile in a 128-row block at S = 192),
+    one and eight query heads a KV head; then the same heads folded into
+    the Pallas contract [BH, S, D]."""
+    gen = torch.Generator(device=cuda).manual_seed(g * 1000 + d + s + t + 1)
+    q = torch.randn((2, s, 2, g, d), generator=gen, device=cuda)
+    k, v = (torch.randn((2, t, 2, d), generator=gen, device=cuda)
+            for _ in range(2))
+    n = LAUNCHES["flash_attention"]
+    got = ops.flash_attention_gqa(q, k, v, causal=causal)
+    assert LAUNCHES["flash_attention"] == n + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    bh = 2 * 2 * g
+    qf = q.permute(0, 2, 3, 1, 4).reshape(bh, s, d).contiguous()
+    kf, vf = (x.permute(0, 2, 1, 3)[:, :, None].expand(2, 2, g, t, d)
+              .reshape(bh, t, d).contiguous() for x in (k, v))
+    got = ops.flash_attention(qf, kf, vf, causal=causal)
+    want = want.permute(0, 2, 3, 1, 4).reshape(bh, s, d)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 def test_flash_wrapper_raises_on_misaligned_operands(cuda):

@@ -113,9 +113,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 128, 384),
-                                   (128, 512, 256)])
+                                   (128, 512, 256), (64, 48, 384),
+                                   (384, 16, 64)])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_matmul_plain_matches_pallas(m, k, n, dtype):
+    """Square and non-square shapes, with M, N and K distinct and a K
+    below the card kernel's 64-deep step (48, 16), that the Pallas block
+    sizes divide."""
     rng = np.random.default_rng(11)
     # round to the working dtype once, in JAX; both sides get those bits
     ja = jnp.asarray(rng.standard_normal((m, k)), dtype)

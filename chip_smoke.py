@@ -4,8 +4,11 @@
 
 Builds the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a) into
 ``build/repro_torch/``, holds every kernel against its plain PyTorch
-version on the card at the shapes the main path gives it, then drives the
-port's main path through the tasking runtime:
+version on the card at the shapes the main path gives it and at the other
+inputs the Pallas entry points take (ragged matmul and flash shapes, the
+Jacobi stencil in bf16 and f16, SSD chunks past 256 rows and heads whose
+A is positive; the SSD kernel's time split by its launches), then drives
+the port's main path through the tasking runtime:
 
   * the Fig. 3 double DGEMM at n = 4096 float32 (two ``matmul`` launches);
   * the over-decomposed Jacobi3D proxy on a 768^3 float32 domain, 8 chunks
@@ -49,10 +52,17 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = "yi-9b", 4, 2048, 32
 SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS = "mamba2-370m", 8, 4096, 32
 # ssd_chunk shapes (bc, q, h, p, n) checked in phase 2: the mamba2 prefill's
 # (8 requests x 16 chunks), the mamba2 smoke config's, the three of
-# tests/test_kernels.py and a ragged chunk (a prompt shorter than 256)
+# tests/test_kernels.py, a ragged chunk (a prompt shorter than 256), and
+# shapes past the first design's limits (q 512, p 128, n 256; ragged q, p
+# and n)
 SSD_MAIN = (SSM_BATCH * SSM_PROMPT // 256, 256, 32, 64, 128)
 SSD_SHAPES = (SSD_MAIN, (4, 16, 4, 32, 16), (2, 16, 4, 8, 16),
-              (1, 32, 2, 16, 8), (4, 8, 8, 4, 4), (8, 100, 32, 64, 128))
+              (1, 32, 2, 16, 8), (4, 8, 8, 4, 4), (8, 100, 32, 64, 128),
+              (2, 512, 4, 128, 256), (3, 100, 5, 96, 200))
+# a model-like ssd_chunk case whose A is positive on every other head: cs
+# increases there, so those heads take the kernel's direct form off the
+# diagonal
+SSD_MIXED = (16, 256, 8, 64, 128)
 # matmul shapes (m, k, n) checked in phase 2 in float32 and bf16: the
 # DGEMM's; one whose N is not a multiple of the float32 kernel's 128-wide
 # tile and whose K (48) ends inside the bf16 kernel's first 64-deep step;
@@ -60,6 +70,10 @@ SSD_SHAPES = (SSD_MAIN, (4, 16, 4, 32, 16), (2, 16, 4, 8, 16),
 # 128 x 256 output tile on both sides (a transposed or misdescribed B
 # operand cannot pass it)
 MATMUL_SHAPES = ((DGEMM_N,) * 3, (192, 48, 320), (320, 1040, 192))
+# shapes the Pallas kernel takes as one block (dims up to 128) that are not
+# multiples of the card tiles: the SGEMM's edge-safe loads, and in bf16 the
+# FMA arm where K = 12 gives rows TMA cannot describe
+MATMUL_RAGGED = ((100, 64, 64), (32, 16, 32), (96, 12, 40))
 # flash_attention_gqa shapes (b, s, t, kh, g, d, causal) checked in phase 2
 # in bf16 and float32 beside the main ones: head dims below, between and at
 # the kernels' two compiled widths (8 and 12 load element by element in
@@ -67,7 +81,13 @@ MATMUL_SHAPES = ((DGEMM_N,) * 3, (192, 48, 320), (320, 1040, 192))
 # head
 FLASH_SHAPES = tuple((2, s, t, 2, g, d, causal) for d in (8, 12, 64, 128)
                      for s, t, causal in ((128, 192, True), (192, 128, False))
-                     for g in (1, 8))
+                     for g in (1, 8)) + tuple(
+    # S and T the Pallas kernel takes as one block, not multiples of 64
+    (2, s, t, 2, 4, 64, causal)
+    for s, t, causal in ((32, 32, True), (96, 96, True), (96, 128, False)))
+# Jacobi shapes (interior x, y, z) checked in bf16 and f16 beside the main
+# ones: a small ragged one (both entry points) and the proxy's chunk
+JACOBI_HALF_SHAPES = ((70, 33, 65), (JACOBI_N // 2,) * 3)
 # Tolerances, each against a plain PyTorch version on the card:
 #  - flash kernel output: 2e-2 absolute and relative in bf16. Kernel and
 #    plain walk the same 64-wide kv tiles; only the float32 sum order
@@ -298,16 +318,67 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
         res[key] = dict(
             shape=[m, m, m], dtype=str(dtype),
             max_abs_err=errs[f"{m}x{m}x{m}"], tol=tol,
-            max_abs_err_by_shape=errs,
+            max_abs_err_by_shape=dict(errs),
             ms=time_ms(functools.partial(ops.matmul, a, b), reps),
             plain_ms=time_ms(functools.partial(ops.matmul_plain, a, b), 5),
             library_ms=time_ms(functools.partial(torch.matmul, a, b), reps),
             bound_ms=b_ms, bound_by=b_by)
-        del a, b, main
+        for m, k, n in MATMUL_RAGGED:
+            a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+            before = ops.LAUNCHES["matmul"]
+            got = ops.matmul(a, b).float()
+            check(ops.LAUNCHES["matmul"] == before + 1,
+                  f"{key} {(m, k, n)} did not launch the kernel")
+            want = ops.matmul_plain(a, b).float()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(bool(torch.allclose(got, want, rtol=tol, atol=tol)),
+                  f"{key} {(m, k, n)} outside {tol} of plain (max err {err})")
+            res[key]["max_abs_err_by_shape"][f"{m}x{k}x{n}"] = err
+            del a, b, got, want
+        del main
 
+    res["jacobi_half_types"] = jacobi_half_checks(ops, gen)
     res.update(flash_checks(ops, gen, fp32, bf16, mem_rate))
     res["ssd_chunk"] = ssd_checks(ops, gen, fp32, mem_rate)
     return res
+
+
+def jacobi_half_checks(ops, gen) -> dict:
+    """Both Jacobi entry points in bf16 and f16 at JACOBI_HALF_SHAPES: equal
+    to their plain versions bit for bit, one launch each."""
+    dev = torch.device("cuda")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        for shape in JACOBI_HALF_SHAPES:
+            x, y, z = shape
+            u_pad = torch.randn(tuple(n + 2 for n in shape), generator=gen,
+                                device=dev).to(dtype)
+            u = u_pad[1:-1, 1:-1, 1:-1].contiguous()
+            faces = [torch.randn(f, generator=gen, device=dev).to(dtype)
+                     for f in ((y, z), (y, z), (x, z), (x, z), (x, y),
+                               (x, y))]
+            before = dict(ops.LAUNCHES)
+            got = ops.jacobi3d(u_pad)
+            got_f = ops.jacobi3d_faces(u, *faces)
+            check(ops.LAUNCHES["jacobi3d"] == before["jacobi3d"] + 1
+                  and ops.LAUNCHES["jacobi3d_faces"]
+                  == before["jacobi3d_faces"] + 1,
+                  f"jacobi {dtype} {shape} did not launch the kernels")
+            for what, a, b in (
+                    ("jacobi3d", got, ops.jacobi3d_plain(u_pad)),
+                    ("jacobi3d_faces", got_f,
+                     ops.jacobi3d_faces_plain(u, *faces))):
+                torch.cuda.synchronize()
+                diff = int((a != b).sum().item())
+                check(a.dtype == dtype and diff == 0,
+                      f"{what} {dtype} {shape}: {diff} points differ from "
+                      f"plain")
+                out[f"{what}/{str(dtype)[6:]}/{'x'.join(map(str, shape))}"] \
+                    = "equal"
+            del u_pad, u, faces, got, got_f
+    return out
 
 
 def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
@@ -391,10 +462,12 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
     return res
 
 
-def ssd_inputs(gen, bc, q, h, p, n, model_like: bool):
+def ssd_inputs(gen, bc, q, h, p, n, model_like: bool, mixed: bool = False):
     """x, dt, A, B, C on the card. ``model_like`` draws dt and A as the
     mamba2 block makes them (softplus around dt_bias = log(expm1(0.01)),
-    A = -linspace(1, 16)); otherwise as tests/test_kernels.py does."""
+    A = -linspace(1, 16)); otherwise as tests/test_kernels.py does.
+    ``mixed`` (with ``model_like``) makes A positive and small (+0.05) on
+    every other head."""
     F = torch.nn.functional
     dev = torch.device("cuda")
     x = torch.randn((bc, q, h, p), generator=gen, device=dev)
@@ -402,6 +475,8 @@ def ssd_inputs(gen, bc, q, h, p, n, model_like: bool):
     if model_like:
         dt = F.softplus(r + float(np.log(np.expm1(0.01))))
         A = -torch.linspace(1.0, 16.0, h, device=dev)
+        if mixed:
+            A[1::2] = 0.05
     else:
         dt = F.softplus(r)
         A = -torch.exp(torch.randn((h,), generator=gen, device=dev))
@@ -428,33 +503,62 @@ def ssd_checks(ops, gen, fp32, mem_rate) -> dict:
     shape with model-style inputs. No one PyTorch call computes this
     function, so there is no library time."""
     worst = {}
-    for shape in SSD_SHAPES:
-        for model_like in (False, True):
-            args = ssd_inputs(gen, *shape, model_like)
-            y, st = ops.ssd_chunk(*args)
-            wy, wst = ops.ssd_chunk_plain(*args)
-            torch.cuda.synchronize()
-            for got, want, what in ((y, wy, "y"), (st, wst, "states")):
-                check(bool(torch.isfinite(got).all()),
-                      f"ssd_chunk {shape}: non-finite {what}")
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                check(err <= SSD_TOL * scale, f"ssd_chunk {shape} {what}: "
-                      f"max err {err} above {SSD_TOL} x {scale}")
-                key = f"{'x'.join(map(str, shape))}/{what}"
-                worst[key] = max(worst.get(key, 0.0), err / scale)
-            if shape == SSD_MAIN and model_like:
-                main_err = max((y - wy).abs().max().item(),
-                               (st - wst).abs().max().item())
-            del args, y, st, wy, wst
+    cases = [(shape, model_like, False) for shape in SSD_SHAPES
+             for model_like in (False, True)] + [(SSD_MIXED, True, True)]
+    for shape, model_like, mixed in cases:
+        args = ssd_inputs(gen, *shape, model_like, mixed)
+        y, st = ops.ssd_chunk(*args)
+        wy, wst = ops.ssd_chunk_plain(*args)
+        torch.cuda.synchronize()
+        for got, want, what in ((y, wy, "y"), (st, wst, "states")):
+            check(bool(torch.isfinite(got).all()),
+                  f"ssd_chunk {shape}: non-finite {what}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            check(err <= SSD_TOL * scale, f"ssd_chunk {shape} {what}: "
+                  f"max err {err} above {SSD_TOL} x {scale}")
+            key = f"{'x'.join(map(str, shape))}{'/mixed' if mixed else ''}" \
+                f"/{what}"
+            worst[key] = max(worst.get(key, 0.0), err / scale)
+        if shape == SSD_MAIN and model_like:
+            main_err = max((y - wy).abs().max().item(),
+                           (st - wst).abs().max().item())
+        del args, y, st, wy, wst
     args = ssd_inputs(gen, *SSD_MAIN, True)
     b_ms, b_by = bound(*ssd_work(*SSD_MAIN), fp32, mem_rate)
     return dict(
         shape=list(SSD_MAIN), dtype="torch.float32", max_abs_err=main_err,
         tol=f"{SSD_TOL} x max|plain|", rel_err_by_shape=worst,
+        ms_by_part=ssd_parts(ops, args),
         ms=time_ms(functools.partial(ops.ssd_chunk, *args), 10),
         plain_ms=time_ms(functools.partial(ops.ssd_chunk_plain, *args), 3),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def ssd_parts(ops, args, reps: int = 5) -> dict:
+    """Device time of one ssd_chunk call split by its kernels (a traced
+    run of ``reps`` calls): the y part (the scan, the scores and the two y
+    kernels) and the states part, with each kernel's own time."""
+    from torch.profiler import ProfilerActivity, profile
+    ops.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ops.ssd_chunk(*args)
+        torch.cuda.synchronize()
+    by: dict = {}
+    for e in prof.events():
+        name = e.name.replace("(anonymous namespace)::", "")
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and name.startswith("ssd_"):
+            key = name.split("(")[0]
+            by[key] = by.get(key, 0.0) + \
+                (e.time_range.end - e.time_range.start) / 1e3 / reps
+    if not by:
+        return {"device_trace": "not measured"}
+    return {"by_kernel": by,
+            "states": by.get("ssd_states_kernel", 0.0),
+            "y": sum(v for k, v in by.items() if k != "ssd_states_kernel")}
 
 
 def _trace_summary(prof, lo_name: Optional[str] = None) -> dict:
@@ -622,7 +726,8 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     n = full.shape[1]
     fwd_flags = model.flags
     if cfg.layer_pattern == (GLOBAL_ATTN,):
-        # the flash kernel takes multiples of 64 only: the plain path, in
+        # the attention layer takes the kernel only at S % 128 == 0, as the
+        # JAX package's takes the Pallas one: the plain path, in
         # the largest block that divides prompt + steps
         blk = max(d for d in range(1, 513) if n % d == 0)
         fwd_flags = dataclasses.replace(fwd_flags, use_flash_kernel=False,

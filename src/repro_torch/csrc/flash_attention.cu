@@ -18,7 +18,10 @@
 // Operands are read through strides, so one kernel serves both layouts:
 //   q, o [B, S, KH, G, D] and k, v [B, T, KH, D]; query head (kh, g) reads
 //   KV head kh in place (the Pallas contract [BH, S, D] is KH = G = 1).
-//   S and T are multiples of 64 and D is at most 128 (the wrapper checks).
+//   Any S and T; D is at most 128 (the wrapper checks). Q rows past S are
+//   loaded as zeros and never stored; K and V rows past T are loaded as
+//   zeros (cp.async with a source size of 0) and their scores set to
+//   NEG_INF, so p = 0 there and 0 . V adds nothing.
 //
 // Bound on an H100 SXM: operations. The causal work is about S(S+1)/2
 // scored pairs x 4*D flops per (batch, head): 137 GFLOP at yi-9b's
@@ -89,7 +92,7 @@
 
 namespace {
 
-constexpr int kTile = 64;                 // S, T multiples; kv rows per tile
+constexpr int kTile = 64;                 // kv rows per tile
 constexpr int kMaxD = 128;
 constexpr float kNegInf = -1e30f;
 
@@ -115,22 +118,33 @@ struct FlashF32Smem {
 };
 
 // Copy rows [0, rows) x columns [0, D) of a float tile (row stride `ld` in
-// global memory) to shared memory at row stride `stride`: 16-byte cp.async
-// where rows are 16-byte aligned (D % 4 == 0), else element by element.
+// global memory) to shared memory at row stride `stride`, rows from `valid`
+// on as zeros (nothing past them is read): 16-byte cp.async where rows are
+// 16-byte aligned (D % 4 == 0), else element by element.
 template <int DP>
 __device__ __forceinline__ void load_tile_f32(float* dst, int stride,
                                               const float* __restrict__ src,
-                                              long long ld, int rows, int D) {
+                                              long long ld, int rows,
+                                              int valid, int D) {
   if ((D & 3) == 0) {
     constexpr int kChunks = DP / 4;
+    if (valid == rows) {   // a whole tile: no row to fill
+      for (int i = threadIdx.x; i < rows * kChunks; i += kFThreads) {
+        const int r = i / kChunks, c = (i % kChunks) * 4;
+        if (c < D) ptx::cp_async16(dst + r * stride + c, src + r * ld + c);
+      }
+      return;
+    }
     for (int i = threadIdx.x; i < rows * kChunks; i += kFThreads) {
       const int r = i / kChunks, c = (i % kChunks) * 4;
-      if (c < D) ptx::cp_async16(dst + r * stride + c, src + r * ld + c);
+      if (c < D)
+        ptx::cp_async16_zfill(dst + r * stride + c,
+                              src + min(r, valid - 1) * ld + c, r < valid);
     }
   } else {
     for (int i = threadIdx.x; i < rows * D; i += kFThreads) {
       const int r = i / D, c = i - r * D;
-      dst[r * stride + c] = src[r * ld + c];
+      dst[r * stride + c] = r < valid ? src[r * ld + c] : 0.f;
     }
   }
 }
@@ -174,20 +188,22 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
   }
 
-  // the last q tile may hold only 64 rows: rows from S on are neither
-  // loaded nor stored, and the warps that own them skip every tile
+  // the last q tile may be short: rows from S on are loaded as zeros and
+  // not stored, and the warps that own only such rows skip every tile; the
+  // last kv tile may be short: its rows from T on are zeros, masked below
   const int q_rows = min(kFBM, S - q0);
-  const int n_kv_all = T_len / kTile;
+  const int n_kv_all = (T_len + kTile - 1) / kTile;
   const int n_kv =
       causal ? min(n_kv_all, (q0 + q_rows - 1) / kTile + 1) : n_kv_all;
   auto load_kv = [&](int j) {
     float* ks = KVs + (j & 1) * L::kKV;
+    const int rows = min(kTile, T_len - j * kTile);
     load_tile_f32<DP>(ks, L::kKStride, k_base + (long long)j * kTile * kv_ld,
-                      kv_ld, kTile, D);
+                      kv_ld, kTile, rows, D);
     load_tile_f32<DP>(ks + L::kK, DP, v_base + (long long)j * kTile * kv_ld,
-                      kv_ld, kTile, D);
+                      kv_ld, kTile, rows, D);
   };
-  load_tile_f32<DP>(Qs, DP, q + q_off, q_ld, q_rows, D);
+  load_tile_f32<DP>(Qs, DP, q + q_off, q_ld, kFBM, q_rows, D);
   load_kv(0);
   ptx::cp_async_commit();
 
@@ -244,8 +260,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // online softmax, row by row; the mask only on tiles that cross the
-    // diagonal of this warp's rows
+    // diagonal of this warp's rows or the end of K
     const bool diag = causal && k0 + kTile - 1 > wq0;
+    const bool tail = k0 + kTile > T_len;
+    const bool mask = diag || tail;
 #pragma unroll
     for (int i = 0; i < kFRows; ++i) {
       const int qpos = q0 + r0 + i;
@@ -253,7 +271,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kFCols; ++c) {
         float x = s[i][c] * scale;
-        if (diag && k0 + tx + 16 * c > qpos) x = kNegInf;
+        if (mask) {
+          const int kpos = k0 + tx + 16 * c;
+          if ((diag && kpos > qpos) || kpos >= T_len) x = kNegInf;
+        }
         s[i][c] = x;
         mx = fmaxf(mx, x);
       }
@@ -362,22 +383,33 @@ __host__ __device__ constexpr size_t mma_smem_bytes() {
 }
 
 // Issue the copy of rows [0, rows) x columns [0, D) of a tile (row stride
-// `ld` elements in global memory) into its swizzled place: 16-byte cp.async
-// where rows are 16-byte aligned (D % 8 == 0), else element by element.
+// `ld` elements in global memory) into its swizzled place, rows from
+// `valid` on as zeros (nothing past them is read): 16-byte cp.async where
+// rows are 16-byte aligned (D % 8 == 0), else element by element.
 template <int DP>
 __device__ __forceinline__ void load_tile_bf16(bf16* dst,
                                                const bf16* __restrict__ src,
-                                               long long ld, int rows, int D) {
+                                               long long ld, int rows,
+                                               int valid, int D) {
   if ((D & 7) == 0) {
     constexpr int kChunks = DP / 8;
+    if (valid == rows) {   // a whole tile: no row to fill
+      for (int i = threadIdx.x; i < rows * kChunks; i += kMmaThreads) {
+        const int r = i / kChunks, c = (i % kChunks) * 8;
+        if (c < D) ptx::cp_async16(dst + swz<DP>(r, c), src + r * ld + c);
+      }
+      return;
+    }
     for (int i = threadIdx.x; i < rows * kChunks; i += kMmaThreads) {
       const int r = i / kChunks, c = (i % kChunks) * 8;
-      if (c < D) ptx::cp_async16(dst + swz<DP>(r, c), src + r * ld + c);
+      if (c < D)
+        ptx::cp_async16_zfill(dst + swz<DP>(r, c),
+                              src + min(r, valid - 1) * ld + c, r < valid);
     }
   } else {
     for (int i = threadIdx.x; i < rows * D; i += kMmaThreads) {
       const int r = i / D, c = i - r * D;
-      dst[swz<DP>(r, c)] = src[r * ld + c];
+      dst[swz<DP>(r, c)] = r < valid ? src[r * ld + c] : __float2bfloat16(0.f);
     }
   }
 }
@@ -412,19 +444,23 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
-  // the last q tile may hold only 64 rows: rows from S on are neither
-  // loaded nor stored (each row's softmax and output are its own)
+  // the last q tile may be short: rows from S on are loaded as zeros and
+  // not stored (each row's softmax and output are its own); the last kv
+  // tile may be short: its rows from T on are zeros, masked below
   const int q_rows = min(kBM, S - q0);
-  const int n_kv_all = T_len / kBN;
+  const int n_kv_all = (T_len + kBN - 1) / kBN;
   const int n_kv =
       causal ? min(n_kv_all, (q0 + q_rows - 1) / kBN + 1) : n_kv_all;
   auto load_kv = [&](int j) {
     bf16* ks = KVs + (j % kStages) * 2 * kBN * DP;
-    load_tile_bf16<DP>(ks, k_base + (long long)j * kBN * kv_ld, kv_ld, kBN, D);
+    const int rows = min(kBN, T_len - j * kBN);
+    load_tile_bf16<DP>(ks, k_base + (long long)j * kBN * kv_ld, kv_ld, kBN,
+                       rows, D);
     load_tile_bf16<DP>(ks + kBN * DP, v_base + (long long)j * kBN * kv_ld,
-                       kv_ld, kBN, D);
+                       kv_ld, kBN, rows, D);
   };
-  load_tile_bf16<DP>(Qs, q + q_off, q_ld, q_rows, D);  // in tile 0's group
+  load_tile_bf16<DP>(Qs, q + q_off, q_ld, kBM, q_rows, D);  // in tile 0's
+                                                            // group
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < n_kv) load_kv(s);
@@ -483,14 +519,19 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // online softmax; element e of a tile is row r + 8*(e/2), column
     // 2*(lane%4) + e%2
     const bool diag = causal && k0 + kBN - 1 > wq0;
+    const bool tail = k0 + kBN > T_len;
+    const bool mask = diag || tail;
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[nt][e] * scale;
-        if (diag && k0 + nt * 8 + t2 + (e & 1) > wq0 + r + (e >> 1) * 8)
-          x = kNegInf;
+        if (mask) {
+          const int kpos = k0 + nt * 8 + t2 + (e & 1);
+          if ((diag && kpos > wq0 + r + (e >> 1) * 8) || kpos >= T_len)
+            x = kNegInf;
+        }
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -565,7 +606,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // 0 where the kernels take the shape, else the error to return.
 int check_shape(int S, int T_len, int D) {
-  if (D < 1 || D > kMaxD || S % kTile || T_len % kTile) {
+  if (D < 1 || D > kMaxD || S < 0 || T_len < 1) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;

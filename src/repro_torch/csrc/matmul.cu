@@ -9,7 +9,12 @@
 //                `sgemm_kernel`, the DGEMM's path;
 //   matmul_bf16  bfloat16 in and out, float32 accumulation, rounded once to
 //                nearest even on store: `hgemm_wgmma_kernel`, on the tensor
-//                cores, on no main path.
+//                cores, on no main path. Needs K and N multiples of 8:
+//                TMA describes only row strides of 16-byte multiples;
+//   matmul_bf16_fma  the same function for any K and N: `sgemm_kernel`
+//                instantiated for bf16 loads (each converted to float,
+//                IEEE FMA, rounded once on store), the wrapper's arm for
+//                the shapes TMA cannot describe.
 //
 // Bound on an H100 SXM: operations. 2*M*N*K flops over the card's peak:
 // the float32 arm runs on the CUDA cores (67 TFLOP/s, 2.05 ms at
@@ -29,9 +34,14 @@
 // inside a step the operands of k+1 are read while k's FMAs run. Every
 // output is one fmaf chain over k in increasing order from 0, as in the
 // first design (64x64 tiles, one shared stage): the two give the same
-// bits. M and N must be multiples of 64 and K of 16 (the wrapper checks);
-// a tile that overhangs N reads clamped columns and stores only the ones
-// inside. On an H100 SXM at 700 W, 4096^3 took 2.88 ms against 2.65 for
+// bits. Where M and N are multiples of 64 and K of 16 the loads are the
+// ones described (a tile that overhangs N reads clamped columns and stores
+// only the ones inside); any other shape runs the same loop with edge-safe
+// loads (EDGE = true): both operands go through registers element by
+// element, reads past M, N or K give zeros, and stores past M or N are
+// skipped, so a row of K = 12 or N = 40 floats needs no alignment. Zeros
+// past K add +0 to every chain: the results inside are the same bits.
+// On an H100 SXM at 700 W, 4096^3 took 2.88 ms against 2.65 for
 // torch.matmul; 128x128 tiles of 8 warps took 2.94-2.96 ms, 8-deep steps
 // 3.03-3.09 ms, one block of 8 warps to an SM 3.24 ms.
 //
@@ -86,6 +96,15 @@ __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_elem(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
 // ---- float32: register-blocked, double-buffered SGEMM -------------------
 
 // A BM x BN output tile per block of WM x WN warps, each warp a 32x64 tile
@@ -93,12 +112,16 @@ __device__ __forceinline__ void store4(float* p, const float* v) {
 // n0 + {0..3, 32..35}. Launched as <64, 128, 16, 2, 2, 4> only; kept a
 // template because the same code written without one compiled to other
 // register assignments and ran 7% slower (3.07 against 2.88 ms at 4096^3).
-template <int BM, int BN, int BK, int WM, int WN, int MINB>
+// E is the element type in and out (float, or bf16 with EDGE); EDGE
+// selects the edge-safe loads and stores for any M, N and K.
+template <int BM, int BN, int BK, int WM, int WN, int MINB, typename E,
+          bool EDGE>
 __global__ void __launch_bounds__(32 * WM * WN, MINB)
-sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
-             float* __restrict__ C, int M, int N, int K) {
+sgemm_kernel(const E* __restrict__ A, const E* __restrict__ B,
+             E* __restrict__ C, int M, int N, int K) {
   constexpr int T = 32 * WM * WN;
   static_assert(BM == 32 * WM && BN == 64 * WN, "warp tile 32x64");
+  static_assert(EDGE || sizeof(E) == 4, "16-byte copies take float only");
   constexpr int RP = BM / (T / 2), KP = BK / 8;      // A float4 a thread
   constexpr int BQ = BN / 4, NB = BK * BN / 4 / T;   // B copies a thread
   constexpr int PAD = BM + 4;  // As row stride: transposed stores fall on
@@ -109,35 +132,63 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int m0 = (warp / WN) * 32 + (lane >> 3) * 4;
   const int n0 = (warp % WN) * 64 + (lane & 7) * 4;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-  // loaders; rows and columns past M or N read the last valid ones
+  // loaders; rows and columns past M or N read the last valid ones (EDGE:
+  // read zeros)
   const int a_m = tid >> 1, a_k = (tid & 1) * 4;
   const int b_k = tid / BQ, b_n = (tid % BQ) * 4;
-  const float* a_src[RP];
+  const E* a_src[RP];
 #pragma unroll
   for (int r = 0; r < RP; ++r)
     a_src[r] =
         A + (long long)min(row0 + a_m + r * (T / 2), M - 1) * K + a_k;
-  const float* b_src = B + (long long)b_k * N + min(col0 + b_n, N - 4);
+  const E* b_src = B + (long long)b_k * N +
+                   (EDGE ? col0 + b_n : min(col0 + b_n, N - 4));
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   float4 ra[RP][KP];
-  auto fetch = [&](int kt, int st) {  // B into stage st, A into ra
-#pragma unroll
-    for (int i = 0; i < NB; ++i)
-      ptx::cp_async16(&Bs[st][b_k + i * (T / BQ)][b_n],
-                      b_src + (long long)(kt * BK + i * (T / BQ)) * N);
-    ptx::cp_async_commit();
-#pragma unroll
-    for (int r = 0; r < RP; ++r)
-#pragma unroll
-      for (int i = 0; i < KP; ++i)
-        ra[r][i] =
-            *reinterpret_cast<const float4*>(a_src[r] + kt * BK + 8 * i);
+  float4 rb[EDGE ? NB : 1];
+  // EDGE: element (row, k) of A and (k, col) of B, zero outside
+  auto a_at = [&](int r, int k) -> float {
+    return row0 + a_m + r * (T / 2) < M && k < K
+               ? to_float(a_src[r][k - a_k]) : 0.f;
   };
-  auto put = [&](int st) {  // ra, transposed, into stage st
+  auto b_at = [&](int k, int col) -> float {
+    return k < K && col < N ? to_float(B[(long long)k * N + col]) : 0.f;
+  };
+  auto fetch = [&](int kt, int st) {  // B into stage st, A into ra
+    if constexpr (EDGE) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const int k = kt * BK + b_k + i * (T / BQ), col = col0 + b_n;
+        rb[i] = make_float4(b_at(k, col), b_at(k, col + 1),
+                            b_at(k, col + 2), b_at(k, col + 3));
+      }
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+#pragma unroll
+        for (int i = 0; i < KP; ++i) {
+          const int k = kt * BK + a_k + 8 * i;
+          ra[r][i] = make_float4(a_at(r, k), a_at(r, k + 1), a_at(r, k + 2),
+                                 a_at(r, k + 3));
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        ptx::cp_async16(&Bs[st][b_k + i * (T / BQ)][b_n],
+                        b_src + (long long)(kt * BK + i * (T / BQ)) * N);
+      ptx::cp_async_commit();
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+#pragma unroll
+        for (int i = 0; i < KP; ++i)
+          ra[r][i] =
+              *reinterpret_cast<const float4*>(a_src[r] + kt * BK + 8 * i);
+    }
+  };
+  auto put = [&](int st) {  // ra, transposed, (EDGE: and rb) into stage st
 #pragma unroll
     for (int r = 0; r < RP; ++r)
 #pragma unroll
@@ -147,12 +198,17 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
         As[st][a_k + 8 * i + 2][a_m + r * (T / 2)] = ra[r][i].z;
         As[st][a_k + 8 * i + 3][a_m + r * (T / 2)] = ra[r][i].w;
       }
+    if constexpr (EDGE) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        *reinterpret_cast<float4*>(&Bs[st][b_k + i * (T / BQ)][b_n]) = rb[i];
+    }
   };
   fetch(0, 0);
   put(0);
-  ptx::cp_async_wait<0>();
+  if constexpr (!EDGE) ptx::cp_async_wait<0>();
   __syncthreads();
-  const int nk = K / BK;
+  const int nk = EDGE ? (K + BK - 1) / BK : K / BK;
   for (int kt = 0; kt < nk; ++kt) {
     const int cur = kt & 1;
     const bool more = kt + 1 < nk;
@@ -179,7 +235,7 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
     }
     if (more) {
       put(cur ^ 1);
-      ptx::cp_async_wait<0>();
+      if constexpr (!EDGE) ptx::cp_async_wait<0>();
     }
     __syncthreads();  // the next stage is written and this one read
   }
@@ -190,7 +246,14 @@ sgemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int col = col0 + n0 + h * 32;
-      if (col < N) store4(C + (long long)row * N + col, &acc[i][h * 4]);
+      if constexpr (EDGE) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < N)
+            store_elem(C + (long long)row * N + col + e, acc[i][h * 4 + e]);
+      } else {
+        if (col < N) store4(C + (long long)row * N + col, &acc[i][h * 4]);
+      }
     }
   }
 }
@@ -411,16 +474,18 @@ hgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
       const int col0 = t % tiles_n * kHBN + 2 * (lane % 4);
 #pragma unroll
       for (int j = 0; j < kHBN / 8; ++j) {
-        const int col = col0 + 8 * j;  // even, N % 64 == 0: col + 1 < N
+        const int col = col0 + 8 * j;  // even
         if (col >= N) continue;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = row0 + 8 * h;
-          if (row < M)
-            *reinterpret_cast<__nv_bfloat162*>(C + (long long)row * N +
-                                               col) =
-                __floats2bfloat162_rn(acc[4 * j + 2 * h],
-                                      acc[4 * j + 2 * h + 1]);
+          if (row >= M) continue;
+          bf16* out = C + (long long)row * N + col;
+          if (col + 1 < N)  // a pair; the last odd column alone
+            *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(
+                acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          else
+            *out = __float2bfloat16_rn(acc[4 * j + 2 * h]);
         }
       }
     }
@@ -485,12 +550,13 @@ int launch_bf16(const bf16* a, const bf16* b, bf16* c, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
-int launch_f32(const float* a, const float* b, float* c, int M, int N, int K,
-               cudaStream_t stream) {
+template <typename E, bool EDGE>
+int launch_sgemm(const E* a, const E* b, E* c, int M, int N, int K,
+                 cudaStream_t stream) {
   if (M > 0 && N > 0 && K > 0) {
     const dim3 grid((N + 127) / 128, (M + 63) / 64);
-    sgemm_kernel<64, 128, 16, 2, 2, 4><<<grid, 128, 0, stream>>>(a, b, c, M,
-                                                                 N, K);
+    sgemm_kernel<64, 128, 16, 2, 2, 4, E, EDGE>
+        <<<grid, 128, 0, stream>>>(a, b, c, M, N, K);
   }
   return (int)cudaGetLastError();
 }
@@ -498,17 +564,26 @@ int launch_f32(const float* a, const float* b, float* c, int M, int N, int K,
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
-// All arrays are contiguous row-major and 16-byte aligned;
-// M % 64 == N % 64 == K % 16 == 0.
+// All arrays are contiguous row-major and 16-byte aligned; matmul_bf16
+// needs K % 8 == N % 8 == 0, the other two take any M, N, K.
 
 extern "C" int matmul_f32(const float* a, const float* b, float* c, int M,
                           int N, int K, cudaStream_t stream) {
-  return launch_f32(a, b, c, M, N, K, stream);
+  return M % 64 == 0 && N % 64 == 0 && K % 16 == 0
+             ? launch_sgemm<float, false>(a, b, c, M, N, K, stream)
+             : launch_sgemm<float, true>(a, b, c, M, N, K, stream);
+}
+
+extern "C" int matmul_bf16_fma(const __nv_bfloat16* a,
+                               const __nv_bfloat16* b, __nv_bfloat16* c,
+                               int M, int N, int K, cudaStream_t stream) {
+  return launch_sgemm<__nv_bfloat16, true>(a, b, c, M, N, K, stream);
 }
 
 extern "C" int matmul_bf16(const __nv_bfloat16* a, const __nv_bfloat16* b,
                            __nv_bfloat16* c, int M, int N, int K,
                            cudaStream_t stream) {
+  if (K % 8 || N % 8) return (int)cudaErrorInvalidValue;
   return launch_bf16(a, b, c, M, N, K, stream);
 }
 

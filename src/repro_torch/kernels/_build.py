@@ -31,18 +31,24 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "jacobi3d": {
         "jacobi3d_f32": [_P, _P, _I, _I, _I, _P],
+        "jacobi3d_bf16": [_P, _P, _I, _I, _I, _P],
+        "jacobi3d_f16": [_P, _P, _I, _I, _I, _P],
         "jacobi3d_faces_f32": [_P] * 8 + [_I, _I, _I, _P],
+        "jacobi3d_faces_bf16": [_P] * 8 + [_I, _I, _I, _P],
+        "jacobi3d_faces_f16": [_P] * 8 + [_I, _I, _I, _P],
     },
     "matmul": {
         "matmul_f32": [_P, _P, _P, _I, _I, _I, _P],
         "matmul_bf16": [_P, _P, _P, _I, _I, _I, _P],
+        "matmul_bf16_fma": [_P, _P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
         "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
         "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
     },
     "ssd": {
-        "ssd_chunk_f32": [_P] * 7 + [_I] * 5 + [_P],
+        "ssd_chunk_f32": [_P] * 8 + [_I] * 5 + [_P],
+        "ssd_workspace_floats": [_I, _I, _I, _P],
     },
 }
 

@@ -18,12 +18,14 @@ strides and a group size ``G``:
     place, without the broadcast copies and transposes of the JAX
     package's ``_pallas_flash``.
 
-The kernel takes float32 and bfloat16, D up to 128, S and T that are
-multiples of its 64-row tile, and 16-byte aligned operands (both arms
-copy 16 bytes at a time with cp.async). bfloat16 runs on the tensor cores
-(mma.sync), float32 on the CUDA cores in IEEE float32 (register-blocked,
-K and V tiles double-buffered). It is bound by operations: see the note
-in the CUDA source.
+The kernel takes float32 and bfloat16, D up to 128, any S and T (rows
+past S are not stored, K and V rows past T are read as zeros and masked
+to ``NEG_INF``), and 16-byte aligned operands (both arms copy 16 bytes at
+a time with cp.async). That is every input the Pallas entry point takes
+(any S, T up to 128, or multiples of 128) and more; D > 128 raises.
+bfloat16 runs on the tensor cores (mma.sync), float32 on the CUDA cores
+in IEEE float32 (register-blocked, K and V tiles double-buffered). It is
+bound by operations: see the note in the CUDA source.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ import torch
 from repro_torch.kernels import count_launch
 
 NEG_INF = -1e30
-TILE = 64            # S, T multiples, and the kernels' kv tile
+TILE = 64            # the kernels' kv tile
 MAX_D = 128
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -49,16 +51,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``arange(T)``. With
     the default blocks it walks the kv tiles in the kernel's order; kv
     blocks wholly above the causal diagonal are skipped, which changes no
-    bit (they add ``p = 0`` at ``alpha = 1``)."""
+    bit (they add ``p = 0`` at ``alpha = 1``). The last q and kv blocks
+    are cut short where the blocks do not divide S and T."""
     b, s, kh, g, d = q.shape
     t = k.shape[1]
-    qb, kb = min(q_block, s), min(kv_block, t)
-    if s % qb or t % kb:
-        raise ValueError(f"flash_attention_plain: S={s}, T={t} must be "
-                         f"multiples of the blocks ({qb}, {kb})")
     scale = d ** -0.5
     out = torch.empty_like(q)
-    for q0 in range(0, s, qb):
+    for q0 in range(0, s, q_block):
+        qb = min(q_block, s - q0)
         qblk = q[:, q0:q0 + qb].float()
         qpos = torch.arange(q0, q0 + qb, device=q.device)
         acc = torch.zeros((b, qb, kh, g, d), dtype=torch.float32,
@@ -67,7 +67,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=q.device)
         l = torch.zeros_like(m)
         k_end = min(t, q0 + qb) if causal else t
-        for k0 in range(0, k_end, kb):
+        for k0 in range(0, k_end, kv_block):
+            kb = min(kv_block, t - k0)
             kblk = k[:, k0:k0 + kb]
             vblk = v[:, k0:k0 + kb]
             sc = torch.einsum("bqkgd,bckd->bqkgc", qblk, kblk.float()) * scale
@@ -106,9 +107,8 @@ def _check(q, k, v, what):
 def _launch(q, k, v, b, s, t, kh, g, d, causal, what) -> torch.Tensor:
     if not 0 < d <= MAX_D:
         raise ValueError(f"{what}: head dim {d} outside 1..{MAX_D}")
-    if s <= 0 or t <= 0 or s % TILE or t % TILE:
-        raise ValueError(f"{what}: S={s}, T={t} must be positive multiples "
-                         f"of {TILE}")
+    if s <= 0 or t <= 0:
+        raise ValueError(f"{what}: S={s}, T={t} must be positive")
     if b * kh * g > 65535:
         raise ValueError(f"{what}: {b * kh * g} heads exceed the grid")
     from repro_torch.kernels import _build

@@ -14,7 +14,11 @@ Both sum the six neighbours in the reference's order and divide truly by
 6. PyTorch's CUDA division by a Python scalar multiplies by its
 reciprocal, so the plain versions divide by a 0-dim tensor on the same
 device, which is a true division; kernel and plain version then agree bit
-for bit. The kernel is memory-bound: see the note in the CUDA source.
+for bit. The kernels take float32, bfloat16 and float16 (the Pallas kernel
+takes any float type and writes in its input's; the JAX package runs in
+32-bit mode, so float64 raises here), rounding after each add and after
+the division as PyTorch does. The faces kernel marches each (y, z)
+column along x. Both are memory-bound: see the note in the CUDA source.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import count_launch
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
 
 def _six(t: torch.Tensor) -> torch.Tensor:
@@ -57,21 +63,24 @@ def jacobi3d_faces_plain(u, lo0, hi0, lo1, hi1, lo2, hi2) -> torch.Tensor:
     return _sweep(up)
 
 
-def _check(*ts: torch.Tensor) -> None:
-    dev = ts[0].device
+def _check(*ts: torch.Tensor) -> str:
+    """The entry points' type suffix, after checking the operands."""
+    dev, dtype = ts[0].device, ts[0].dtype
     for t in ts:
-        if t.device != dev or t.dtype != torch.float32 \
+        if t.device != dev or t.dtype != dtype or dtype not in _SUFFIX \
                 or not t.is_contiguous():
-            raise ValueError("jacobi3d kernels take contiguous float32 "
-                             f"tensors on one device; got {t.dtype} on "
-                             f"{t.device}, contiguous={t.is_contiguous()}")
+            raise ValueError("jacobi3d kernels take contiguous float32, "
+                             "bfloat16 or float16 tensors of one type on one "
+                             f"device; got {t.dtype} on {t.device}, "
+                             f"contiguous={t.is_contiguous()}")
+    return _SUFFIX[dtype]
 
 
 def jacobi3d(u_pad: torch.Tensor) -> torch.Tensor:
     """u_pad: [X+2, Y+2, Z+2] → interior [X, Y, Z]."""
     if u_pad.device.type == "cpu":
         return jacobi3d_plain(u_pad)
-    _check(u_pad)
+    sfx = _check(u_pad)
     if u_pad.dim() != 3 or min(u_pad.shape) < 2:
         raise ValueError(f"jacobi3d: bad padded shape {tuple(u_pad.shape)}")
     from repro_torch.kernels import _build
@@ -80,8 +89,8 @@ def jacobi3d(u_pad: torch.Tensor) -> torch.Tensor:
     lib = _build.library("jacobi3d")
     with torch.cuda.device(u_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.jacobi3d_f32(u_pad.data_ptr(), out.data_ptr(),
-                                      x, y, z, stream), "jacobi3d")
+        _build.check(getattr(lib, f"jacobi3d_{sfx}")(
+            u_pad.data_ptr(), out.data_ptr(), x, y, z, stream), "jacobi3d")
     count_launch("jacobi3d")
     return out
 
@@ -91,7 +100,7 @@ def jacobi3d_faces(u, lo0, hi0, lo1, hi1, lo2, hi2) -> torch.Tensor:
     if u.device.type == "cpu":
         return jacobi3d_faces_plain(u, lo0, hi0, lo1, hi1, lo2, hi2)
     faces = (lo0, hi0, lo1, hi1, lo2, hi2)
-    _check(u, *faces)
+    sfx = _check(u, *faces)
     x, y, z = u.shape
     want = [(y, z), (y, z), (x, z), (x, z), (x, y), (x, y)]
     if [tuple(f.shape) for f in faces] != want:
@@ -102,7 +111,7 @@ def jacobi3d_faces(u, lo0, hi0, lo1, hi1, lo2, hi2) -> torch.Tensor:
     lib = _build.library("jacobi3d")
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(lib.jacobi3d_faces_f32(
+        _build.check(getattr(lib, f"jacobi3d_faces_{sfx}")(
             u.data_ptr(), *(f.data_ptr() for f in faces), out.data_ptr(),
             x, y, z, stream), "jacobi3d_faces")
     count_launch("jacobi3d_faces")

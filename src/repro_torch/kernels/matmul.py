@@ -6,9 +6,21 @@ Replaces the Pallas TPU kernel ``_matmul_kernel`` / ``matmul`` of
 and cast to the input dtype, for float32 (IEEE FMA, never TF32: a
 register-blocked, double-buffered SGEMM on the CUDA cores) and bfloat16
 (on the tensor cores: ``wgmma`` fed by TMA, rounded once on store).
-The kernel needs M and N to be multiples of 64, K of 16 and the operands
-16-byte aligned, as the Pallas kernel needs its block sizes to divide the
-dimensions. It is bound by operations: see the note in the CUDA source.
+
+Any M, N and K run on the card, a superset of what the Pallas kernel takes
+(dims up to 128, or multiples of 128); operands must be contiguous and
+16-byte aligned. The arm follows from dtype and shape:
+
+  * float32: ``matmul_f32``, the SGEMM; M, N multiples of 64 and K of 16
+    take its 16-byte loads, any other shape the same loop with edge-safe
+    element loads (zeros past the edges, the same bits inside);
+  * bfloat16 with K and N multiples of 8: ``matmul_bf16``, on the tensor
+    cores (TMA needs 16-byte row strides);
+  * bfloat16 otherwise: ``matmul_bf16_fma``, the SGEMM with bf16 loads,
+    converted to float, FMA in float32, rounded once on store.
+
+All arms count under ``LAUNCHES["matmul"]``. The kernels are bound by
+operations: see the note in the CUDA source.
 """
 from __future__ import annotations
 
@@ -16,8 +28,14 @@ import torch
 
 from repro_torch.kernels import count_launch
 
-BM, BN, BK = 64, 64, 16        # M, N, K multiples the kernel takes
-_ENTRY = {torch.float32: "matmul_f32", torch.bfloat16: "matmul_bf16"}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _entry(dtype: torch.dtype, k: int, n: int) -> str:
+    """The C entry point (the arm) for this dtype and shape."""
+    if dtype == torch.float32:
+        return "matmul_f32"
+    return "matmul_bf16" if k % 8 == 0 and n % 8 == 0 else "matmul_bf16_fma"
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,11 +52,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if k != k2 or a.dtype != b.dtype or a.device != b.device:
         raise ValueError(f"matmul: {a.dtype}{tuple(a.shape)} on {a.device} "
                          f"· {b.dtype}{tuple(b.shape)} on {b.device}")
-    if a.dtype not in _ENTRY:
+    if a.dtype not in _DTYPES:
         raise ValueError(f"matmul: no kernel for {a.dtype}")
-    if m % BM or n % BN or k % BK:
-        raise ValueError(f"matmul: (M, N, K) = {(m, n, k)} must be "
-                         f"multiples of {(BM, BN, BK)}")
+    if min(m, n, k) <= 0:
+        raise ValueError(f"matmul: empty operand, (M, N, K) = {(m, n, k)}")
     if not (a.is_contiguous() and b.is_contiguous()) \
             or a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("matmul: operands must be contiguous and 16-byte "
@@ -48,7 +65,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _build.library("matmul")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.check(getattr(lib, _ENTRY[a.dtype])(
+        _build.check(getattr(lib, _entry(a.dtype, k, n))(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream),
             "matmul")
     count_launch("matmul")

@@ -15,18 +15,24 @@ float32, which is what ``torch.cumsum`` of a float32 tensor computes on the
 CPU; on the card it keeps the kernel's and the plain version's ``cs``
 equal (see the note in the CUDA source).
 
-The kernel takes float32, 1 ≤ q ≤ 256, p ≤ 64 and n ≤ 128. It is bound
-by operations.
+The kernel takes float32 at any q, h, p and n, as the Pallas kernel does.
+It factors the decay off the diagonal 64-row tiles, so that the scores
+``C·Bᵀ`` (computed once a call) and the off-diagonal part of ``y`` and the
+states become plain register-blocked products shared by all heads; the
+diagonal tiles, and the heads whose ``cs`` increases somewhere in a chunk,
+keep the direct masked form. It needs a float32 workspace of
+``BC·(H·Q·(3 + ⌈Q/64⌉) + H + 64·Q·⌈Q/64⌉)`` floats (62 MB at the
+mamba2-370m prefill's 128 chunks of 256), which the wrapper allocates per
+call; that is the only limit beside memory. It is bound by operations.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import count_launch
-
-MAX_Q, MAX_P, MAX_N = 256, 64, 128     # the kernel's limits (csrc/ssd.cu)
 
 
 def cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -88,21 +94,26 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"one CUDA device")
     if not all(t.is_contiguous() for t in args):
         raise ValueError("ssd_chunk: operands must be contiguous")
-    if not (1 <= q <= MAX_Q and 1 <= p <= MAX_P and 1 <= n <= MAX_N):
-        raise ValueError(f"ssd_chunk: (q, p, n) = {(q, p, n)} outside the "
-                         f"kernel's limits q <= {MAX_Q}, p <= {MAX_P}, "
-                         f"n <= {MAX_N}")
-    if h > 65535:
-        raise ValueError(f"ssd_chunk: {h} heads exceed the grid")
+    # the kernel reads rows as float4: a view that starts off a 16-byte
+    # boundary is copied first (a fresh tensor starts on one)
+    x, dt, A, B, C = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in args)
+    if min(q, h, p, n) < 1:
+        raise ValueError(f"ssd_chunk: empty dimension in (q, h, p, n) = "
+                         f"{(q, h, p, n)}")
     from repro_torch.kernels import _build
     y = torch.empty((bc, q, h, p), dtype=torch.float32, device=x.device)
     st = torch.empty((bc, h, p, n), dtype=torch.float32, device=x.device)
     lib = _build.library("ssd")
+    floats = ctypes.c_longlong(0)
+    _build.check(lib.ssd_workspace_floats(bc, q, h, ctypes.addressof(floats)),
+                 "ssd_chunk")
+    work = torch.empty(floats.value, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.check(lib.ssd_chunk_f32(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), st.data_ptr(), bc, q, h, p, n,
-            stream), "ssd_chunk")
+            C.data_ptr(), y.data_ptr(), st.data_ptr(), work.data_ptr(), bc,
+            q, h, p, n, stream), "ssd_chunk")
     count_launch("ssd_chunk")
     return y, st

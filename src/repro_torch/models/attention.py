@@ -60,7 +60,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,S,K,G,D]; k, v: [B,T,K,D]. Returns [B,S,K,G,D]. Positions
     are ``arange(S)`` / ``arange(T)``, the only ones the JAX package's
     attention layer passes; its ``kv_valid`` mask serves only the
-    cross-attention, which is not ported."""
+    cross-attention, which is not ported. The blocks must divide S and
+    T, as the JAX package asserts."""
+    qb, kb = min(q_block, q.shape[1]), min(kv_block, k.shape[1])
+    if q.shape[1] % qb or k.shape[1] % kb:
+        raise ValueError(f"flash_attention: S={q.shape[1]}, T={k.shape[1]} "
+                         f"must be multiples of the blocks ({qb}, {kb})")
     return flash_attention_plain(q, k, v, causal=causal, q_block=q_block,
                                  kv_block=kv_block)
 

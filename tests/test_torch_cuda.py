@@ -47,7 +47,8 @@ def test_jacobi3d_equals_plain(cuda, shape):
     assert torch.equal(got, ops.jacobi3d_plain(u_pad))
 
 
-@pytest.mark.parametrize("shape", [(8, 6, 4), (5, 40, 33)])
+@pytest.mark.parametrize("shape", [(8, 6, 4), (5, 40, 33), (70, 33, 65),
+                                   (1, 1, 1)])
 def test_jacobi3d_faces_equals_plain(cuda, shape):
     rng = np.random.default_rng(1)
     u = to_torch(rng.standard_normal(shape).astype(np.float32), cuda)
@@ -109,10 +110,57 @@ def test_matmul_bf16_close_to_plain_at_tile_edges(cuda, m, k, n):
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(8, 6, 4), (5, 40, 33), (70, 33, 65)])
+def test_jacobi3d_half_types_equal_plain(cuda, dtype, shape):
+    """Both entry points in bf16 and f16: the kernel rounds each add and
+    the division to the type as PyTorch's elementwise ops do, so the two
+    agree bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    u_pad = torch.randn(tuple(n + 2 for n in shape), generator=g,
+                        device=cuda).to(dtype)
+    u = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    x, y, z = shape
+    faces = [torch.randn(f, generator=g, device=cuda).to(dtype)
+             for f in ((y, z), (y, z), (x, z), (x, z), (x, y), (x, y))]
+    n, nf = LAUNCHES["jacobi3d"], LAUNCHES["jacobi3d_faces"]
+    got = ops.jacobi3d(u_pad)
+    got_f = ops.jacobi3d_faces(u, *faces)
+    assert (LAUNCHES["jacobi3d"], LAUNCHES["jacobi3d_faces"]) == (n + 1,
+                                                                 nf + 1)
+    assert got.dtype == got_f.dtype == dtype
+    assert torch.equal(got, ops.jacobi3d_plain(u_pad))
+    assert torch.equal(got_f, ops.jacobi3d_faces_plain(u, *faces))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,k,n", [(100, 64, 64), (32, 16, 32), (96, 12, 40),
+                                   (130, 200, 70), (64, 24, 72), (1, 1, 1)])
+def test_matmul_close_to_plain_at_ragged_shapes(cuda, dtype, tol, m, k, n):
+    """Shapes the Pallas kernel takes (any dim up to 128) and more: the
+    float32 SGEMM's edge-safe loads, the bf16 wgmma arm at K and N that are
+    multiples of 8 but not of 64 (64 x 24 x 72), and the bf16 FMA arm where
+    TMA cannot describe the rows (K = 12, N = 40 is a multiple of 8 but K
+    is not; N = 70)."""
+    g = torch.Generator(device=cuda).manual_seed(m + 3 * k + 7 * n)
+    a = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+    b = torch.randn((k, n), generator=g, device=cuda).to(dtype)
+    before = LAUNCHES["matmul"]
+    got = ops.matmul(a, b)
+    assert LAUNCHES["matmul"] == before + 1
+    assert got.shape == (m, n) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), ops.matmul_plain(a, b).float(),
+                               rtol=tol, atol=tol)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """Inputs the Pallas entry points refuse too."""
     a = torch.ones((100, 64), device=cuda)
     with pytest.raises(ValueError):
-        ops.matmul(a, torch.ones((64, 64), device=cuda))     # M % 64
+        ops.matmul(a, torch.ones((32, 64), device=cuda))     # K mismatch
+    with pytest.raises(ValueError):
+        ops.matmul(a.int(), torch.ones((64, 64), device=cuda).int())
     with pytest.raises(ValueError):
         ops.jacobi3d(torch.ones((6, 6, 6), device=cuda).double())
     u = torch.ones((4, 4, 4), device=cuda)
@@ -141,6 +189,37 @@ def test_flash_attention_close_to_plain(cuda, dtype, tol, s, t, d, causal):
     want = ops.flash_attention_plain(q[:, :, None, None], k[:, :, None],
                                      v[:, :, None], causal=causal)[:, :, 0, 0]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("s,t,d,causal", [(32, 32, 64, True),
+                                          (96, 96, 128, True),
+                                          (96, 128, 64, False),
+                                          (100, 150, 12, True),
+                                          (150, 100, 8, False),
+                                          (1, 1, 16, True)])
+def test_flash_attention_close_to_plain_at_ragged_lengths(cuda, dtype, tol, s,
+                                                          t, d, causal):
+    """S and T that are not multiples of the 64-row tiles, which the Pallas
+    kernel takes up to 128 (one block of S or T rows): Q rows past S load
+    as zeros and are not stored, K and V rows past T load as zeros and
+    score NEG_INF. Both entry points; the plain version cuts its last
+    blocks short the same way."""
+    gen = torch.Generator(device=cuda).manual_seed(s * 3 + t + d)
+    q = torch.randn((2, s, 2, 4, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, t, 2, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    n = LAUNCHES["flash_attention"]
+    got = ops.flash_attention_gqa(q, k, v, causal=causal)
+    folded = ops.flash_attention(q[:, :, 0, 0].contiguous(),
+                                 k[:, :, 0].contiguous(),
+                                 v[:, :, 0].contiguous(), causal=causal)
+    assert LAUNCHES["flash_attention"] == n + 2
+    want = ops.flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(folded.float(), want[:, :, 0, 0].float(),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("g", [1, 4, 8])
@@ -223,7 +302,7 @@ def test_flash_wrapper_raises_on_misaligned_operands(cuda):
 
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
-    x = torch.ones((2, 96, 64), device=cuda)                 # S % 64
+    x = torch.ones((2, 96, 256), device=cuda)                # D > 128
     with pytest.raises(ValueError):
         ops.flash_attention(x, x, x)
     y = torch.ones((2, 128, 160), device=cuda)               # D > 128
@@ -279,6 +358,43 @@ def test_mamba2_prefill_goes_through_the_ssd_kernel(cuda):
     out = Engine(on, params, 2, 48).generate(toks, 8)
     assert LAUNCHES["ssd_chunk"] == n + 2 * cfg.n_layers
     assert out.shape == (2, 8) and out.device.type == "cuda"
+
+
+def _ssd_inputs(gen, bc, q, h, p, n, a_sign=None):
+    """x, dt, A, B, C on the card as the mamba2 block draws dt (softplus
+    around log(expm1(0.01)) plus a spread, so |dt·A| reaches past 88 inside
+    a chunk at A = -16) and A (-linspace(1, 16)); ``a_sign`` flips A's sign
+    per head."""
+    F = torch.nn.functional
+    x = torch.randn((bc, q, h, p), generator=gen, device="cuda")
+    dt = F.softplus(torch.randn((bc, q, h), generator=gen, device="cuda")
+                    + float(np.log(np.expm1(0.01))))
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    if a_sign is not None:
+        A = A * torch.tensor(a_sign, dtype=torch.float32, device="cuda")
+    B = torch.randn((bc, q, n), generator=gen, device="cuda")
+    C = torch.randn((bc, q, n), generator=gen, device="cuda")
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("shape,a_sign", [
+    ((2, 512, 4, 128, 256), None), ((3, 100, 5, 96, 200), None),
+    ((4, 256, 4, 64, 128), [1.0, -0.05, 1.0, -0.05]),
+    ((2, 130, 3, 5, 7), [-1.0, 0.02, -1.0])])
+def test_ssd_chunk_kernel_takes_any_shape(cuda, shape, a_sign):
+    """Q, P and N past the first design's limits, ragged tiles, and heads
+    whose cs increases (A > 0), which take the direct form off the
+    diagonal: within 1e-4 of the largest magnitude of the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    args = _ssd_inputs(gen, *shape, a_sign)
+    before = LAUNCHES["ssd_chunk"]
+    y, st = ops.ssd_chunk(*args)
+    assert LAUNCHES["ssd_chunk"] == before + 1
+    want_y, want_st = ops.ssd_chunk_plain(*args)
+    for got, want in ((y, want_y), (st, want_st)):
+        assert bool(torch.isfinite(got).all())
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
 
 
 # ---------------------------------------------------------------------------

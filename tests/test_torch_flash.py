@@ -92,6 +92,21 @@ def test_flash_bf16_matches_pallas():
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("s,causal", [(32, True), (96, True), (96, False)])
+def test_flash_short_sequences_match_pallas(s, causal):
+    """S = T below 128 and not a multiple of the card kernel's 64-row
+    tiles: Pallas takes them as one block (qb = kb = S), the port's plain
+    version as a 64-row block and a short one."""
+    q, k, v = _qkv(s + 5, (3, s, 16), (3, s, 16))
+    got = to_numpy(ops.flash_attention(*map(to_torch, (q, k, v)),
+                                       causal=causal))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = np.asarray(jops.flash_attention(jq, jk, jv, causal=causal))
+    oracle = np.asarray(jref.flash_ref(jq, jk, jv, causal=causal))
+    np.testing.assert_allclose(got, pallas, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, oracle, rtol=TOL, atol=TOL)
+
+
 def test_plain_flash_rejects_ragged_blocks():
     q, k, v = map(to_torch, _qkv(0, (1, 96, 1, 1, 8), (1, 96, 1, 8)))
     with pytest.raises(ValueError):

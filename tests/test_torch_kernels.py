@@ -80,6 +80,31 @@ def test_jacobi3d_faces_plain_matches_jax_stencil_update(shape):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float16])
+@pytest.mark.parametrize("shape,bx", [((18, 10, 12), 4), ((10, 34, 6), 8)])
+def test_jacobi3d_half_types_match_pallas(shape, bx, dtype):
+    """The Pallas kernel takes any float type and writes in it; so do the
+    port's wrappers (bf16 and f16 kernels on the card). Within 2e-2: XLA on
+    the CPU may keep excess precision between the bf16 adds, which PyTorch
+    rounds one by one; bit identity is the card test's job, against plain."""
+    rng = np.random.default_rng(9)
+    u = jnp.asarray(rng.standard_normal(shape), dtype)
+    x, y, z = (n - 2 for n in shape)
+    faces = [jnp.asarray(f, dtype) for f in _faces(rng, (x, y, z))]
+    got = ops.jacobi3d(to_torch(np.asarray(u)))
+    assert got.dtype == torch_dtype(np.dtype(dtype))
+    pallas = np.asarray(jops.jacobi3d(u, bx=bx), np.float32)
+    np.testing.assert_allclose(to_numpy(got.float()), pallas, rtol=2e-2,
+                               atol=2e-2)
+    interior = u[1:-1, 1:-1, 1:-1]
+    got_f = ops.jacobi3d_faces(to_torch(np.asarray(interior)),
+                               *(to_torch(np.asarray(f)) for f in faces))
+    assert got_f.dtype == got.dtype
+    want_f = np.asarray(jax_stencil_update(interior, *faces), np.float32)
+    np.testing.assert_allclose(to_numpy(got_f.float()), want_f, rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_faces_variant_equals_padded_variant():
     """Both entry points compute one function: the faces kernel on a chunk
     equals the padded kernel on that chunk padded with its faces."""
@@ -114,12 +139,15 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
 
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 128, 384),
                                    (128, 512, 256), (64, 48, 384),
-                                   (384, 16, 64)])
+                                   (384, 16, 64), (100, 64, 64),
+                                   (32, 16, 32), (96, 12, 40)])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_matmul_plain_matches_pallas(m, k, n, dtype):
     """Square and non-square shapes, with M, N and K distinct and a K
     below the card kernel's 64-deep step (48, 16), that the Pallas block
-    sizes divide."""
+    sizes divide; and dims below 128 that are not multiples of 64 (Pallas
+    takes them as one block: bm = 100, bk = 12, bn = 40), which the card
+    wrapper now takes too (the bf16 ones with K = 12 on its FMA arm)."""
     rng = np.random.default_rng(11)
     # round to the working dtype once, in JAX; both sides get those bits
     ja = jnp.asarray(rng.standard_normal((m, k)), dtype)

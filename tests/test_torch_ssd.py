@@ -61,6 +61,82 @@ def test_ssd_chunk_matches_pallas_and_ref(bc, q, h, p, n):
                                    rtol=TOL, atol=TOL)
 
 
+def test_ssd_chunk_long_chunk_matches_pallas_and_ref():
+    """Q = 512, P = 128, N = 256, past the first card design's limits.
+    Outputs reach magnitudes near 100 here, so the float32 sum order moves
+    them by more than 1e-4 absolute: held, as on the card, to 1e-4 of the
+    largest magnitude."""
+    args = _chunk_inputs(3, 1, 512, 2, 128, 256)
+    y, st = ops.ssd_chunk(*map(to_torch, args))
+    jargs = tuple(map(jnp.asarray, args))
+    for want_y, want_st in (jops.ssd_chunk(*jargs),
+                            jref.ssd_chunk_ref(*jargs)):
+        for got, want in ((y, want_y), (st, want_st)):
+            want = np.asarray(want)
+            assert np.abs(to_numpy(got) - want).max() <= \
+                TOL * np.abs(want).max()
+
+
+def _factored_ssd(x, dt, A, B, C, tile=64):
+    """The card kernel's decomposition in float64 numpy: cs (float32, a
+    float64 scan), per head a flag "cs does not increase"; for flagged
+    heads the off-diagonal 64-row tiles as diag(E) . G . (F * x) with
+    E = exp(cs_l - cs_{l0-1}) and F = exp(cs_{l0-1} - cs_s) * dt, the
+    diagonal tiles (and every tile of the other heads) in the direct masked
+    form, the states as (x * D)^T . B."""
+    x, dt, A, B, C = (a.astype(np.float64) for a in (x, dt, A, B, C))
+    bc, q, h, p = x.shape
+    dA = (dt.astype(np.float32) * A.astype(np.float32)).astype(np.float64)
+    cs = np.cumsum(dA, axis=1).astype(np.float32).astype(np.float64)
+    G = np.einsum("bln,bsn->bls", C, B)
+    y = np.zeros_like(x)
+    for b in range(bc):
+        for hh in range(h):
+            c = cs[b, :, hh]
+            mono = bool(np.all(dA[b, :, hh] <= 0))
+            xdt = x[b, :, hh] * dt[b, :, hh, None]
+            for l0 in range(0, q, tile):
+                rows = slice(l0, min(q, l0 + tile))
+                lr = np.arange(l0, min(q, l0 + tile))
+                s_lo = l0 if mono else 0
+                sr = np.arange(s_lo, min(q, l0 + tile))
+                with np.errstate(over="ignore"):
+                    W = np.where(sr[None, :] <= lr[:, None],
+                                 G[b][np.ix_(lr, sr)]
+                                 * np.exp(c[lr, None] - c[None, sr]), 0.0)
+                y[b, rows, hh] = W @ xdt[sr]
+                if mono and l0 > 0:
+                    E = np.exp(c[lr] - c[l0 - 1])
+                    F = np.exp(c[l0 - 1] - c[:l0]) * dt[b, :l0, hh]
+                    y[b, rows, hh] += E[:, None] * (
+                        G[b][np.ix_(lr, np.arange(l0))]
+                        @ (F[:, None] * x[b, :l0, hh]))
+    D = np.exp(cs[:, -1:] - cs) * dt
+    st = np.einsum("bsh,bshp,bsn->bhpn", D, x, B)
+    return y, st
+
+
+@pytest.mark.parametrize("bc,q,h,p,n,a_scale", [
+    (2, 256, 3, 8, 16, (-16.0, -1.0, -0.05)),     # decay past e^-88
+    (1, 200, 4, 4, 8, (-8.0, 0.05, -2.0, 0.3)),    # A > 0 on two heads
+    (2, 130, 2, 6, 5, (-12.0, -0.5))])
+def test_factored_ssd_form_matches_pallas(bc, q, h, p, n, a_scale):
+    """The factorization that the card kernel computes, modelled in
+    float64, is within 1e-4 of the Pallas kernel's largest magnitude:
+    with |dt·A| summing past 88 inside a 64-row tile (the factors
+    underflow, the direct form's products do too) and with heads whose A
+    is positive (their cs increases: they take the direct form)."""
+    x, dt, _, B, C = _chunk_inputs(q + h, bc, q, h, p, n)
+    A = np.asarray(a_scale, np.float32)
+    assert (np.cumsum(dt * np.abs(A), axis=1).max(axis=1) > 88).any()
+    want_y, want_st = (np.asarray(a) for a in jops.ssd_chunk(
+        *map(jnp.asarray, (x, dt, A, B, C))))
+    got_y, got_st = _factored_ssd(x, dt, A, B, C)
+    for got, want in ((got_y, want_y), (got_st, want_st)):
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= TOL * np.abs(want).max()
+
+
 def test_ssd_chunk_rejects_mismatched_shapes():
     x, dt, A, B, C = map(to_torch, _chunk_inputs(0, 2, 8, 4, 4, 4))
     with pytest.raises(ValueError):
@@ -245,7 +321,9 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("bc,q,h,p,n", KERNEL_SHAPES + [(3, 100, 5, 64, 128),
                                                         (2, 1, 3, 7, 5),
-                                                        (4, 256, 32, 64, 128)])
+                                                        (4, 256, 32, 64, 128),
+                                                        (2, 512, 4, 128, 256),
+                                                        (3, 100, 5, 96, 200)])
 def test_ssd_chunk_kernel_close_to_plain(cuda, bc, q, h, p, n):
     """Kernel and plain version share ``cs`` (a float64 scan rounded to
     float32); only the float32 sum order of the products differs: 1e-4

@@ -13,18 +13,27 @@ the port's main path through the tasking runtime:
   * the Fig. 3 double DGEMM at n = 4096 float32 (two ``matmul`` launches);
   * the over-decomposed Jacobi3D proxy on a 768^3 float32 domain, 8 chunks
     of 384^3, 10 iterations (80 ``jacobi3d_faces`` launches), which must
-    equal the plain PyTorch ``run_reference`` on the card bit for bit;
+    equal the plain PyTorch ``run_reference`` on the card bit for bit; then
+    the same under ``trace_graphs``, its sweeps from the fourth on replayed
+    as one CUDA graph, equal to both bit for bit, with its steady sweeps'
+    time and device idle share beside the interpreted run's;
   * dense-LM serving of yi-9b at full width and depth (48 layers, bf16
     weights from a seed): the ``Engine`` prefills 4 prompts of 2048 tokens
     (48 ``flash_attention`` launches) and decodes 32 steps; the prefill
     must match the plain attention path, the greedy tokens the argmax of a
     full forward, and ``tasked_decode_loop`` through the runtime the
-    Engine's tokens and KV cache;
+    Engine's tokens and KV cache, interpreted and replayed as CUDA graphs
+    (ms per step of each, the device idle share of 4 replayed steps);
   * Mamba-2 serving of mamba2-370m at full width and depth (48 SSD layers,
     bf16 weights from a seed): the ``Engine`` prefills 8 prompts of 4096
     tokens (48 ``ssd_chunk`` launches, 16 chunks each) and decodes 32
     steps with the constant-size recurrent state; the same checks as
-    yi-9b's, on the conv and state caches.
+    yi-9b's, on the conv and state caches;
+  * the distributed Jacobi3D proxy (``run_cluster``) at 768^3 over four
+    ranks of the message engine that share the card, 10 iterations (40
+    ``jacobi3d_faces`` launches), equal to ``run_reference`` bit for bit,
+    with each rank's DIRECT and staged bytes; and ``Rank.send`` latency
+    between two ranks at 8 B, 64 KB and 64 MB over both paths.
 
 Launch counters are zeroed just before each main-path run and read just
 after. The second-to-last line is a JSON object with one entry per kernel of
@@ -77,9 +86,10 @@ MATMUL_RAGGED = ((100, 64, 64), (32, 16, 32), (96, 12, 40))
 # flash_attention_gqa shapes (b, s, t, kh, g, d, causal) checked in phase 2
 # in bf16 and float32 beside the main ones: head dims below, between and at
 # the kernels' two compiled widths (8 and 12 load element by element in
-# bf16), S != T with and without the mask, one and eight query heads a KV
-# head
-FLASH_SHAPES = tuple((2, s, t, 2, g, d, causal) for d in (8, 12, 64, 128)
+# bf16) and past them (160, 256: the column-group kernels), S != T with and
+# without the mask, one and eight query heads a KV head
+FLASH_SHAPES = tuple((2, s, t, 2, g, d, causal)
+                     for d in (8, 12, 64, 128, 160, 256)
                      for s, t, causal in ((128, 192, True), (192, 128, False))
                      for g in (1, 8)) + tuple(
     # S and T the Pallas kernel takes as one block, not multiples of 64
@@ -177,13 +187,17 @@ def stencil_weight(device) -> torch.Tensor:
     return w
 
 
-def sweep_trace(run_tasked, Runtime, RuntimeConfig, u0) -> dict:
-    """A second, traced run of the Jacobi main path: where its sweeps'
-    time goes on the device. The sweeps span from the first stencil
-    kernel's start to the last one's end; inside it, the device is busy
-    for the union of all its kernels and copies."""
+def sweep_trace(run_tasked, Runtime, RuntimeConfig, u0,
+                traced: bool = False) -> dict:
+    """A traced run of the Jacobi main path (``traced``: under
+    ``trace_graphs``): where its sweeps' time goes on the device. The
+    sweeps span from the first stencil kernel's start to the last one's
+    end; inside it, the device is busy for the union of all its kernels
+    and copies. The steady sweeps are sweeps 5 to 10, which a traced run
+    replays from its captured graph: their time is the interval between
+    the first stencil kernels of sweeps 5 and 10, over 5."""
     from torch.profiler import ProfilerActivity, profile
-    rt = Runtime(RuntimeConfig())
+    rt = Runtime(RuntimeConfig(trace_graphs=traced))
     try:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -194,15 +208,19 @@ def sweep_trace(run_tasked, Runtime, RuntimeConfig, u0) -> dict:
     dev = [(e.name, e.time_range.start, e.time_range.end)
            for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
-    stencil = [(a, b) for n, a, b in dev if "jacobi3d_faces" in n]
+    stencil = sorted((a, b) for n, a, b in dev if "jacobi3d_faces" in n)
     if len(stencil) != JACOBI_OD * JACOBI_ITERS:
         return {"wall_s": wall_s, "device_trace": "not measured",
                 "stencil_kernels_traced": len(stencil)}
-    lo, hi = min(a for a, _ in stencil), max(b for _, b in stencil)
+    lo, hi = stencil[0][0], max(b for _, b in stencil)
     busy = _busy_us(dev, lo, hi)
     span_ms = (hi - lo) / 1e3
+    s_lo, s_hi = stencil[4 * JACOBI_OD][0], stencil[9 * JACOBI_OD][0]
+    s_busy = _busy_us(dev, s_lo, s_hi)
     return {"wall_s": wall_s, "sweeps_span_ms": span_ms,
             "ms_per_sweep": span_ms / (JACOBI_ITERS - 1),
+            "steady_ms_per_sweep": (s_hi - s_lo) / 1e3 / 5,
+            "steady_device_idle_share": 1.0 - s_busy / (s_hi - s_lo),
             "stencil_kernel_ms": sum(b - a for a, b in stencil) / 1e3,
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / (hi - lo),
@@ -408,27 +426,35 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
             check(bool(torch.allclose(got, want, rtol=tol, atol=tol)),
                   f"flash {arm} {key} outside {tol} of plain (max err {err})")
             edge_errs[arm][key] = err
-    cfg_b, s, kh, g, d = SERVE_BATCH, SERVE_PROMPT, 4, 8, 128
+    cfg_b, s, kh, g = SERVE_BATCH, SERVE_PROMPT, 4, 8
     bh = cfg_b * kh * g
-    # causal work: S(S+1)/2 scored pairs per head, 4*D flops each
-    flops = bh * s * (s + 1) / 2 * 4 * d
     res = {}
-    q = torch.randn((cfg_b, s, kh, g, d), generator=gen, device=dev)
-    k = torch.randn((cfg_b, s, kh, d), generator=gen, device=dev)
-    v = torch.randn((cfg_b, s, kh, d), generator=gen, device=dev)
-    cases = (
-        ("flash_attention", torch.bfloat16, bf16, FLASH_TOL["bf16"],
-         (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain),
-        ("flash_attention_f32", torch.float32, fp32, FLASH_TOL["f32"],
-         (q.permute(0, 2, 3, 1, 4).reshape(bh, s, d),
-          k.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
-          .reshape(bh, s, d),
-          v.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
-          .reshape(bh, s, d)),
-         ops.flash_attention,
-         lambda a, b, c: ops.flash_attention_plain(
-             a[:, :, None, None], b[:, :, None], c[:, :, None])[:, :, 0, 0]))
-    for key, dtype, rate, tol, args, kernel, plain in cases:
+    cases = []
+    # the main shapes (D = 128), then the same at D = 256 (the column-group
+    # kernels; no ported config reaches them)
+    for d, sfx in ((128, ""), (256, "_d256")):
+        q = torch.randn((cfg_b, s, kh, g, d), generator=gen, device=dev)
+        k = torch.randn((cfg_b, s, kh, d), generator=gen, device=dev)
+        v = torch.randn((cfg_b, s, kh, d), generator=gen, device=dev)
+        # causal work: S(S+1)/2 scored pairs per head, 4*D flops each
+        flops = bh * s * (s + 1) / 2 * 4 * d
+        cases += [
+            ("flash_attention" + sfx, torch.bfloat16, bf16, FLASH_TOL["bf16"],
+             (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain,
+             flops),
+            ("flash_attention_f32" + sfx, torch.float32, fp32,
+             FLASH_TOL["f32"],
+             (q.permute(0, 2, 3, 1, 4).reshape(bh, s, d),
+              k.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
+              .reshape(bh, s, d),
+              v.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
+              .reshape(bh, s, d)),
+             ops.flash_attention,
+             lambda a, b, c: ops.flash_attention_plain(
+                 a[:, :, None, None], b[:, :, None], c[:, :, None])[:, :, 0, 0],
+             flops)]
+        del q, k, v
+    for key, dtype, rate, tol, args, kernel, plain, flops in cases:
         args = tuple(x.to(dtype).contiguous() for x in args)
         got = kernel(*args).float()
         want = plain(*args).float()
@@ -439,6 +465,7 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
               f"{key} outside {tol} of plain (max err {err})")
         del got, want
         # SDPA on [B, H, S, D] with K and V broadcast to every query head
+        d = args[0].shape[-1]
         if args[0].dim() == 5:
             qs = args[0].reshape(cfg_b, s, kh * g, d).transpose(1, 2)
             ks, vs = (x.transpose(1, 2).repeat_interleave(g, dim=1)
@@ -677,44 +704,20 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     check(out.shape == (b, steps + 1) and bool(
         ((out >= 0) & (out < cfg.vocab)).all()), "tokens out of range")
 
-    # -- the same decode as hetero tasks, from the same prefill state --
-    keys = sorted(cache)
-    rt = Runtime(RuntimeConfig())
-    try:
-        t0 = time.perf_counter()
-        tok_obj, len_obj, c_objs = tasked_decode_loop(
-            rt, model, params, start_cache, nxt.clone(),
-            torch.full((b,), s, dtype=torch.int32, device=dev), steps,
-            timeout=600)
-        r["tasked_decode_ms_per_step"] = \
-            (time.perf_counter() - t0) * 1e3 / steps
-        tasked_tok, tasked_len = tok_obj.get(), len_obj.get()
-        # compare the caches on the card, through the runtime
-        ref = {k: rt.adopt_device_array(cache[k], 0, name=f"engine-{k}")
-               for k in keys}
-        diff = rt.hetero_object(shape=(len(keys),), dtype=np.int64,
-                                name="cache-diff")
-        n_k = len(keys)
-        rt.run(lambda *a: torch.stack([(a[i] != a[n_k + i]).sum()
-                                       for i in range(n_k)]),
-               [(c_objs[k], "r") for k in keys]
-               + [(ref[k], "r") for k in keys] + [(diff, "w")])
-        rt.barrier()
-        cache_diff = dict(zip(keys, diff.get().tolist(), strict=True))
-        stats = rt.stats()
-    finally:
-        rt.shutdown()
-    # the runtime's objects (and its lineage records) hold the weights
-    del start_cache, tok_obj, len_obj, c_objs, ref, diff, rt
-    r["tasked_runtime_stats"] = {k: stats[k] for k in (
-        "tasks", "transfers_h2d", "transfers_d2h", "transfers_d2d",
-        "bytes_h2d", "bytes_d2h", "prefetch_hits", "prefetch_misses")}
-    check(np.array_equal(tasked_tok, out[:, -1:].cpu().numpy()),
-          f"tasked decode's last tokens {tasked_tok.ravel().tolist()} != "
-          f"Engine's {out[:, -1].tolist()}")
-    check(bool((tasked_len == s + steps).all()), f"tasked lengths {tasked_len}")
-    check(not any(cache_diff.values()), f"tasked cache differs from the "
-          f"Engine's at {cache_diff} elements")
+    # -- the same decode as hetero tasks, from the same prefill state:
+    # interpreted, then replayed as CUDA graphs (trace_graphs) --
+    for traced in (False, True):
+        key = "tasked_traced" if traced else "tasked"
+        r[key] = tasked_decode(Runtime, RuntimeConfig, tasked_decode_loop,
+                               model, params, start_cache, nxt, s, steps,
+                               cache, out, traced)
+    r["tasked_decode_ms_per_step"] = r["tasked"]["ms_per_step"]
+    r["tasked_traced"]["trace_4_replayed_steps"] = traced_decode_trace(
+        Runtime, RuntimeConfig, tasked_decode_loop, model, params,
+        start_cache, nxt, s)
+    # the runtimes' objects (and their lineage records) hold the weights
+    del start_cache
+    gc.collect()
     r["tasked_equals_engine"] = True
 
     # -- prefill through the kernel vs the plain path on the card --
@@ -770,6 +773,243 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     del params32
     torch.cuda.empty_cache()
     return r
+
+
+def tasked_decode(Runtime, RuntimeConfig, tasked_decode_loop, model, params,
+                  start_cache, nxt, s, steps, cache, out, traced) -> dict:
+    """``tasked_decode_loop`` from the prefill state: ms per step, runtime
+    counters, and its tokens, lengths and cache checked bit for bit
+    against the Engine's (``cache``, ``out``). ``traced`` runs it under
+    ``trace_graphs``: the windows after the third replay a CUDA graph."""
+    b = nxt.shape[0]
+    rt = Runtime(RuntimeConfig(trace_graphs=traced))
+    try:
+        c = {k: v.clone() for k, v in start_cache.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok_obj, len_obj, c_objs = tasked_decode_loop(
+            rt, model, params, c, nxt.clone(),
+            torch.full((b,), s, dtype=torch.int32, device=nxt.device), steps,
+            timeout=600)
+        tok, lens = tok_obj.get(), len_obj.get()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        # the reads above waited for the device: the caches are final
+        diff = {k: int((c_objs[k].copies[0] != cache[k]).sum().item())
+                for k in sorted(cache)}
+        stats = rt.stats()
+    finally:
+        rt.shutdown()
+    del c, tok_obj, len_obj, c_objs, rt
+    r = {"ms_per_step": ms, "runtime_stats": {k: stats[k] for k in (
+        "tasks", "transfers_h2d", "transfers_d2h", "transfers_d2d",
+        "bytes_h2d", "bytes_d2h", "prefetch_hits", "prefetch_misses",
+        "graphs_traced", "graph_replays", "graph_invalidations",
+        "replayed_tasks")}}
+    what = "traced tasked" if traced else "tasked"
+    check(np.array_equal(tok, out[:, -1:].cpu().numpy()),
+          f"{what} decode's last tokens {tok.ravel().tolist()} != "
+          f"Engine's {out[:, -1].tolist()}")
+    check(bool((lens == s + steps).all()), f"{what} lengths {lens}")
+    check(not any(diff.values()), f"{what} cache differs from the "
+          f"Engine's at {diff} elements")
+    if traced:
+        check(stats["graph_replays"] > 0 and stats["graph_invalidations"] == 0,
+              f"traced tasked decode replayed no graph: {r['runtime_stats']}")
+    return r
+
+
+def traced_decode_trace(Runtime, RuntimeConfig, tasked_decode_loop, model,
+                        params, start_cache, nxt, s, n: int = 4) -> dict:
+    """Device time of ``n`` replayed decode steps: a traced loop of
+    ``replay_after + 1 + n`` steps (interpreted windows, the capture, then
+    n more replays) under the profiler. The window runs from the host's
+    launch of the n-th last graph replay to the end of the last device
+    event."""
+    from torch.profiler import ProfilerActivity, profile
+    b = nxt.shape[0]
+    rt = Runtime(RuntimeConfig(trace_graphs=True))
+    try:
+        c = {k: v.clone() for k, v in start_cache.items()}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tok_obj, _, _ = tasked_decode_loop(
+                rt, model, params, c, nxt.clone(),
+                torch.full((b,), s, dtype=torch.int32, device=nxt.device),
+                rt.cfg.replay_after + 1 + n, timeout=600)
+            tok_obj.get()
+    finally:
+        rt.shutdown()
+    del c, tok_obj, rt
+    launches = sorted(e.time_range.start for e in prof.events()
+                      if e.name == "cudaGraphLaunch")
+    dev = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(launches) < n or not dev:
+        return {"device_trace": "not measured",
+                "graph_launches_traced": len(launches)}
+    lo, hi = launches[-n], max(e for _, _, e in dev)
+    busy = _busy_us(dev, lo, hi)
+    # idle between consecutive device events: gaps under 20 us are the
+    # device's own launch latency between the graph's kernels, longer ones
+    # wait for the host
+    short = long_ = 0.0
+    end = lo
+    inside = sorted((a, b) for _, a, b in dev if b > lo and a < hi)
+    for a, b in inside:
+        if a > end:
+            if a - end < 20.0:
+                short += a - end
+            else:
+                long_ += a - end
+        end = max(end, b)
+    return {"steps": n, "span_ms": (hi - lo) / 1e3,
+            "ms_per_step": (hi - lo) / 1e3 / n,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (hi - lo),
+            "kernels_per_step": len(inside) / n,
+            "idle_in_gaps_under_20us_ms": short / 1e3,
+            "idle_in_longer_gaps_ms": long_ / 1e3}
+
+
+def traced_jacobi(ops, run_tasked, Runtime, RuntimeConfig, u0, interp,
+                  want) -> dict:
+    """Phase 4b: ``run_tasked`` under ``trace_graphs`` at the main path's
+    size. Sweeps 1-3 run interpreted and compile the window; sweep 4
+    captures it as a CUDA graph, and every later sweep replays it. It must
+    equal the interpreted run and ``run_reference`` bit for bit and launch
+    the stencil as often; then a profiled run gives its steady sweeps."""
+    rt = Runtime(RuntimeConfig(trace_graphs=True))
+    try:
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        got = run_tasked(u0, JACOBI_ITERS, rt, over_decomposition=JACOBI_OD)
+        wall_s = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        stats = rt.stats()
+        replay_after = rt.cfg.replay_after
+    finally:
+        rt.shutdown()
+    n_diff = int(np.count_nonzero(got != interp))
+    check(n_diff == 0 and np.array_equal(got, want),
+          f"traced run_tasked differs from the interpreted run at {n_diff} "
+          f"points (and from run_reference: {not np.array_equal(got, want)})")
+    check(stats["graph_replays"] >= JACOBI_ITERS - replay_after - 1,
+          f"traced run_tasked replayed {stats['graph_replays']} windows")
+    check(launches["jacobi3d_faces"] == JACOBI_OD * JACOBI_ITERS,
+          f"traced run_tasked launched jacobi3d_faces "
+          f"{launches['jacobi3d_faces']} times, not "
+          f"{JACOBI_OD * JACOBI_ITERS}")
+    del got, rt
+    gc.collect()
+    trace = sweep_trace(run_tasked, Runtime, RuntimeConfig, u0, traced=True)
+    return {"wall_s": wall_s, "launches": launches,
+            "equal_to_interpreted_and_reference": True,
+            "runtime_stats": {k: stats[k] for k in (
+                "tasks", "graphs_traced", "graph_replays",
+                "graph_invalidations", "replayed_tasks")},
+            "trace": trace}
+
+
+def cluster_phase(ops, run_reference, RuntimeConfig, u0) -> dict:
+    """Phase 7: ``run_cluster`` over a ``Cluster(4)`` whose ranks share the
+    card: slabs of 192 x 768 x 768 scattered and gathered on rendezvous
+    streams, halo planes put DIRECT, each update the ``jacobi3d_faces``
+    kernel. Run with 0 iterations (scatter and gather alone, which must
+    return the domain bit for bit) and with 10, which must equal
+    ``run_reference``; the difference of the two walls over 10 is the
+    wall time of one iteration."""
+    from repro_torch.apps.jacobi3d import run_cluster
+    from repro_torch.distributed import Cluster
+    n_ranks = 4
+    want = run_reference(u0, JACOBI_ITERS, device="cuda")
+    out = {"ranks": n_ranks, "shape": list(u0.shape),
+           "iterations": JACOBI_ITERS}
+    walls = {}
+    for iters in (0, JACOBI_ITERS):
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        with Cluster(n_ranks, RuntimeConfig()) as c:
+            t0 = time.perf_counter()
+            got = run_cluster(u0, iters, c)
+            walls[iters] = time.perf_counter() - t0
+            stats = [dict(r.stats) for r in c.ranks]
+        ref = u0 if iters == 0 else want
+        n_diff = int(np.count_nonzero(got != ref))
+        check(n_diff == 0, f"run_cluster ({iters} iterations) differs from "
+              f"{'the domain' if iters == 0 else 'run_reference'} at "
+              f"{n_diff} points")
+        check(ops.LAUNCHES["jacobi3d_faces"] == n_ranks * iters,
+              f"run_cluster launched jacobi3d_faces "
+              f"{ops.LAUNCHES['jacobi3d_faces']} times, not "
+              f"{n_ranks * iters}")
+        del got
+        gc.collect()
+    out.update({
+        "wall_s": walls[JACOBI_ITERS], "scatter_gather_wall_s": walls[0],
+        "ms_per_iteration": (walls[JACOBI_ITERS] - walls[0]) * 1e3
+        / JACOBI_ITERS,
+        "equal_to_reference": True,
+        "per_rank": [{k: s[k] for k in (
+            "bytes_d2d", "bytes_staged", "eager", "rendezvous",
+            "chunks_out", "chunks_in", "max_window")} for s in stats],
+        "rendezvous_streams": sum(s["rendezvous"] for s in stats)})
+    del want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def send_latency(RuntimeConfig, reps: int = 5) -> dict:
+    """``Rank.send`` latency between two ranks sharing the card: host clock
+    from the send to the run of the receiving handler, median of ``reps``
+    after two warm-up sends, at 8 B, 64 KB and 64 MB, over the DIRECT path
+    (a payload resident on the card, snapshotted and landed on the card)
+    and the host path (a host payload, which an eager message leaves in
+    the receiver's host memory and a rendezvous stream lands on the card).
+    The message engine's own overhead on one card, not an inter-node
+    figure."""
+    import threading
+
+    from repro_torch.distributed import Cluster, handler
+    arrived = threading.Event()
+
+    @handler(name="smoke_ping")
+    def _ping(ctx, obj):
+        arrived.set()
+
+    out = {}
+    with Cluster(2, RuntimeConfig()) as c:
+        r0 = c.ranks[0]
+        for nbytes in (8, 64 << 10, 64 << 20):
+            for path in ("direct", "host"):
+                times = []
+                for i in range(reps + 2):
+                    if path == "direct":
+                        obj = r0.runtime.adopt_device_array(
+                            torch.ones(nbytes // 4, device="cuda"), 0)
+                    else:
+                        obj = r0.runtime.hetero_object(
+                            np.ones(nbytes // 4, np.float32))
+                    before = dict(r0.stats)
+                    arrived.clear()
+                    t0 = time.perf_counter()
+                    r0.send(1, "smoke_ping", obj, path=path)
+                    check(arrived.wait(120), f"send of {nbytes} B over "
+                          f"{path} never reached its handler")
+                    dt = time.perf_counter() - t0
+                    c.barrier()
+                    if i >= 2:
+                        times.append(dt * 1e6)
+                rdzv = r0.stats["rendezvous"] > before["rendezvous"]
+                d2d = r0.stats["bytes_d2d"] > before["bytes_d2d"]
+                out[f"{nbytes}B_{path}"] = {
+                    "protocol": "rendezvous" if rdzv else "eager",
+                    "path_taken": "direct" if d2d else "host",
+                    "median_us": float(np.median(times)),
+                    "min_us": float(min(times))}
+    return out
 
 
 def prefill_vs_plain(model, params, tokens, tol: float, flag: str) -> dict:
@@ -898,7 +1138,18 @@ def main() -> int:
           + json.dumps(trace))
     # the Jacobi runtime's objects (and their lineage records, a cycle)
     # still hold the domain on the card
-    del rt, got, want
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 4b: the same proxy with its sweeps replayed as CUDA graphs --
+    traced = traced_jacobi(ops, run_tasked, Runtime, RuntimeConfig, u0, got,
+                           want)
+    traced["interpreted_trace"] = {k: trace.get(k) for k in (
+        "steady_ms_per_sweep", "steady_device_idle_share",
+        "stencil_kernel_ms")}
+    print(f"jacobi traced ({card}): " + json.dumps(traced))
+    del got, want
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -909,6 +1160,12 @@ def main() -> int:
     # -- phase 6: Mamba-2 serving, mamba2-370m at full width and depth -------
     ssm = serve_phase(ops, Runtime, RuntimeConfig, 6)
     print(f"serve ssm ({card}): " + json.dumps(ssm))
+
+    # -- phase 7: the distributed proxy on the message engine --------------
+    dist = cluster_phase(ops, run_reference, RuntimeConfig, u0)
+    print(f"jacobi cluster ({card}): " + json.dumps(dist))
+    print(f"send latency ({card}): "
+          + json.dumps(send_latency(RuntimeConfig)))
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],

@@ -18,6 +18,7 @@ from repro_torch.core.integrity import (ChecksumError,  # noqa: F401
 from repro_torch.core.lineage import LineageLedger, LineageRecord  # noqa: F401
 from repro_torch.core.runtime import (InjectedTaskFault,  # noqa: F401
                                       Runtime, RuntimeConfig)
+from repro_torch.core.taskgraph import GraphTracer, TracedGraph  # noqa: F401
 from repro_torch.core.topology import (InterconnectModel,  # noqa: F401
                                        LinkEstimate, probe_runtime_links)
 from repro_torch.core.scheduler import (SCHEDULERS,  # noqa: F401

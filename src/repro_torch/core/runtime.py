@@ -94,6 +94,7 @@ from repro_torch.core.memory import RequestPool, StagingPool
 from repro_torch.core.progress import ProgressEngine
 from repro_torch.core.residency import PLACEMENTS, ResidencyLedger
 from repro_torch.core.scheduler import SCHEDULERS, Scheduler
+from repro_torch.core.taskgraph import GraphTracer
 from repro_torch.core.topology import (InterconnectModel, probe_link,
                                  probe_runtime_links)
 
@@ -134,12 +135,48 @@ class RuntimeConfig:
     # device pairs the startup host+ring probe did not cover are probed
     # lazily, once, on their first real transfer (ROADMAP follow-up c)
     lazy_probe: bool = True
+    # distributed messages above this size switch from the eager
+    # (monolithic) protocol to chunk-streamed rendezvous
+    eager_threshold: int = 64 << 10
+    # rendezvous chunk size targets this many ms per chunk at the
+    # measured link bandwidth (bandwidth-delay-product sizing);
+    # chunk_bytes pins an explicit size instead (tests/benchmarks)
+    chunk_target_ms: float = 4.0
+    chunk_bytes: Optional[int] = None
+    # rendezvous sliding window (credit-based flow control): None runs the
+    # adaptive controller (starts at the measured bandwidth-delay product,
+    # halves under receiver backlog, widens back when the lane drains); an
+    # int pins the window (tests/benchmarks)
+    net_window: Optional[int] = None
     # strict asynchronous-error mode: errors swallowed by fire-and-forget
-    # progress-lane jobs are re-raised at the next barrier instead of only
-    # being counted (stats()["progress_errors"])
+    # progress-lane jobs or distributed pump handlers are re-raised at the
+    # next barrier instead of only being counted
+    # (stats()["progress_errors"] / Rank.stats["handler_errors"])
     strict_errors: bool = False
-    # -- compiled task-graph fast path --
-    # task-graph replay is not ported yet (ROADMAP Queue 1): True raises
+    # -- distributed layer: heartbeats and the reliability layer --
+    # heartbeat cadence of Rank.enable_heartbeat
+    heartbeat_interval_s: float = 0.05
+    # reliability layer (engaged by Cluster.fault_injector): eager
+    # messages, RTS announcements and stream tails are retransmitted with
+    # exponential backoff up to send_retries attempts before the send is
+    # counted failed; receivers NACK stalled rendezvous streams on the
+    # same backoff schedule
+    send_retries: int = 5
+    retry_backoff_s: float = 0.05
+    retry_backoff_mult: float = 2.0
+    retry_tick_s: float = 0.005
+    # protocol timeouts: tail-upload wait when a rendezvous stream
+    # completes, the peer-removal sweep's net-send rendezvous, and the
+    # pump-thread join at shutdown
+    rdzv_finish_timeout_s: float = 120.0
+    peer_sweep_timeout_s: float = 10.0
+    pump_join_timeout_s: float = 5.0
+    # -- compiled task-graph fast path (core/taskgraph.py) --
+    # trace recurring submit windows (delimited by step_boundary()/
+    # barrier()) and, once the same DAG recurred replay_after times,
+    # replay it as one dispatch per chain (a CUDA graph on a card) that
+    # bypasses per-task scheduling. Opt-in: interior futures of replayed
+    # windows resolve with None instead of a device handle.
     trace_graphs: bool = False
     replay_after: int = 3
     # shared progress-engine worker pool width (base threads servicing
@@ -155,6 +192,17 @@ class RuntimeConfig:
     # (injected kernel faults, transient device errors) before the error
     # surfaces on the task future / strict barrier
     task_retries: int = 0
+    # -- end-to-end integrity (core/integrity.py) --
+    # verify_payloads: compute a content digest once at serialization for
+    # every host-visible distributed payload/chunk and verify it on
+    # receive; a failed check counts in Rank.stats["checksum_fail"] and
+    # the bytes are treated as never-arrived (the reliability layer
+    # retransmits)
+    verify_payloads: bool = True
+    # cap on the credit window of op="reduce" rendezvous streams
+    # (Rank.reduce_into): every in-flight reduce chunk is an add pending
+    # on the consumer device's transfer lane. 0 = uncapped
+    coll_max_inflight_chunks: int = 4
     # -- concurrency sanitizer (core/sanitizer.py) --
     # sanitize: install the process-global RuntimeSanitizer before this
     # runtime builds its locks — lock-order tracking, lane-discipline
@@ -171,10 +219,6 @@ class Runtime:
     def __init__(self, config: Optional[RuntimeConfig] = None,
                  devices: Optional[List[Device]] = None):
         self.cfg = config or RuntimeConfig()
-        if self.cfg.trace_graphs:
-            raise NotImplementedError(
-                "trace_graphs: task-graph replay (core/taskgraph.py) is not "
-                "ported yet; see ROADMAP.md Queue 1")
         if self.cfg.sanitize:
             # must precede every lock construction below: the factories
             # consult the global sanitizer at creation time
@@ -236,6 +280,11 @@ class Runtime:
         self.engine = ProgressEngine(name="rt",
                                      strict=self.cfg.strict_errors,
                                      pool_workers=self.cfg.pool_workers)
+        # compiled task-graph fast path (core/taskgraph.py): opt-in
+        # tracer that turns recurring submit windows into replays
+        self._tracer: Optional[GraphTracer] = (
+            GraphTracer(self, self.cfg.replay_after)
+            if self.cfg.trace_graphs else None)
         self._start_workers()
 
     # ------------------------------------------------------------------
@@ -267,6 +316,8 @@ class Runtime:
         §4.2.4): once conflicting writers retire, every existing copy is
         invalidated and the new device array becomes the only valid one.
         No host staging on either side."""
+        if self._tracer is not None:
+            self._tracer.flush()   # parked writes must be observable
         with self._lock:
             lw = obj.last_writer
         if lw is not None and not lw.done():
@@ -302,6 +353,18 @@ class Runtime:
     def submit(self, task: HeteroTask, kernel: Callable) -> HFuture:
         """Enqueue an execution request; returns the task's future."""
         task.kernel = kernel
+        tracer = self._tracer
+        if tracer is not None:
+            with self._lock:
+                task.state = TaskState.SUBMITTED
+                self._tasks_pending += 1
+                self._stats["tasks"] += 1
+            # the tracer either parks the task for a compiled replay
+            # (skipping pins / dependency inference / scheduling) or
+            # tells us to run it interpreted while it records the window
+            if not tracer.on_submit(task, kernel):
+                self._enqueue(task)
+            return task.future
         with self._lock:
             task.state = TaskState.SUBMITTED
             self._tasks_pending += 1
@@ -323,11 +386,27 @@ class Runtime:
             self.scheduler.push(task)
         self._work.notify_all()
 
+    def _enqueue(self, task: HeteroTask) -> None:
+        """Interpreted-path scheduling for an already-accounted task
+        (normal submits under tracing, and parked tasks the tracer
+        flushes back when a window deviates from its compiled graph)."""
+        with self._lock:
+            self._pin_and_schedule_locked(task)
+
     def step_boundary(self) -> None:
         """Declare the edge between two application steps — the window
-        delimiter task-graph replay will key recurrence detection on
-        (Jacobi iterations, serve steps, microbatch train steps). A no-op
-        until replay is ported."""
+        delimiter the task-graph tracer keys recurrence detection on
+        (Jacobi iterations, serve steps, microbatch train steps). A
+        no-op unless ``trace_graphs`` is enabled; ``barrier()`` is also
+        a boundary, so drivers that barrier every step need no change."""
+        if self._tracer is not None:
+            self._tracer.on_boundary()
+
+    def invalidate_traces(self) -> None:
+        """Drop any compiled task graph and restart recurrence detection
+        (placements captured before may name devices that went away)."""
+        if self._tracer is not None:
+            self._tracer.invalidate()
 
     def run(self, kernel: Callable, args: Sequence[Tuple[HeteroObject, str]],
             device_type: Optional[str] = None, name: str = "") -> HeteroTask:
@@ -343,6 +422,11 @@ class Runtime:
 
     def barrier(self, timeout: Optional[float] = 120.0) -> None:
         """Wait until every submitted task has retired."""
+        if self._tracer is not None:
+            # a barrier is a window boundary: replay a fully-matched
+            # window (synchronously, so the wait below sees it retired)
+            # or advance recurrence detection
+            self._tracer.on_boundary()
         deadline = None if timeout is None else clock.now() + timeout
         with self._lock:
             while self._tasks_pending > 0:
@@ -395,6 +479,10 @@ class Runtime:
     # host access protocol
     # ------------------------------------------------------------------
     def _request_host(self, obj: HeteroObject, write: bool) -> HFuture:
+        if self._tracer is not None:
+            # a mid-window host access must observe parked writes: the
+            # tracer flushes parked tasks through the interpreted path
+            self._tracer.flush()
         self.residency.pin(obj)      # until _release_host
         fut = self.futures.acquire()
 
@@ -445,6 +533,8 @@ class Runtime:
         step snapshots a private on-device ``clone`` of the copy, then
         drops the pin — the clone is referenced by nothing else, so no
         later donation can delete the payload mid-flight."""
+        if self._tracer is not None:
+            self._tracer.flush()   # parked writes must be observable
         with obj.lock:
             obj.device_pins += 1
         self.residency.pin(obj)      # until _release_device_view

@@ -18,7 +18,8 @@
 // Operands are read through strides, so one kernel serves both layouts:
 //   q, o [B, S, KH, G, D] and k, v [B, T, KH, D]; query head (kh, g) reads
 //   KV head kh in place (the Pallas contract [BH, S, D] is KH = G = 1).
-//   Any S and T; D is at most 128 (the wrapper checks). Q rows past S are
+//   Any S and T and any D (heads wider than 128 take the column-group
+//   kernels at the end of this file). Q rows past S are
 //   loaded as zeros and never stored; K and V rows past T are loaded as
 //   zeros (cp.async with a source size of 0) and their scores set to
 //   NEG_INF, so p = 0 there and 0 . V adds nothing.
@@ -602,11 +603,429 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- head dims above 128: one 128-wide output column group per block ------
+//
+// A head dim past the two compiled widths does not fit the designs above:
+// Q held in registers and a [q rows x D] accumulator per thread would take
+// more registers than a thread has, and their shared memory would grow with
+// D. So each block owns one 128-wide group of output columns and computes
+// the full-D scores itself, reading Q and K in 64-wide column chunks through
+// shared memory (a D = 256 head recomputes its scores twice). Shared memory
+// and registers are those of a 128-wide head whatever D is, so any D runs.
+// Loads are single-stage (copy, wait, barrier) and the scores accumulate
+// chunk by chunk in ascending d, the order of the kernels above. Columns past
+// D load as zeros, which add nothing to either product.
+
+constexpr int kDC = 64;                   // d columns per score chunk
+constexpr int kOCW = 128;                 // output columns per block
+
+// Copy rows [0, rows) x columns [0, W) of a tile whose row `r` starts at
+// src + r * ld into shared memory at row stride `stride` (float) or
+// swizzled (bf16): element (r, c) is src[r * ld + c] for r < valid and
+// c < cols, else zero. 16-byte cp.async where `vec` (the row stride and the
+// first column are multiples of 16 bytes), else element by element.
+template <int W, int kThreads>
+__device__ __forceinline__ void load_cols_f32(float* dst, int stride,
+                                              const float* __restrict__ src,
+                                              long long ld, int rows,
+                                              int valid, int cols, bool vec) {
+  if (vec) {
+    constexpr int kChunks = W / 4;
+    for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      float* d = dst + r * stride + c;
+      if (r < valid && c < cols)
+        ptx::cp_async16(d, src + r * ld + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * W; i += kThreads) {
+      const int r = i / W, c = i - r * W;
+      dst[r * stride + c] = r < valid && c < cols ? src[r * ld + c] : 0.f;
+    }
+  }
+}
+
+template <int W, int kThreads>
+__device__ __forceinline__ void load_cols_bf16(bf16* dst,
+                                               const bf16* __restrict__ src,
+                                               long long ld, int rows,
+                                               int valid, int cols, bool vec) {
+  if (vec) {
+    constexpr int kChunks = W / 8;
+    for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      bf16* d = dst + swz<W>(r, c);
+      if (r < valid && c < cols)
+        ptx::cp_async16(d, src + r * ld + c);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * W; i += kThreads) {
+      const int r = i / W, c = i - r * W;
+      dst[swz<W>(r, c)] =
+          r < valid && c < cols ? src[r * ld + c] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// float32, CUDA cores: flash_f32_kernel's thread layout (256 threads, 128
+// q rows, thread (ty, tx) owning rows ty*8 .. +7) over one column group.
+// Shared memory, in floats: Q chunk [128][64], K chunk [64][68], V [64][128],
+// P [128][64]: 115 KB.
+struct FlashF32WideSmem {
+  static constexpr int kKStride = kDC + 4;
+  static constexpr int kQ = kFBM * kDC;
+  static constexpr int kK = kTile * kKStride;
+  static constexpr int kV = kTile * kOCW;
+  static constexpr int kP = kFBM * kTile;
+  static constexpr size_t kBytes = (size_t)(kQ + kK + kV + kP) * sizeof(float);
+};
+
+__global__ void __launch_bounds__(kFThreads, 1)
+flash_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int S, int T_len, int KH, int G, int D, int causal,
+                      float scale, int n_cg) {
+  using L = FlashF32WideSmem;
+  constexpr int kOC = kOCW / 16;          // output columns per thread
+  extern __shared__ __align__(16) unsigned char smem_f32w[];
+  float* Qs = reinterpret_cast<float*>(smem_f32w);
+  float* Ks = Qs + L::kQ;
+  float* Vs = Ks + L::kK;
+  float* Ps = Vs + L::kV;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int g = blockIdx.x / n_cg;        // query head in its group
+  const int c0 = (blockIdx.x % n_cg) * kOCW;  // first output column
+  const int kh = blockIdx.y % KH;
+  const long long b = blockIdx.y / KH;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFBM;
+
+  const long long q_ld = (long long)KH * G * D;
+  const long long kv_ld = (long long)KH * D;
+  const long long q_off =
+      ((b * S + q0) * KH + kh) * G * D + (long long)g * D;
+  const float* k_base = k + (b * T_len * KH + kh) * D;
+  const float* v_base = v + (b * T_len * KH + kh) * D;
+  const bool vec = (D & 3) == 0;
+  const int q_rows = min(kFBM, S - q0);
+  const int n_kv_all = (T_len + kTile - 1) / kTile;
+  const int n_kv =
+      causal ? min(n_kv_all, (q0 + q_rows - 1) / kTile + 1) : n_kv_all;
+
+  float m[kFRows], l[kFRows], acc[kFRows][kOC];
+#pragma unroll
+  for (int i = 0; i < kFRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kOC; ++j) acc[i][j] = 0.f;
+  }
+  const int r0 = ty * kFRows;
+  const int wq0 = q0 + (tid / 32) * 16;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kTile, rows = min(kTile, T_len - k0);
+    __syncthreads();          // tile j-1's V and P are consumed
+    load_cols_f32<kOCW, kFThreads>(Vs, kOCW, v_base + k0 * kv_ld + c0, kv_ld,
+                                   kTile, rows, min(kOCW, D - c0), vec);
+    ptx::cp_async_commit();
+    const bool skip = wq0 >= S || (causal && k0 > wq0 + 15);
+    float s[kFRows][kFCols];
+#pragma unroll
+    for (int i = 0; i < kFRows; ++i)
+#pragma unroll
+      for (int c = 0; c < kFCols; ++c) s[i][c] = 0.f;
+    for (int dc = 0; dc < D; dc += kDC) {
+      if (dc) __syncthreads();  // the previous chunk is consumed
+      load_cols_f32<kDC, kFThreads>(Qs, kDC, q + q_off + dc, q_ld, kFBM,
+                                    q_rows, min(kDC, D - dc), vec);
+      load_cols_f32<kDC, kFThreads>(Ks, L::kKStride,
+                                    k_base + k0 * kv_ld + dc, kv_ld, kTile,
+                                    rows, min(kDC, D - dc), vec);
+      ptx::cp_async_commit();
+      ptx::cp_async_wait<0>();
+      __syncthreads();
+      if (skip) continue;
+#pragma unroll 2
+      for (int d = 0; d < kDC; d += 4) {
+        float4 kv[kFCols];
+#pragma unroll
+        for (int c = 0; c < kFCols; ++c)
+          kv[c] = *reinterpret_cast<const float4*>(
+              Ks + (tx + 16 * c) * L::kKStride + d);
+#pragma unroll
+        for (int i = 0; i < kFRows; ++i) {
+          const float4 qv =
+              *reinterpret_cast<const float4*>(Qs + (r0 + i) * kDC + d);
+#pragma unroll
+          for (int c = 0; c < kFCols; ++c) {
+            s[i][c] = fmaf(qv.x, kv[c].x, s[i][c]);
+            s[i][c] = fmaf(qv.y, kv[c].y, s[i][c]);
+            s[i][c] = fmaf(qv.z, kv[c].z, s[i][c]);
+            s[i][c] = fmaf(qv.w, kv[c].w, s[i][c]);
+          }
+        }
+      }
+    }
+    if (skip) continue;       // V landed with the last chunk's wait
+
+    const bool diag = causal && k0 + kTile - 1 > wq0;
+    const bool mask = diag || k0 + kTile > T_len;
+#pragma unroll
+    for (int i = 0; i < kFRows; ++i) {
+      const int qpos = q0 + r0 + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < kFCols; ++c) {
+        float x = s[i][c] * scale;
+        if (mask) {
+          const int kpos = k0 + tx + 16 * c;
+          if ((diag && kpos > qpos) || kpos >= T_len) x = kNegInf;
+        }
+        s[i][c] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kFCols; ++c) {
+        const float p = expf(s[i][c] - m_new);
+        sum += p;
+        Ps[(r0 + i) * kTile + tx + 16 * c] = p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j2 = 0; j2 < kOC; ++j2) acc[i][j2] *= alpha;
+    }
+    __syncwarp();
+
+#pragma unroll 2
+    for (int c = 0; c < kTile; c += 4) {
+      float4 pv[kFRows];
+#pragma unroll
+      for (int i = 0; i < kFRows; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (r0 + i) * kTile + c);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 vv[kOC / 4];
+#pragma unroll
+        for (int gq = 0; gq < kOC / 4; ++gq)
+          vv[gq] = *reinterpret_cast<const float4*>(Vs + (c + u) * kOCW +
+                                                    gq * 64 + tx * 4);
+#pragma unroll
+        for (int i = 0; i < kFRows; ++i) {
+          const float p = u == 0 ? pv[i].x
+                        : u == 1 ? pv[i].y
+                        : u == 2 ? pv[i].z
+                                 : pv[i].w;
+#pragma unroll
+          for (int gq = 0; gq < kOC / 4; ++gq) {
+            acc[i][gq * 4 + 0] = fmaf(p, vv[gq].x, acc[i][gq * 4 + 0]);
+            acc[i][gq * 4 + 1] = fmaf(p, vv[gq].y, acc[i][gq * 4 + 1]);
+            acc[i][gq * 4 + 2] = fmaf(p, vv[gq].z, acc[i][gq * 4 + 2]);
+            acc[i][gq * 4 + 3] = fmaf(p, vv[gq].w, acc[i][gq * 4 + 3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kFRows; ++i) {
+    if (q0 + r0 + i >= S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    float* row = o + q_off + (long long)(r0 + i) * q_ld + c0;
+#pragma unroll
+    for (int gq = 0; gq < kOC / 4; ++gq) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = gq * 64 + tx * 4 + e;
+        if (c0 + c < D) row[c] = acc[i][gq * 4 + e] / denom;
+      }
+    }
+  }
+}
+
+// bfloat16, tensor cores: flash_mma_kernel's warp layout (16 q rows a warp,
+// mma.sync, P kept in registers as A fragments) with 4 warps, 64 q rows a
+// block, over one column group. Shared memory: Q chunk [64][64], K chunk
+// [64][64], V [64][128], swizzled: 32 KB.
+constexpr int kWWarps = 4;
+constexpr int kWBM = 16 * kWWarps;
+constexpr int kWThreads = 32 * kWWarps;
+constexpr size_t kMmaWideSmem =
+    (size_t)(kWBM * kDC + kBN * kDC + kBN * kOCW) * sizeof(bf16);
+
+__global__ void __launch_bounds__(kWThreads)
+flash_mma_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int S,
+                      int T_len, int KH, int G, int D, int causal, float scale,
+                      int n_cg) {
+  extern __shared__ __align__(16) unsigned char smem_mmaw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_mmaw);
+  bf16* Ks = Qs + kWBM * kDC;
+  bf16* Vs = Ks + kBN * kDC;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = blockIdx.x / n_cg;
+  const int c0 = (blockIdx.x % n_cg) * kOCW;
+  const int kh = blockIdx.y % KH;
+  const long long b = blockIdx.y / KH;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kWBM;
+
+  const long long q_ld = (long long)KH * G * D;
+  const long long kv_ld = (long long)KH * D;
+  const long long q_off =
+      ((b * S + q0) * KH + kh) * G * D + (long long)g * D;
+  const bf16* k_base = k + (b * T_len * KH + kh) * D;
+  const bf16* v_base = v + (b * T_len * KH + kh) * D;
+  const bool vec = (D & 7) == 0;
+  const int q_rows = min(kWBM, S - q0);
+  const int n_kv_all = (T_len + kBN - 1) / kBN;
+  const int n_kv =
+      causal ? min(n_kv_all, (q0 + q_rows - 1) / kBN + 1) : n_kv_all;
+
+  const int wq0 = q0 + warp * 16;
+  const int r = lane >> 2, t2 = (lane & 3) * 2;
+  float acc[kOCW / 8][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < kOCW / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int k0 = j * kBN, rows = min(kBN, T_len - k0);
+    __syncthreads();          // tile j-1's V is consumed
+    load_cols_bf16<kOCW, kWThreads>(Vs, v_base + k0 * kv_ld + c0, kv_ld, kBN,
+                                    rows, min(kOCW, D - c0), vec);
+    ptx::cp_async_commit();
+    const bool skip = wq0 >= S || (causal && k0 > wq0 + 15);
+    float s[kBN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    for (int dc = 0; dc < D; dc += kDC) {
+      if (dc) __syncthreads();  // the previous chunk is consumed
+      load_cols_bf16<kDC, kWThreads>(Qs, q + q_off + dc, q_ld, kWBM, q_rows,
+                                     min(kDC, D - dc), vec);
+      load_cols_bf16<kDC, kWThreads>(Ks, k_base + k0 * kv_ld + dc, kv_ld,
+                                     kBN, rows, min(kDC, D - dc), vec);
+      ptx::cp_async_commit();
+      ptx::cp_async_wait<0>();
+      __syncthreads();
+      if (skip) continue;
+#pragma unroll
+      for (int ks = 0; ks < kDC / 16; ++ks) {
+        uint32_t qa[4];
+        ptx::ldmatrix_x4(qa, Qs + swz<kDC>(warp * 16 + (lane & 15),
+                                           ks * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int np = 0; np < kBN / 16; ++np) {
+          uint32_t kb[4];
+          ptx::ldmatrix_x4(
+              kb, Ks + swz<kDC>(np * 16 + (lane >> 4) * 8 + (lane & 7),
+                                ks * 16 + ((lane >> 3) & 1) * 8));
+          ptx::mma_bf16_16816(s[2 * np], qa, kb[0], kb[1]);
+          ptx::mma_bf16_16816(s[2 * np + 1], qa, kb[2], kb[3]);
+        }
+      }
+    }
+    if (skip) continue;       // V landed with the last chunk's wait
+
+    const bool diag = causal && k0 + kBN - 1 > wq0;
+    const bool mask = diag || k0 + kBN > T_len;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < kBN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale;
+        if (mask) {
+          const int kpos = k0 + nt * 8 + t2 + (e & 1);
+          if ((diag && kpos > wq0 + r + (e >> 1) * 8) || kpos >= T_len)
+            x = kNegInf;
+        }
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      alpha[h] = expf(m[h] - m_new);
+      m[h] = m_new;
+    }
+    uint32_t pf[kBN / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kBN / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
+        sum[e >> 1] += s[nt][e];
+      }
+      pf[nt / 2][(nt & 1) * 2] = ptx::pack_bf16(s[nt][0], s[nt][1]);
+      pf[nt / 2][(nt & 1) * 2 + 1] = ptx::pack_bf16(s[nt][2], s[nt][3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = l[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int nt = 0; nt < kOCW / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kOCW / 16; ++np) {
+        uint32_t vb[4];
+        ptx::ldmatrix_x4_trans(
+            vb, Vs + swz<kOCW>(kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7),
+                               np * 16 + (lane >> 4) * 8));
+        ptx::mma_bf16_16816(acc[2 * np], pf[kk], vb[0], vb[1]);
+        ptx::mma_bf16_16816(acc[2 * np + 1], pf[kk], vb[2], vb[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (wq0 + r + h * 8 >= S) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    bf16* row = o + q_off + (long long)(warp * 16 + r + h * 8) * q_ld + c0;
+#pragma unroll
+    for (int nt = 0; nt < kOCW / 8; ++nt) {
+      const int c = nt * 8 + t2;
+      if (c0 + c < D) row[c] = __float2bfloat16(acc[nt][2 * h] / denom);
+      if (c0 + c + 1 < D)
+        row[c + 1] = __float2bfloat16(acc[nt][2 * h + 1] / denom);
+    }
+  }
+}
+
 // ---- launches --------------------------------------------------------------
 
 // 0 where the kernels take the shape, else the error to return.
 int check_shape(int S, int T_len, int D) {
-  if (D < 1 || D > kMaxD || S < 0 || T_len < 1) {
+  if (D < 1 || S < 0 || T_len < 1) {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
@@ -644,6 +1063,33 @@ int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
   return (int)cudaGetLastError();
 }
 
+// Heads wider than 128: the column-group kernels, G x (column groups)
+// blocks side by side in x.
+int launch_f32_wide(const float* q, const float* k, const float* v, float* o,
+                    int B, int S, int T_len, int KH, int G, int D, int causal,
+                    float scale, cudaStream_t stream) {
+  const size_t smem = FlashF32WideSmem::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_cg = (D + kOCW - 1) / kOCW;
+  const dim3 grid(G * n_cg, B * KH, (S + kFBM - 1) / kFBM);
+  flash_f32_wide_kernel<<<grid, kFThreads, smem, stream>>>(
+      q, k, v, o, S, T_len, KH, G, D, causal, scale, n_cg);
+  return (int)cudaGetLastError();
+}
+
+int launch_mma_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                    int B, int S, int T_len, int KH, int G, int D, int causal,
+                    float scale, cudaStream_t stream) {
+  const int n_cg = (D + kOCW - 1) / kOCW;
+  const dim3 grid(G * n_cg, B * KH, (S + kWBM - 1) / kWBM);
+  flash_mma_wide_kernel<<<grid, kWThreads, kMmaWideSmem, stream>>>(
+      q, k, v, o, S, T_len, KH, G, D, causal, scale, n_cg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
@@ -656,6 +1102,9 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    float scale, cudaStream_t stream) {
   if (int err = check_shape(S, T, D)) return err;
   if (B == 0 || S == 0 || KH == 0 || G == 0) return (int)cudaGetLastError();
+  if (D > kMaxD)
+    return launch_f32_wide(q, k, v, o, B, S, T, KH, G, D, causal, scale,
+                           stream);
   return D <= 64 ? launch_f32<64>(q, k, v, o, B, S, T, KH, G, D, causal,
                                   scale, stream)
                  : launch_f32<128>(q, k, v, o, B, S, T, KH, G, D, causal,
@@ -670,6 +1119,9 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     cudaStream_t stream) {
   if (int err = check_shape(S, T, D)) return err;
   if (B == 0 || S == 0 || KH == 0 || G == 0) return (int)cudaGetLastError();
+  if (D > kMaxD)
+    return launch_mma_wide(q, k, v, o, B, S, T, KH, G, D, causal, scale,
+                           stream);
   return D <= 64
              ? launch_mma<64>(q, k, v, o, B, S, T, KH, G, D, causal, scale,
                               stream)

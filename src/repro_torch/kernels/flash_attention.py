@@ -18,14 +18,16 @@ strides and a group size ``G``:
     place, without the broadcast copies and transposes of the JAX
     package's ``_pallas_flash``.
 
-The kernel takes float32 and bfloat16, D up to 128, any S and T (rows
-past S are not stored, K and V rows past T are read as zeros and masked
-to ``NEG_INF``), and 16-byte aligned operands (both arms copy 16 bytes at
-a time with cp.async). That is every input the Pallas entry point takes
-(any S, T up to 128, or multiples of 128) and more; D > 128 raises.
-bfloat16 runs on the tensor cores (mma.sync), float32 on the CUDA cores
-in IEEE float32 (register-blocked, K and V tiles double-buffered). It is
-bound by operations: see the note in the CUDA source.
+The kernel takes float32 and bfloat16, any D, any S and T (rows past S
+are not stored, K and V rows past T are read as zeros and masked to
+``NEG_INF``), and 16-byte aligned operands (both arms copy 16 bytes at a
+time with cp.async). That is every input the Pallas entry point takes
+(any D; any S, T up to 128, or multiples of 128) and more. bfloat16 runs
+on the tensor cores (mma.sync), float32 on the CUDA cores in IEEE
+float32 (register-blocked, K and V tiles double-buffered). Heads wider
+than 128 take a kernel per dtype that gives each block one 128-wide
+group of output columns and recomputes the full-D scores in 64-wide
+chunks. It is bound by operations: see the note in the CUDA source.
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ from repro_torch.kernels import count_launch
 
 NEG_INF = -1e30
 TILE = 64            # the kernels' kv tile
-MAX_D = 128
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
@@ -105,8 +106,8 @@ def _check(q, k, v, what):
 
 
 def _launch(q, k, v, b, s, t, kh, g, d, causal, what) -> torch.Tensor:
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"{what}: head dim {d} outside 1..{MAX_D}")
+    if d <= 0:
+        raise ValueError(f"{what}: head dim {d} must be positive")
     if s <= 0 or t <= 0:
         raise ValueError(f"{what}: S={s}, T={t} must be positive")
     if b * kh * g > 65535:

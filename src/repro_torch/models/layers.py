@@ -69,8 +69,10 @@ def rope_frequencies(head_dim: int, theta: float, device=None
                      ) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # theta filled on the device: no host-to-device copy, which a CUDA
+    # graph capture of a decode step would refuse
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

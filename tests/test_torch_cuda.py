@@ -237,14 +237,15 @@ def test_flash_attention_gqa_close_to_plain(cuda, g):
 
 
 @pytest.mark.parametrize("g", [1, 8])
-@pytest.mark.parametrize("d", [8, 12, 64, 128])
+@pytest.mark.parametrize("d", [8, 12, 64, 128, 130, 160, 256])
 @pytest.mark.parametrize("s,t,causal", [(128, 192, True), (192, 128, True),
                                         (128, 256, False), (256, 64, False)])
 def test_flash_gqa_bf16_close_to_plain(cuda, g, d, s, t, causal):
     """The tensor-core arm at its limits: head dims below, between and at
-    its two compiled widths (8 and 12 load element by element), S != T
-    with and without the causal mask, one and eight query heads a KV
-    head."""
+    its two compiled widths (8 and 12 load element by element), past them
+    (the column-group kernel; 130 loads element by element, 160 ends in a
+    partial column group), S != T with and without the causal mask, one
+    and eight query heads a KV head."""
     gen = torch.Generator(device=cuda).manual_seed(g * 1000 + d + s + t)
     q = torch.randn((2, s, 2, g, d), generator=gen, device=cuda)
     k, v = (torch.randn((2, t, 2, d), generator=gen, device=cuda)
@@ -260,12 +261,13 @@ def test_flash_gqa_bf16_close_to_plain(cuda, g, d, s, t, causal):
 
 
 @pytest.mark.parametrize("g", [1, 8])
-@pytest.mark.parametrize("d", [8, 12, 64, 128])
+@pytest.mark.parametrize("d", [8, 12, 64, 128, 130, 160, 256])
 @pytest.mark.parametrize("s,t,causal", [(128, 192, True), (192, 128, True),
                                         (128, 256, False), (256, 64, False)])
 def test_flash_f32_close_to_plain(cuda, g, d, s, t, causal):
     """The float32 arm at its limits, through both entry points: head dims
-    below, between and at its two compiled widths, S != T with and without
+    below, between and at its two compiled widths and past them (the
+    column-group kernel), S != T with and without
     the causal mask (a last 64-row q tile in a 128-row block at S = 192),
     one and eight query heads a KV head; then the same heads folded into
     the Pallas contract [BH, S, D]."""
@@ -302,12 +304,19 @@ def test_flash_wrapper_raises_on_misaligned_operands(cuda):
 
 
 def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
-    x = torch.ones((2, 96, 256), device=cuda)                # D > 128
-    with pytest.raises(ValueError):
-        ops.flash_attention(x, x, x)
-    y = torch.ones((2, 128, 160), device=cuda)               # D > 128
-    with pytest.raises(ValueError):
-        ops.flash_attention(y, y, y)
+    """Head dims past 128 run through a kernel, as the Pallas entry takes
+    any D; what both sides refuse (operands of different dtypes, a
+    transposed operand) raises."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for shape in ((2, 96, 256), (2, 128, 160)):
+        x, y, w = (torch.randn(shape, generator=gen, device=cuda)
+                   for _ in range(3))
+        n = LAUNCHES["flash_attention"]
+        got = ops.flash_attention(x, y, w)
+        assert LAUNCHES["flash_attention"] == n + 1
+        want = ops.flash_attention_plain(x[:, :, None, None], y[:, :, None],
+                                         w[:, :, None])[:, :, 0, 0]
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     z = torch.ones((2, 128, 64), device=cuda)
     with pytest.raises(ValueError):
         ops.flash_attention(z, z.half(), z)
@@ -463,3 +472,182 @@ def test_peer_copies_between_cards(cuda):
         stats = rt.stats()
     assert stats["transfers_d2d"] > 0
     np.testing.assert_array_equal(got, app.run_reference(u0, 3))
+
+
+# ---------------------------------------------------------------------------
+# task-graph replay as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def test_traced_run_tasked_replays_cuda_graphs(cuda):
+    """Windows 4.. replay a captured CUDA graph: bit for bit the
+    interpreted run, and every replay adds the stencil launches its
+    capture recorded."""
+    u0 = np.random.default_rng(6).random((32, 24, 16)).astype(np.float32)
+    iters = 8
+    with Runtime(RuntimeConfig(memory_capacity=1 << 30,
+                               trace_graphs=True)) as rt:
+        before = LAUNCHES["jacobi3d_faces"]
+        got = app.run_tasked(u0, iters, rt, over_decomposition=8)
+        launched = LAUNCHES["jacobi3d_faces"] - before
+        st = rt.stats()
+        n_dev = len(rt.devices)
+    assert st["graph_replays"] == iters - 3 and st["graph_invalidations"] == 0
+    assert launched == 8 * n_dev * iters
+    np.testing.assert_array_equal(got, app.run_reference(u0, iters))
+
+
+@pytest.mark.parametrize("arch,flag", [("yi-9b", "use_flash_kernel"),
+                                       ("mamba2-370m", "use_ssd_kernel")])
+def test_traced_tasked_decode_equals_interpreted(cuda, arch, flag):
+    """The tasked decode loop of a smoke model under trace_graphs: the
+    graph writes the adopted cache in place (never copied) and gives the
+    interpreted loop's tokens and cache bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    from repro_torch.serve import tasked_decode_loop
+    cfg = get_smoke_config(arch)
+    model = build_smoke(cfg, **{flag: True})
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    nxt, cache = Engine(model, params, 2, 80).prefill(toks)
+    out = {}
+    for traced in (False, True):
+        c = {k: v.clone() for k, v in cache.items()}
+        with Runtime(RuntimeConfig(trace_graphs=traced)) as rt:
+            tok, lens, c_objs = tasked_decode_loop(
+                rt, model, params, c, nxt.clone(),
+                torch.full((2,), 64, dtype=torch.int32, device=cuda), 10)
+            out[traced] = (tok.get(), lens.get(),
+                           {k: c_objs[k].get() for k in c})
+            if traced:
+                assert rt.stats()["graph_replays"] == 10 - 3
+                assert all(c_objs[k].copies[0].data_ptr() == c[k].data_ptr()
+                           for k in c)
+    np.testing.assert_array_equal(out[True][0], out[False][0])
+    np.testing.assert_array_equal(out[True][1], out[False][1])
+    for k in cache:
+        np.testing.assert_array_equal(out[True][2][k], out[False][2][k])
+
+
+# ---------------------------------------------------------------------------
+# the message engine on the card
+# ---------------------------------------------------------------------------
+
+def test_run_cluster_on_the_card_equals_reference(cuda):
+    """Four ranks share the card: slabs scatter and gather on rendezvous
+    streams into device slabs, halos travel DIRECT."""
+    from repro_torch.distributed import Cluster
+    u0 = np.random.default_rng(8).random((64, 48, 40)).astype(np.float32)
+    cfg = RuntimeConfig(memory_capacity=1 << 30, eager_threshold=16 << 10,
+                        chunk_bytes=64 << 10)
+    with Cluster(4, cfg) as c:
+        got = app.run_cluster(u0, 3, c)
+        stats = [dict(r.stats) for r in c.ranks]
+    np.testing.assert_array_equal(got, app.run_reference(u0, 3))
+    assert stats[0]["rendezvous"] == 3
+    assert all(s["bytes_d2d"] > 0 for s in stats)
+
+
+def test_direct_put_between_cards(cuda):
+    """A DIRECT put from a rank's card 0 lands on the receiver's card 1
+    (consumer-routed) as a multi-chunk rendezvous stream into a slab on
+    that card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    from repro_torch.distributed import Cluster, handler
+    done = []
+
+    @handler(name="cuda_put_done")
+    def _done(ctx, obj):
+        done.append(obj)
+
+    cfg = RuntimeConfig(memory_capacity=1 << 30, chunk_bytes=1 << 20)
+    with Cluster(2, cfg) as c:
+        r0, r1 = c.ranks
+        data = np.random.default_rng(9).random(1 << 22).astype(np.float32)
+        target = r1.runtime.hetero_object(np.zeros_like(data))
+        r1.register_object("tgt", target)
+        src = r0.runtime.hetero_object(data)
+        r0.runtime.run(lambda v: v * 2.0, [(src, "rw")], device_type="gpu")
+        r0.runtime.barrier()
+        r0.put(1, "tgt", src, on_done="cuda_put_done", path="direct",
+               consumer_device=1)
+        c.barrier()
+        assert done and target.resident_devices() == {1}
+        np.testing.assert_array_equal(target.get(), data * 2.0)
+        assert r1.stats["chunks_in"] == 16 and r1.stats["bytes_staged"] == 0
+
+
+def _wrapper_cases(dev):
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    bf = torch.bfloat16
+    return {
+        "jacobi3d": (ops.jacobi3d, (r(20, 18, 16),)),
+        "jacobi3d_faces": (ops.jacobi3d_faces,
+                           (r(16, 12, 8), r(12, 8), r(12, 8), r(16, 8),
+                            r(16, 8), r(16, 12), r(16, 12))),
+        "matmul_f32": (ops.matmul, (r(128, 96), r(96, 192))),
+        "matmul_bf16_tma": (ops.matmul, (r(256, 128, dtype=bf),
+                                         r(128, 256, dtype=bf))),
+        "flash_bf16": (ops.flash_attention_gqa,
+                       (r(1, 128, 2, 2, 64, dtype=bf), r(1, 128, 2, 64, dtype=bf),
+                        r(1, 128, 2, 64, dtype=bf))),
+        "flash_f32_d256": (ops.flash_attention,
+                           (r(2, 96, 256), r(2, 96, 256), r(2, 96, 256))),
+        "ssd_chunk": (ops.ssd_chunk,
+                      (r(2, 32, 2, 16), r(2, 32, 2).abs() * 0.1,
+                       -r(2).abs(), r(2, 32, 8), r(2, 32, 8))),
+    }
+
+
+@pytest.mark.parametrize("name", ["jacobi3d", "jacobi3d_faces", "matmul_f32",
+                                  "matmul_bf16_tma", "flash_bf16",
+                                  "flash_f32_d256", "ssd_chunk"])
+def test_each_wrapper_replays_under_cuda_graph_capture(cuda, name):
+    """Every kernel wrapper stays legal under stream capture (no host sync,
+    no allocation outside the graph's pool; the bf16 matmul's TMA
+    descriptors travel by value): captured once, its replay gives the
+    eager call's bits, and the capture counts no launch."""
+    from repro_torch import kernels
+    fn, args = _wrapper_cases(cuda)[name]
+    want = fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(LAUNCHES)
+    with kernels.recording_launches() as rec, \
+            torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        got = fn(*args)
+    assert LAUNCHES == before and sum(rec.values()) == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+def test_capture_failure_fails_the_window(cuda):
+    """A chain the CUDA graph cannot capture (a host sync) fails its
+    window's futures and drops the graph; it never runs interpreted
+    behind the caller's back."""
+    def synced(v):
+        return v + v.sum().item()
+
+    with Runtime(RuntimeConfig(trace_graphs=True, replay_after=2)) as rt:
+        a = rt.hetero_object(np.ones(8, np.float32))
+        for _ in range(2):
+            rt.run(synced, [(a, "rw")])
+            rt.step_boundary()
+        t = rt.run(synced, [(a, "rw")])
+        rt.step_boundary()
+        with pytest.raises(Exception):
+            t.future.get(30)
+        st = rt.stats()
+    assert st["graphs_traced"] == 1 and st["graph_replays"] == 0
+    assert st["graph_invalidations"] == 1

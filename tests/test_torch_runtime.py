@@ -432,11 +432,6 @@ def test_device_view_snapshot_survives_in_place_write(rt):
     np.testing.assert_array_equal(snap.numpy(), 2.0)
 
 
-def test_trace_graphs_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Runtime(_cfg(trace_graphs=True))
-
-
 def test_step_boundary_is_a_noop(rt):
     x = rt.hetero_object(np.zeros(4, np.float32))
     rt.run(lambda v: v + 1.0, [(x, "rw")])

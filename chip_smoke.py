@@ -46,6 +46,7 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -85,11 +86,13 @@ MATMUL_SHAPES = ((DGEMM_N,) * 3, (192, 48, 320), (320, 1040, 192))
 MATMUL_RAGGED = ((100, 64, 64), (32, 16, 32), (96, 12, 40))
 # flash_attention_gqa shapes (b, s, t, kh, g, d, causal) checked in phase 2
 # in bf16 and float32 beside the main ones: head dims below, between and at
-# the kernels' two compiled widths (8 and 12 load element by element in
-# bf16) and past them (160, 256: the column-group kernels), S != T with and
-# without the mask, one and eight query heads a KV head
+# the D <= 128 kernels' two compiled widths (8 and 12 load element by
+# element in bf16), the one-pass kernels' (160 and 192 in three 64-column
+# boxes, 256 in four) and the column-group kernels' (130, whose rows are
+# not 16-byte multiples, and 264, past 256), S != T with and without the
+# mask, one and eight query heads a KV head
 FLASH_SHAPES = tuple((2, s, t, 2, g, d, causal)
-                     for d in (8, 12, 64, 128, 160, 256)
+                     for d in (8, 12, 64, 128, 130, 160, 192, 256, 264)
                      for s, t, causal in ((128, 192, True), (192, 128, False))
                      for g in (1, 8)) + tuple(
     # S and T the Pallas kernel takes as one block, not multiples of 64
@@ -154,6 +157,60 @@ def peaks(name: str):
         if frag in name:
             return frag, p
     raise SmokeFailure(f"no published peaks for card {name!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_variants():
+    """``tools/kernel_variants.py``, which builds text-substitution variants
+    of a kernel source (the earlier designs timed beside the committed
+    ones)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "kernel_variants.py")
+    spec = importlib.util.spec_from_file_location("kernel_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the flash kernels by their names in ptxas's output (mangled)
+FLASH_KERNELS = {"flash_wgmmaILi3E": "one_pass_bf16_3_boxes",
+                 "flash_wgmmaILi4E": "one_pass_bf16_4_boxes",
+                 "flash_f32_full": "one_pass_f32",
+                 "flash_mma_wide": "column_groups_bf16",
+                 "flash_f32_wide": "column_groups_f32",
+                 "flash_mmaILi64E": "mma_d64", "flash_mmaILi128E": "mma_d128",
+                 "flash_f32ILi64E": "f32_d64", "flash_f32ILi128E": "f32_d128"}
+# what ptxas says where it serialises a kernel's wgmma products (C7515,
+# C7520, ...); the message names the function
+SERIALISED = "wgmma.mma_async instructions are serialized"
+
+
+def ptxas_kernels(out: str) -> dict:
+    """Registers, spill bytes and wgmma serialisation of each flash kernel
+    in one library's ``-Xptxas -v`` output."""
+    found, cur = {}, None
+
+    def entry(key):
+        return found.setdefault(key, {
+            "registers": None, "spill_stores": None, "spill_loads": None,
+            "wgmma_serialised": False})
+
+    for ln in out.splitlines():
+        key = next((v for k, v in FLASH_KERNELS.items()
+                    if k in ln.replace("_kernel", "")), None)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                           ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        if SERIALISED in ln:
+            entry(key or "unattributed")["wgmma_serialised"] = True
+        elif "Compiling entry function" in ln:
+            cur = entry(key) if key else None
+        elif cur is not None and spills:
+            cur["spill_stores"], cur["spill_loads"] = map(int, spills.groups())
+        elif cur is not None and regs:
+            cur["registers"] = int(regs.group(1))
+    return found
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -247,9 +304,10 @@ def _by_name(dev, lo, hi) -> dict:
     return out
 
 
-def kernel_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
+def kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_flash) -> dict:
     """Phase 2: each kernel against its plain version at main-path shapes.
-    Returns the per-kernel numbers for the JSON line."""
+    Returns the per-kernel numbers for the JSON line. ``earlier_flash`` is
+    the library of the earlier head-dim-256 flash design."""
     F = torch.nn.functional
     dev = torch.device("cuda")
     res = {}
@@ -358,7 +416,7 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
         del main
 
     res["jacobi_half_types"] = jacobi_half_checks(ops, gen)
-    res.update(flash_checks(ops, gen, fp32, bf16, mem_rate))
+    res.update(flash_checks(ops, gen, fp32, bf16, mem_rate, earlier_flash))
     res["ssd_chunk"] = ssd_checks(ops, gen, fp32, mem_rate)
     return res
 
@@ -399,11 +457,15 @@ def jacobi_half_checks(ops, gen) -> dict:
     return out
 
 
-def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
+def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
     """flash_attention at the serve prefill's shapes: the GQA entry in bf16
     (the main path, q [4, 2048, 4, 8, 128]) and the Pallas contract in
-    float32 at [128, 2048, 128], both causal; each arm also through the GQA
-    entry at FLASH_SHAPES. The library yardstick is
+    float32 at [128, 2048, 128], both causal, then both at D = 256 and
+    both at recurrentgemma-9b's heads, q [4, 2048, 1, 16, 256] (the
+    one-pass kernels, each timed beside the earlier column-group design
+    built from ``earlier``, the library of the same source with the
+    one-pass dispatch off); each arm also through the GQA entry at
+    FLASH_SHAPES, one launch a call. The library yardstick is
     scaled_dot_product_attention on the same, broadcast, heads."""
     F = torch.nn.functional
     dev = torch.device("cuda")
@@ -414,7 +476,11 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
                 for _ in range(2))
         for arm, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+            before = ops.LAUNCHES["flash_attention"]
             got = ops.flash_attention_gqa(qq, kk, vv, causal=causal).float()
+            check(ops.LAUNCHES["flash_attention"] == before + 1,
+                  f"flash {arm} at {(b_, s_, t_, kh_, g_, d_)} did not "
+                  f"launch the kernel once")
             want = ops.flash_attention_plain(qq, kk, vv,
                                              causal=causal).float()
             torch.cuda.synchronize()
@@ -426,34 +492,43 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
             check(bool(torch.allclose(got, want, rtol=tol, atol=tol)),
                   f"flash {arm} {key} outside {tol} of plain (max err {err})")
             edge_errs[arm][key] = err
-    cfg_b, s, kh, g = SERVE_BATCH, SERVE_PROMPT, 4, 8
-    bh = cfg_b * kh * g
+    cfg_b, s = SERVE_BATCH, SERVE_PROMPT
     res = {}
     cases = []
-    # the main shapes (D = 128), then the same at D = 256 (the column-group
-    # kernels; no ported config reaches them)
-    for d, sfx in ((128, ""), (256, "_d256")):
+    # the main shapes (yi-9b's heads, D = 128), then the same at D = 256
+    # (the one-pass kernels), the float32 arm through the Pallas contract
+    # [B*H, S, D]; then recurrentgemma-9b's heads (MQA: 16 query heads on
+    # one KV head, D = 256) in both arms through the GQA entry. No ported
+    # config reaches D = 256 yet.
+    for kh, g, d, sfx in ((4, 8, 128, ""), (4, 8, 256, "_d256"),
+                          (1, 16, 256, "_d256_kh1g16")):
+        bh = cfg_b * kh * g
         q = torch.randn((cfg_b, s, kh, g, d), generator=gen, device=dev)
         k = torch.randn((cfg_b, s, kh, d), generator=gen, device=dev)
         v = torch.randn((cfg_b, s, kh, d), generator=gen, device=dev)
         # causal work: S(S+1)/2 scored pairs per head, 4*D flops each
         flops = bh * s * (s + 1) / 2 * 4 * d
+        if kh == 1:
+            f32_case = ((q, k, v), ops.flash_attention_gqa,
+                        ops.flash_attention_plain)
+        else:
+            f32_case = (
+                (q.permute(0, 2, 3, 1, 4).reshape(bh, s, d),
+                 k.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
+                 .reshape(bh, s, d),
+                 v.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
+                 .reshape(bh, s, d)),
+                ops.flash_attention,
+                lambda a, b, c: ops.flash_attention_plain(
+                    a[:, :, None, None], b[:, :, None],
+                    c[:, :, None])[:, :, 0, 0])
         cases += [
             ("flash_attention" + sfx, torch.bfloat16, bf16, FLASH_TOL["bf16"],
              (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain,
              flops),
             ("flash_attention_f32" + sfx, torch.float32, fp32,
-             FLASH_TOL["f32"],
-             (q.permute(0, 2, 3, 1, 4).reshape(bh, s, d),
-              k.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
-              .reshape(bh, s, d),
-              v.permute(0, 2, 1, 3)[:, :, None].expand(cfg_b, kh, g, s, d)
-              .reshape(bh, s, d)),
-             ops.flash_attention,
-             lambda a, b, c: ops.flash_attention_plain(
-                 a[:, :, None, None], b[:, :, None], c[:, :, None])[:, :, 0, 0],
-             flops)]
-        del q, k, v
+             FLASH_TOL["f32"], *f32_case, flops)]
+        del q, k, v, f32_case
     for key, dtype, rate, tol, args, kernel, plain, flops in cases:
         args = tuple(x.to(dtype).contiguous() for x in args)
         got = kernel(*args).float()
@@ -467,6 +542,7 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
         # SDPA on [B, H, S, D] with K and V broadcast to every query head
         d = args[0].shape[-1]
         if args[0].dim() == 5:
+            kh, g = args[0].shape[2:4]
             qs = args[0].reshape(cfg_b, s, kh * g, d).transpose(1, 2)
             ks, vs = (x.transpose(1, 2).repeat_interleave(g, dim=1)
                       for x in args[1:])
@@ -483,6 +559,28 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate) -> dict:
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, is_causal=True), 5),
             bound_ms=b_ms, bound_by=b_by)
+        if "_d256" in key:
+            # the earlier design on the same inputs: checked, then timed in
+            # turns with the kernel (earlier, kernel, kernel, earlier)
+            call_earlier = kernel_variants().flash_call
+            old = call_earlier(earlier, *args).float()
+            want = plain(*args).float()
+            torch.cuda.synchronize()
+            old_err = (old - want).abs().max().item()
+            check(bool(torch.allclose(old, want, rtol=tol, atol=tol)),
+                  f"{key}: the column-group design outside {tol} of plain "
+                  f"(max err {old_err})")
+            del old, want
+            turns = []
+            for fn in (earlier, None, None, earlier):
+                call = (functools.partial(kernel, *args) if fn is None else
+                        functools.partial(call_earlier, fn, *args))
+                turns.append(time_ms(call, 5))
+            res[key].update(
+                column_group_design_ms=(turns[0] + turns[3]) / 2,
+                column_group_design_max_abs_err=old_err,
+                turns_ms={"column_groups": [turns[0], turns[3]],
+                          "one_pass": [turns[1], turns[2]]})
         del qs, ks, vs, args
     res["flash_attention"]["max_abs_err_by_shape"] = edge_errs["bf16"]
     res["flash_attention_f32"]["max_abs_err_by_shape"] = edge_errs["f32"]
@@ -1057,19 +1155,39 @@ def main() -> int:
           f"FLOP/s, {mem_rate:.3g} B/s; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     t0 = time.perf_counter()
+    # the earlier head-dim-256 flash design, built beside the port's kernels
+    variants = kernel_variants()
+    earlier = variants.start_build(["column_groups"], "flash_attention")
+    # the flash library is built afresh, so that ptxas reports its kernels
+    # even where build/ holds an up-to-date one
+    (_build.BUILD_DIR / "libflash_attention.so").unlink(missing_ok=True)
     log = _build.build_all()
+    variants.finish_build(earlier)
+    check("flash_attention" in log,
+          "build_all did not rebuild the flash library: no ptxas report")
     print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} over "
           f"src/repro_torch/csrc/{{{','.join(sorted(_build.SIGNATURES))}}}.cu"
-          f" in {time.perf_counter() - t0:.3f} s")
+          f" and the column-group flash design in "
+          f"{time.perf_counter() - t0:.3f} s")
     for lib, (secs, out) in sorted(log.items()):
         regs = [ln.strip() for ln in out.splitlines()
                 if "registers" in ln or "Compiling entry" in ln
                 or "spill" in ln]
         print(f"build: lib{lib}.so {secs:.3f} s; " + " | ".join(regs))
+    flash_regs = ptxas_kernels(log["flash_attention"][1])
+    print("build: flash kernels (registers at launch, spill bytes, wgmma "
+          "serialised): " + json.dumps(flash_regs))
+    one_pass = [r for k, r in flash_regs.items() if k.startswith("one_pass")]
+    check(len(one_pass) == 3 and all(
+        r["spill_stores"] == 0 == r["spill_loads"] for r in one_pass),
+        "a one-pass flash kernel spills, or ptxas did not report it")
+    check(not any(r["wgmma_serialised"] for r in flash_regs.values()),
+          "ptxas serialised the wgmma products of a flash kernel")
+    earlier_lib = variants.load("column_groups", "flash_attention")
 
     # -- phase 2: kernels against their plain versions ------------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    res = kernel_checks(ops, gen, fp32, bf16, mem_rate)
+    res = kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_lib)
     for key, r in res.items():
         print(f"kernel {key}: {json.dumps(r)}")
 

@@ -276,85 +276,6 @@ constexpr int kSwizzleBytes = 1024;             // 8 rows of 128 bytes
 constexpr size_t kHSmem = kHStages * (size_t)(kHABytes + kHBBytes) +
                           2 * kHStages * sizeof(uint64_t) + kSwizzleBytes;
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   ptx::smem_addr(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          ptx::smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   ptx::smem_addr(bar))
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(ptx::smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box of `map` at element (c0 innermost, c1) into `dst`; its bytes
-// complete on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(ptx::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(ptx::smem_addr(bar)),
-      "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte swizzled operand at shared
-// address `addr` (1024-byte aligned atoms): LBO and SBO in bytes.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses of an accumulator across the
-// asynchronous products.
-__device__ __forceinline__ void reg_fence(float& x) {
-  asm volatile("" : "+f"(x)::"memory");
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
 #define HG_F8(i)                                                    \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -408,8 +329,8 @@ hgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   const int nk = (K + kHBK - 1) / kHBK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kHStages; ++s) {
-      mbar_init(&full[s], 1);                // the producer's expect_tx
-      mbar_init(&empty[s], 4 * kHConsumers);  // one arrive a consumer warp
+      ptx::mbar_init(&full[s], 1);                 // the producer's expect_tx
+      ptx::mbar_init(&empty[s], 4 * kHConsumers);  // one arrive a consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -417,25 +338,26 @@ hgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
 
   if (wg == kHConsumers) {
     // producer: the whole warpgroup gives up registers, one thread loads
-    setmaxnreg_dec<40>();
+    ptx::setmaxnreg_dec<40>();
     if (threadIdx.x == kHConsumers * 128) {
       int it = 0;  // slots filled so far
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int m0 = t / tiles_n * kHBM, n0 = t % tiles_n * kHBN;
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int s = it % kHStages;
-          mbar_wait(&empty[s], ((it / kHStages) & 1) ^ 1);  // round 0 passes
-          mbar_expect_tx(&full[s], kHABytes + kHBBytes);
-          tma_load_2d(sA + s * kHABytes, &tma_a, &full[s], kt * kHBK, m0);
+          // round 0 passes
+          ptx::mbar_wait(&empty[s], ((it / kHStages) & 1) ^ 1);
+          ptx::mbar_expect_tx(&full[s], kHABytes + kHBBytes);
+          ptx::tma_load_2d(sA + s * kHABytes, &tma_a, &full[s], kt * kHBK, m0);
 #pragma unroll
           for (int j = 0; j < kHBN / 64; ++j)
-            tma_load_2d(sB + s * kHBBytes + j * kHBox, &tma_b, &full[s],
+            ptx::tma_load_2d(sB + s * kHBBytes + j * kHBox, &tma_b, &full[s],
                         n0 + 64 * j, kt * kHBK);
         }
       }
     }
   } else {
-    setmaxnreg_inc<232>();
+    ptx::setmaxnreg_inc<232>();
     // A: K-major, this warpgroup's 64 rows; a 16-deep step is 32 bytes
     // along the swizzled row. B: MN-major; LBO = 8 KB from one 64-column
     // box to the next, SBO = 1 KB from one 8-row k group to the next; a
@@ -448,25 +370,25 @@ hgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       for (int kt = 0; kt < nk; ++kt, ++it) {
         const int s = it % kHStages;
-        mbar_wait(&full[s], (it / kHStages) & 1);
-        wgmma_fence();
+        ptx::mbar_wait(&full[s], (it / kHStages) & 1);
+        ptx::wgmma_fence();
         // the tile's first step overwrites the accumulators (scale-d = 0):
         // no other instruction writes them while products are in flight
 #pragma unroll
         for (int kk = 0; kk < kHBK / 16; ++kk)
           wgmma_m64n256k16(
-              acc, wgmma_desc(a0 + s * kHABytes + kk * 32, 16, 1024),
-              wgmma_desc(b0 + s * kHBBytes + kk * 16 * 128, kHBox, 1024),
+              acc, ptx::wgmma_desc(a0 + s * kHABytes + kk * 32, 16, 1024),
+              ptx::wgmma_desc(b0 + s * kHBBytes + kk * 16 * 128, kHBox, 1024),
               kt > 0 || kk > 0);
-        wgmma_commit();
+        ptx::wgmma_commit();
         // the products of the previous slot are done: free it
-        wgmma_wait<1>();
-        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kHStages]);
+        ptx::wgmma_wait<1>();
+        if (kt > 0 && lane == 0) ptx::mbar_arrive(&empty[(it - 1) % kHStages]);
       }
-      wgmma_wait<0>();
+      ptx::wgmma_wait<0>();
 #pragma unroll
-      for (int i = 0; i < kHBN / 2; ++i) reg_fence(acc[i]);
-      if (lane == 0) mbar_arrive(&empty[(it - 1) % kHStages]);
+      for (int i = 0; i < kHBN / 2; ++i) ptx::reg_fence(acc[i]);
+      if (lane == 0) ptx::mbar_arrive(&empty[(it - 1) % kHStages]);
 
       // accumulator i: row 16*warp + lane/4 + 8*((i/2)%2), column
       // 8*(i/4) + 2*(lane%4) + i%2 of this warpgroup's 64 x 256
@@ -492,25 +414,10 @@ hgemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled from the driver (its CUDA 12.0 form), or null
-// where it is missing. Needs a CUDA 12.5 or later runtime.
-EncodeTiled tensor_map_encoder() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-  const cudaError_t err = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-    return nullptr;
-  }
-  return reinterpret_cast<EncodeTiled>(fn);
-}
-
 // Tensor map of a row-major [rows, cols] bf16 matrix read in boxes of
 // box_rows x 64 columns (128 bytes), 128-byte swizzled; out-of-bounds
 // elements read as zero.
-bool encode_bf16(EncodeTiled encode, CUtensorMap* map, const bf16* base,
+bool encode_bf16(ptx::EncodeTiled encode, CUtensorMap* map, const bf16* base,
                  int rows, int cols, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
@@ -528,7 +435,7 @@ bool encode_bf16(EncodeTiled encode, CUtensorMap* map, const bf16* base,
 int launch_bf16(const bf16* a, const bf16* b, bf16* c, int M, int N, int K,
                 cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaGetLastError();
-  static const EncodeTiled encode = tensor_map_encoder();
+  static const ptx::EncodeTiled encode = ptx::tensor_map_encoder();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap ta, tb;
   if (!encode_bf16(encode, &ta, a, M, K, kHBM) ||

@@ -23,11 +23,23 @@ are not stored, K and V rows past T are read as zeros and masked to
 ``NEG_INF``), and 16-byte aligned operands (both arms copy 16 bytes at a
 time with cp.async). That is every input the Pallas entry point takes
 (any D; any S, T up to 128, or multiples of 128) and more. bfloat16 runs
-on the tensor cores (mma.sync), float32 on the CUDA cores in IEEE
-float32 (register-blocked, K and V tiles double-buffered). Heads wider
-than 128 take a kernel per dtype that gives each block one 128-wide
-group of output columns and recomputes the full-D scores in 64-wide
-chunks. It is bound by operations: see the note in the CUDA source.
+on the tensor cores, float32 on the CUDA cores in IEEE float32. Which
+kernel takes a head depends on D:
+
+  * D <= 128: ``flash_mma_kernel`` (bf16, mma.sync) and
+    ``flash_f32_kernel`` (register-blocked, K and V tiles
+    double-buffered);
+  * 128 < D <= 256 in whole 16-byte rows (D % 8 == 0 in bf16, D % 4 == 0
+    in float32): the one-pass kernels, ``flash_wgmma_kernel`` (bf16,
+    wgmma fed by TMA, warp-specialised, Q resident and the whole head's
+    output in registers) and ``flash_f32_full_kernel`` (Q resident, each
+    kv tile's scores computed once over the whole head);
+  * any other head (D > 256, or rows off 16 bytes such as D = 130): the
+    column-group kernels, which give each block one 128-wide group of
+    output columns and recompute the full-D scores in 64-wide chunks.
+
+Every D launches one kernel and counts one launch. It is bound by
+operations: see the note in the CUDA source.
 """
 from __future__ import annotations
 

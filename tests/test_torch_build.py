@@ -86,10 +86,33 @@ def test_editing_an_included_header_marks_its_library_stale(tree):
     assert _build._stale("k")
 
 
+HOPPER_HELPERS = ("mbar_init", "mbar_expect_tx", "mbar_arrive", "mbar_wait",
+                  "tma_load_2d", "tma_load_4d", "wgmma_desc", "wgmma_fence",
+                  "wgmma_commit", "wgmma_wait", "setmaxnreg_inc",
+                  "setmaxnreg_dec", "bar_sync", "bar_arrive",
+                  "tensor_map_encoder")
+
+
 def test_the_sources_that_share_the_ptx_header_depend_on_it():
+    """Both tensor-core sources include ``ptx.cuh`` (so editing it rebuilds
+    them) and take the Hopper helpers from it: each helper is defined there
+    once and in neither source, and both sources call the barrier, wgmma
+    and register helpers through it."""
     for name in ("flash_attention", "matmul"):
         assert _build.CSRC / "ptx.cuh" in _build._sources(name)
     assert _build._sources("jacobi3d") == [_build.CSRC / "jacobi3d.cu"]
+    header = (_build.CSRC / "ptx.cuh").read_text()
+    for helper in HOPPER_HELPERS:
+        defined = re.compile(rf"\b{helper}\s*\([^;{{]*\)\s*{{")
+        assert len(defined.findall(header)) == 1, helper
+        for name in ("flash_attention", "matmul"):
+            src = (_build.CSRC / f"{name}.cu").read_text()
+            assert not defined.findall(src), (name, helper)
+    for name in ("flash_attention", "matmul"):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for helper in ("mbar_wait", "wgmma_desc", "wgmma_wait",
+                       "setmaxnreg_inc", "tensor_map_encoder"):
+            assert f"ptx::{helper}" in src, (name, helper)
 
 
 def _kernel_variants():
@@ -112,3 +135,16 @@ def test_kernel_variants_apply_to_the_committed_source(name):
     src = (_build.CSRC / "matmul.cu").read_text()
     out = KERNEL_VARIANTS.variant_source(name, src)
     assert (out == src) == (name == "committed")
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_VARIANTS.FLASH_VARIANTS))
+def test_flash_variants_apply_to_the_committed_source(name):
+    """The earlier head-dim-256 design that ``chip_smoke.py`` times beside
+    the committed kernels (``flash_attention.cu`` with the one-pass
+    dispatch turned off), and the grid orders the tool times, are text
+    substitutions: each finds its text exactly once."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    out = KERNEL_VARIANTS.variant_source(name, src, "flash_attention")
+    assert (out == src) == (name == "committed")
+    assert KERNEL_VARIANTS.library_path(name, "flash_attention").name == \
+        f"libflash_attention_{name}.so"

@@ -198,14 +198,17 @@ def test_flash_attention_close_to_plain(cuda, dtype, tol, s, t, d, causal):
                                           (96, 128, 64, False),
                                           (100, 150, 12, True),
                                           (150, 100, 8, False),
-                                          (1, 1, 16, True)])
+                                          (1, 1, 16, True),
+                                          (1, 1, 256, True),
+                                          (150, 100, 192, False)])
 def test_flash_attention_close_to_plain_at_ragged_lengths(cuda, dtype, tol, s,
                                                           t, d, causal):
-    """S and T that are not multiples of the 64-row tiles, which the Pallas
-    kernel takes up to 128 (one block of S or T rows): Q rows past S load
-    as zeros and are not stored, K and V rows past T load as zeros and
-    score NEG_INF. Both entry points; the plain version cuts its last
-    blocks short the same way."""
+    """S and T that are not multiples of the kernels' tiles (64 rows; 128 q
+    and 80 kv rows in the bf16 one-pass kernel), which the Pallas kernel
+    takes up to 128 (one block of S or T rows): Q rows past S load as zeros
+    and are not stored, K and V rows past T load as zeros and score
+    NEG_INF. Both entry points; the plain version cuts its last blocks
+    short the same way."""
     gen = torch.Generator(device=cuda).manual_seed(s * 3 + t + d)
     q = torch.randn((2, s, 2, 4, d), generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn((2, t, 2, d), generator=gen, device=cuda).to(dtype)
@@ -237,15 +240,20 @@ def test_flash_attention_gqa_close_to_plain(cuda, g):
 
 
 @pytest.mark.parametrize("g", [1, 8])
-@pytest.mark.parametrize("d", [8, 12, 64, 128, 130, 160, 256])
+@pytest.mark.parametrize("d", [8, 12, 64, 128, 130, 136, 160, 192, 200, 256,
+                               264])
 @pytest.mark.parametrize("s,t,causal", [(128, 192, True), (192, 128, True),
-                                        (128, 256, False), (256, 64, False)])
+                                        (128, 256, False), (256, 64, False),
+                                        (200, 200, True)])
 def test_flash_gqa_bf16_close_to_plain(cuda, g, d, s, t, causal):
     """The tensor-core arm at its limits: head dims below, between and at
-    its two compiled widths (8 and 12 load element by element), past them
-    (the column-group kernel; 130 loads element by element, 160 ends in a
-    partial column group), S != T with and without the causal mask, one
-    and eight query heads a KV head."""
+    the two compiled widths of the D <= 128 kernel (8 and 12 load element
+    by element); inside the one-pass wgmma kernel (136, 160 and 192 in
+    three 64-column boxes, the last one partial at 136 and 160; 200 and 256
+    in four) and past it (the column-group kernel: 130, whose rows TMA
+    cannot describe, and 264); S != T with and without the causal mask, S
+    = T = 200 (ragged q and kv tiles on the diagonal), one and eight query
+    heads a KV head."""
     gen = torch.Generator(device=cuda).manual_seed(g * 1000 + d + s + t)
     q = torch.randn((2, s, 2, g, d), generator=gen, device=cuda)
     k, v = (torch.randn((2, t, 2, d), generator=gen, device=cuda)
@@ -261,16 +269,20 @@ def test_flash_gqa_bf16_close_to_plain(cuda, g, d, s, t, causal):
 
 
 @pytest.mark.parametrize("g", [1, 8])
-@pytest.mark.parametrize("d", [8, 12, 64, 128, 130, 160, 256])
+@pytest.mark.parametrize("d", [8, 12, 64, 128, 130, 136, 160, 192, 200, 256,
+                               264])
 @pytest.mark.parametrize("s,t,causal", [(128, 192, True), (192, 128, True),
-                                        (128, 256, False), (256, 64, False)])
+                                        (128, 256, False), (256, 64, False),
+                                        (200, 200, True)])
 def test_flash_f32_close_to_plain(cuda, g, d, s, t, causal):
     """The float32 arm at its limits, through both entry points: head dims
-    below, between and at its two compiled widths and past them (the
-    column-group kernel), S != T with and without
-    the causal mask (a last 64-row q tile in a 128-row block at S = 192),
-    one and eight query heads a KV head; then the same heads folded into
-    the Pallas contract [BH, S, D]."""
+    below, between and at the two compiled widths of the D <= 128 kernel,
+    inside the one-pass kernel (136 to 256) and past it (the column-group
+    kernel: 130, whose rows are not 16-byte multiples, and 264), S != T
+    with and without the causal mask (a last 64-row q tile in a 128-row
+    block at S = 192), S = T = 200 (ragged tiles on the diagonal), one and
+    eight query heads a KV head; then the same heads folded into the Pallas
+    contract [BH, S, D]."""
     gen = torch.Generator(device=cuda).manual_seed(g * 1000 + d + s + t + 1)
     q = torch.randn((2, s, 2, g, d), generator=gen, device=cuda)
     k, v = (torch.randn((2, t, 2, d), generator=gen, device=cuda)
@@ -598,6 +610,10 @@ def _wrapper_cases(dev):
         "flash_bf16": (ops.flash_attention_gqa,
                        (r(1, 128, 2, 2, 64, dtype=bf), r(1, 128, 2, 64, dtype=bf),
                         r(1, 128, 2, 64, dtype=bf))),
+        "flash_bf16_d256": (ops.flash_attention_gqa,
+                            (r(1, 128, 2, 2, 256, dtype=bf),
+                             r(1, 128, 2, 256, dtype=bf),
+                             r(1, 128, 2, 256, dtype=bf))),
         "flash_f32_d256": (ops.flash_attention,
                            (r(2, 96, 256), r(2, 96, 256), r(2, 96, 256))),
         "ssd_chunk": (ops.ssd_chunk,
@@ -608,12 +624,14 @@ def _wrapper_cases(dev):
 
 @pytest.mark.parametrize("name", ["jacobi3d", "jacobi3d_faces", "matmul_f32",
                                   "matmul_bf16_tma", "flash_bf16",
-                                  "flash_f32_d256", "ssd_chunk"])
+                                  "flash_bf16_d256", "flash_f32_d256",
+                                  "ssd_chunk"])
 def test_each_wrapper_replays_under_cuda_graph_capture(cuda, name):
     """Every kernel wrapper stays legal under stream capture (no host sync,
-    no allocation outside the graph's pool; the bf16 matmul's TMA
-    descriptors travel by value): captured once, its replay gives the
-    eager call's bits, and the capture counts no launch."""
+    no allocation outside the graph's pool; the TMA descriptors of the bf16
+    matmul and the D = 256 flash kernel travel by value): captured once,
+    its replay gives the eager call's bits, and the capture counts no
+    launch."""
     from repro_torch import kernels
     fn, args = _wrapper_cases(cuda)[name]
     want = fn(*args)

@@ -32,7 +32,9 @@ def _qkv(seed, q_shape, kv_shape, dtype=np.float32):
 @pytest.mark.parametrize("s,t,d,causal", [(256, 256, 64, True),
                                           (128, 256, 64, False),
                                           (256, 128, 32, False),
-                                          (128, 64, 8, True)])
+                                          (128, 64, 8, True),
+                                          (128, 128, 160, True),
+                                          (128, 128, 256, True)])
 def test_flash_matches_pallas_and_ref(s, t, d, causal):
     if causal and (s, t) != (128, 64):
         t = s
@@ -48,7 +50,8 @@ def test_flash_matches_pallas_and_ref(s, t, d, causal):
     np.testing.assert_allclose(got, oracle, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("g,d", [(1, 12), (3, 8), (4, 32)])
+@pytest.mark.parametrize("g,d", [(1, 12), (3, 8), (4, 32), (2, 160),
+                                 (2, 256)])
 def test_flash_gqa_matches_pallas_folding(g, d):
     """``flash_attention_gqa`` reads KV head h // G in place; the JAX
     package broadcasts K and V to every query head and folds the heads

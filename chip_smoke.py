@@ -33,7 +33,15 @@ the port's main path through the tasking runtime:
     ranks of the message engine that share the card, 10 iterations (40
     ``jacobi3d_faces`` launches), equal to ``run_reference`` bit for bit,
     with each rank's DIRECT and staged bytes; and ``Rank.send`` latency
-    between two ranks at 8 B, 64 KB and 64 MB over both paths.
+    between two ranks at 8 B, 64 KB and 64 MB over both paths;
+  * resilience on that cluster: ``CollectiveGroup.allreduce`` of tensors on
+    the card at 8 B, 64 KB and 64 MB a member, bit for bit its oracle;
+    ``run_cluster`` with its global residual every 5 iterations (40
+    launches, residuals against float64 ones of the reference's iterates);
+    ``run_cluster_elastic`` in 8 slabs, 4 iterations (32 launches a run),
+    unfaulted, with a rank killed and revived from a checkpoint, killed
+    with replicas, and frozen, each equal to ``run_reference`` bit for
+    bit, and the card's allocation back where it was after them.
 
 Launch counters are zeroed just before each main-path run and read just
 after. The second-to-last line is a JSON object with one entry per kernel of
@@ -46,9 +54,12 @@ import functools
 import gc
 import json
 import os
+import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -60,6 +71,23 @@ JACOBI_N, JACOBI_OD, JACOBI_ITERS = 768, 8, 10
 DGEMM_N = 4096
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = "yi-9b", 4, 2048, 32
 SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS = "mamba2-370m", 8, 4096, 32
+# phase 8, resilience: allreduce sizes per member (8 B and 64 KB take the
+# binomial tree at the default cutover, 64 MB the ring), the residual's
+# cadence, and the elastic runs (8 slabs of 96 x 768 x 768 over 4 ranks)
+COLL_BYTES, COLL_REPS = (8, 64 << 10, 64 << 20), 5
+RESIDUAL_ITERS, RESIDUAL_EVERY = 10, 5
+ELASTIC_SLABS, ELASTIC_ITERS = 8, 4
+# Heartbeats every 0.05 s and a straggler factor of 25: a rank whose beats
+# stop for 1.25 s is a straggler. The kill runs' timeout must lie between
+# the unfaulted run's longest gap and that (a killed rank must be declared
+# dead before it is taken for a straggler, whose chunks could never leave
+# it); the freeze lasts twice the straggler gap, under a timeout twice that.
+HB_INTERVAL, STRAGGLER_FACTOR = 0.05, 25.0
+# the residual against a float64 one of the reference's iterates: both
+# float64 sums of the same squares, in other orders
+RESIDUAL_RTOL = 1e-10
+# device memory left allocated after the resilience phase's clusters close
+MEMORY_SLACK = 64 << 20
 # ssd_chunk shapes (bc, q, h, p, n) checked in phase 2: the mamba2 prefill's
 # (8 requests x 16 chunks), the mamba2 smoke config's, the three of
 # tests/test_kernels.py, a ragged chunk (a prompt shorter than 256), and
@@ -1110,6 +1138,212 @@ def send_latency(RuntimeConfig, reps: int = 5) -> dict:
     return out
 
 
+def allreduce_times(RuntimeConfig) -> dict:
+    """``CollectiveGroup.allreduce`` over a ``Cluster(4)`` whose ranks share
+    the card, each member's contribution a tensor on the card, at
+    ``COLL_BYTES`` per member in float32 and int32: host clock from the
+    call to the numpy results, median of ``COLL_REPS`` after one warm-up.
+    Each result must equal ``oracle_allreduce`` bit for bit and each call
+    fold bytes into accumulators (``coll_bytes_reduced``)."""
+    from repro_torch.distributed import Cluster, CollectiveGroup
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    with Cluster(4, RuntimeConfig()) as c:
+        g = CollectiveGroup(c)
+        for nbytes in COLL_BYTES:
+            for dtype in (torch.float32, torch.int32):
+                ins = [(torch.randn(nbytes // 4, generator=gen,
+                                    device="cuda") * 1000).to(dtype)
+                       for _ in range(4)]
+                oracle = g.oracle_allreduce(ins)
+                times, reduced = [], []
+                for i in range(COLL_REPS + 1):
+                    before = sum(r.stats["coll_bytes_reduced"]
+                                 for r in c.ranks)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs = g.allreduce(ins)
+                    dt = (time.perf_counter() - t0) * 1e3
+                    n_bad = sum(int(np.count_nonzero(o != w))
+                                for o, w in zip(outs, oracle))
+                    check(n_bad == 0, f"allreduce of {nbytes} B {dtype} "
+                          f"differs from its oracle at {n_bad} elements")
+                    reduced.append(sum(r.stats["coll_bytes_reduced"]
+                                       for r in c.ranks) - before)
+                    check(reduced[-1] > 0, f"allreduce of {nbytes} B "
+                          "reduced no bytes")
+                    if i:
+                        times.append(dt)
+                out[f"{nbytes}B_{str(dtype).split('.')[-1]}"] = {
+                    "arm": "tree" if nbytes <= g.cutover_bytes else "ring",
+                    "median_ms": float(np.median(times)),
+                    "min_ms": min(times), "bytes_reduced": reduced[-1],
+                    "bit_exact": True}
+        out["group"] = g.describe()
+    return out
+
+
+def reference_residuals(ops, u0: np.ndarray, iters: int, every: int):
+    """``(iteration, ||u_k - u_(k-1)||_2)`` every ``every`` iterations of the
+    plain stencil (``run_reference``'s loop) on the card, each a float64
+    sum over the whole domain."""
+    u = torch.from_numpy(u0).cuda()
+    x, y, z = u.shape
+    zeros = {d: torch.zeros(d, dtype=u.dtype, device=u.device)
+             for d in ((y, z), (x, z), (x, y))}
+    out = []
+    for k in range(1, iters + 1):
+        new = ops.jacobi3d_faces_plain(
+            u, zeros[(y, z)], zeros[(y, z)], zeros[(x, z)], zeros[(x, z)],
+            zeros[(x, y)], zeros[(x, y)])
+        if k % every == 0:
+            out.append((k, math.sqrt(
+                torch.sum((new.double() - u.double()) ** 2).item())))
+        u = new
+    return out
+
+
+def residual_phase(ops, run_reference, RuntimeConfig, u0) -> dict:
+    """``run_cluster(residual_every=RESIDUAL_EVERY)`` at 768^3 over a
+    ``Cluster(4)`` on the card: equal to ``run_reference`` bit for bit, one
+    stencil launch per rank and iteration, and its residuals within
+    ``RESIDUAL_RTOL`` of float64 residuals of the reference's iterates."""
+    from repro_torch.apps.jacobi3d import run_cluster
+    from repro_torch.distributed import Cluster
+    res = []
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    with Cluster(4, RuntimeConfig()) as c:
+        t0 = time.perf_counter()
+        got = run_cluster(u0, RESIDUAL_ITERS, c,
+                          residual_every=RESIDUAL_EVERY, residuals=res)
+        wall = time.perf_counter() - t0
+    del c
+    launches = ops.LAUNCHES["jacobi3d_faces"]
+    check(launches == 4 * RESIDUAL_ITERS, f"run_cluster with the residual "
+          f"launched jacobi3d_faces {launches} times, not "
+          f"{4 * RESIDUAL_ITERS}")
+    want = run_reference(u0, RESIDUAL_ITERS, device="cuda")
+    n_diff = int(np.count_nonzero(got != want))
+    check(n_diff == 0, f"run_cluster with the residual differs from "
+          f"run_reference at {n_diff} points")
+    del got, want
+    ref = reference_residuals(ops, u0, RESIDUAL_ITERS, RESIDUAL_EVERY)
+    check([k for k, _ in res] == [k for k, _ in ref],
+          f"residual iterations {res} against {ref}")
+    rel = [abs(a - b) / b for (_, a), (_, b) in zip(res, ref)]
+    check(max(rel) <= RESIDUAL_RTOL, f"residuals {res} differ from the "
+          f"float64 reference {ref} by {max(rel)} (relative)")
+    return {"ranks": 4, "iterations": RESIDUAL_ITERS,
+            "residual_every": RESIDUAL_EVERY, "residuals": res,
+            "reference_residuals": ref, "max_rel_err": max(rel),
+            "tol_rel": RESIDUAL_RTOL, "wall_s": wall,
+            "launches": launches, "equal_to_reference": True}
+
+
+def elastic_phase(ops, run_reference, RuntimeConfig, u0) -> dict:
+    """``run_cluster_elastic`` at 768^3 float32, ``ELASTIC_SLABS`` slabs
+    over a ``Cluster(4)`` on the card, ``ELASTIC_ITERS`` iterations:
+    unfaulted, under a long heartbeat timeout that lets it measure its
+    longest heartbeat gap; a rank killed after iteration 1 and revived
+    after 2 with a checkpoint; a rank killed with replicas; a rank frozen.
+    Each run equals the unfaulted one bit for bit, which equals
+    ``run_reference``, with exactly one stencil launch per slab and
+    iteration. An iteration's time is the run's own
+    (``report["iteration_s"]``, from its first halo put to its commit and
+    fault schedule). The device memory still allocated after the clusters
+    close must be within ``MEMORY_SLACK`` of what it was before them."""
+    from repro_torch.apps.jacobi3d import run_cluster_elastic
+    from repro_torch.distributed import Cluster
+    want = run_reference(u0, ELASTIC_ITERS, device="cuda")
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    straggler_gap = STRAGGLER_FACTOR * HB_INTERVAL
+    out = {"slabs": ELASTIC_SLABS, "ranks": 4, "iterations": ELASTIC_ITERS,
+           "heartbeat_interval_s": HB_INTERVAL,
+           "straggler_factor": STRAGGLER_FACTOR, "runs": {}}
+
+    def run(name, ref, what, **knobs):
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        with Cluster(4, RuntimeConfig()) as c:
+            t0 = time.perf_counter()
+            got, rep = run_cluster_elastic(
+                u0, ELASTIC_ITERS, c, slabs=ELASTIC_SLABS,
+                heartbeat_interval_s=HB_INTERVAL,
+                straggler_factor=STRAGGLER_FACTOR, **knobs)
+            wall = time.perf_counter() - t0
+        del c
+        launches = ops.LAUNCHES["jacobi3d_faces"]
+        n_diff = int(np.count_nonzero(got != ref))
+        check(n_diff == 0, f"run_cluster_elastic {name} differs from "
+              f"{what} at {n_diff} points")
+        check(launches == ELASTIC_SLABS * ELASTIC_ITERS,
+              f"run_cluster_elastic {name} launched jacobi3d_faces "
+              f"{launches} times, not {ELASTIC_SLABS * ELASTIC_ITERS}")
+        e = rep["elastic"]
+        out["runs"][name] = {
+            "wall_s": wall, "iteration_ms": [t * 1e3 for t in
+                                             rep["iteration_s"]],
+            "median_ms_per_iteration": float(np.median(
+                rep["iteration_s"])) * 1e3,
+            "launches": launches, "epochs": rep["epochs"],
+            "heartbeat_timeout_s": knobs["heartbeat_timeout_s"],
+            **{k: e[k] for k in (
+                "heartbeat_gap_max_s", "recoveries", "drains", "grows",
+                "dead", "stragglers", "chunks_migrated", "bytes_migrated",
+                "recovery_stall_s")},
+            "checkpoint": rep.get("checkpoint"),
+            "faults": rep.get("faults"), "integrity": rep["integrity"]}
+        return got, rep
+
+    try:
+        base, rep = run("unfaulted", want, "run_reference",
+                        heartbeat_timeout_s=30.0)
+        del want
+        check(rep["epochs"] == 0, f"the unfaulted elastic run changed the "
+              f"world {rep['epochs']} times: {rep['elastic']}")
+        gap = rep["elastic"]["heartbeat_gap_max_s"]
+        kill_timeout = max(0.5, 3 * gap)
+        check(kill_timeout < 0.8 * straggler_gap, f"the longest heartbeat "
+              f"gap ({gap} s) leaves no timeout that tells a dead rank "
+              f"from a straggler (gap {straggler_gap} s)")
+        freeze_s = 2 * straggler_gap
+        out.update(kill_timeout_s=kill_timeout, freeze_s=freeze_s,
+                   freeze_timeout_s=2 * freeze_s)
+        faulted = {
+            "kill_revive_ckpt": dict(kill=(2, 1), revive_at=(2, 2),
+                                     ckpt_dir=ckpt_dir,
+                                     heartbeat_timeout_s=kill_timeout),
+            "kill_replicate": dict(kill=(2, 1), replicate=True,
+                                   heartbeat_timeout_s=kill_timeout),
+            "freeze": dict(freeze=(1, 1, freeze_s),
+                           heartbeat_timeout_s=2 * freeze_s)}
+        for name, knobs in faulted.items():
+            got, rep = run(name, base, "the unfaulted run", **knobs)
+            del got
+            e = rep["elastic"]
+            if name == "freeze":
+                check(e["drains"] >= 1 and e["dead"] == [], f"{name}: {e}")
+            else:
+                check(e["recoveries"] == 1 and e["dead"] == [2]
+                      and e["grows"] == int("revive_at" in knobs),
+                      f"{name}: {e}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del base
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    out.update(peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+               allocated_before_mb=mem0 / 2**20,
+               allocated_after_mb=mem1 / 2**20)
+    check(abs(mem1 - mem0) <= MEMORY_SLACK, f"device memory allocated "
+          f"{mem0} B before the elastic clusters and {mem1} B after")
+    return out
+
+
 def prefill_vs_plain(model, params, tokens, tol: float, flag: str) -> dict:
     """The prefill's final hidden state through the kernel against the same
     prefill with the kernel ``flag`` off (the plain path)."""
@@ -1284,6 +1518,16 @@ def main() -> int:
     print(f"jacobi cluster ({card}): " + json.dumps(dist))
     print(f"send latency ({card}): "
           + json.dumps(send_latency(RuntimeConfig)))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 8: resilience: collectives, residual, elastic runtime ------
+    print(f"allreduce ({card}): "
+          + json.dumps(allreduce_times(RuntimeConfig)))
+    print(f"jacobi residual ({card}): " + json.dumps(
+        residual_phase(ops, run_reference, RuntimeConfig, u0)))
+    print(f"jacobi elastic ({card}): " + json.dumps(
+        elastic_phase(ops, run_reference, RuntimeConfig, u0)))
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],

@@ -154,8 +154,11 @@ class RuntimeConfig:
     # (stats()["progress_errors"] / Rank.stats["handler_errors"])
     strict_errors: bool = False
     # -- distributed layer: heartbeats and the reliability layer --
-    # heartbeat cadence of Rank.enable_heartbeat
+    # heartbeat cadence: each rank's pump emits a 0-byte control-VC
+    # heartbeat to the monitor rank every interval; the elastic
+    # controller declares a rank dead after timeout without one
     heartbeat_interval_s: float = 0.05
+    heartbeat_timeout_s: float = 0.5
     # reliability layer (engaged by Cluster.fault_injector): eager
     # messages, RTS announcements and stream tails are retransmitted with
     # exponential backoff up to send_retries attempts before the send is
@@ -199,10 +202,21 @@ class RuntimeConfig:
     # the bytes are treated as never-arrived (the reliability layer
     # retransmits)
     verify_payloads: bool = True
+    # -- runtime collectives (distributed/collectives_rt.py) --
+    # algorithm cutover: payloads at or below this many bytes run as
+    # eager binomial trees (latency-bound regime), larger ones as
+    # pipelined chunked rings (bandwidth-bound). Matches eager_threshold
+    # by default — below it every ring hop would be an eager message
+    # anyway, so the ring's pipelining buys nothing
+    coll_ring_cutover_bytes: int = 64 << 10
     # cap on the credit window of op="reduce" rendezvous streams
     # (Rank.reduce_into): every in-flight reduce chunk is an add pending
     # on the consumer device's transfer lane. 0 = uncapped
     coll_max_inflight_chunks: int = 4
+    # collective tag namespace: tags (which scope every stream and
+    # handler invocation to one collective op) wrap at this size, so at
+    # most this many collectives may be in flight per group at once
+    coll_tag_space: int = 1 << 12
     # -- concurrency sanitizer (core/sanitizer.py) --
     # sanitize: install the process-global RuntimeSanitizer before this
     # runtime builds its locks — lock-order tracking, lane-discipline

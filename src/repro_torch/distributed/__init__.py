@@ -1,6 +1,11 @@
 """Distributed layer: the message engine (handlers, mobile objects, the
-in-process ``Cluster`` of ranks) and the over-decomposition planner. The
-runtime collectives and elasticity follow (ROADMAP Queue 1)."""
+in-process ``Cluster`` of ranks), the runtime collectives over its streams,
+the elastic runtime (failure and straggler handling, chunk migration) and
+the over-decomposition planner."""
+from repro_torch.distributed.collectives_rt import (  # noqa: F401
+    CollectiveAborted, CollectiveGroup)
+from repro_torch.distributed.elastic import (ElasticController,  # noqa: F401
+                                             ElasticRuntime, WorkerHealth)
 from repro_torch.distributed.handlers import (handler,  # noqa: F401
                                               registered, resolve)
 from repro_torch.distributed.messaging import (Cluster,  # noqa: F401

@@ -85,6 +85,8 @@ import collections
 import contextlib
 import dataclasses
 import itertools
+import json
+import os
 import queue
 import random
 import threading
@@ -1667,6 +1669,9 @@ class FaultInjector:
     - ``fail_task``: plant deterministic kernel faults in a rank's local
       Runtime — the next ``times`` launches raise ``InjectedTaskFault``
       (retried up to ``RuntimeConfig.task_retries``, then surfaced).
+    - ``corrupt_checkpoint_leaf``: flip one seeded bit in a committed
+      checkpoint leaf's ``.npy`` data section on disk — the silent
+      storage-corruption case ``Checkpointer`` digests guard against.
 
     All decisions come from one seeded ``random.Random`` under a lock;
     ``stats`` counts every injected event."""
@@ -1680,7 +1685,7 @@ class FaultInjector:
         self.links: Dict[Tuple[int, int], Dict[str, float]] = {}
         self.stats = {"dropped": 0, "duplicated": 0, "delayed": 0,
                       "kills": 0, "freezes": 0, "corrupted": 0,
-                      "task_faults": 0}
+                      "ckpt_corrupted": 0, "task_faults": 0}
 
     # -- fault controls -------------------------------------------------
     def kill_rank(self, rank: int) -> None:
@@ -1783,6 +1788,34 @@ class FaultInjector:
                 self.stats["corrupted"] += 1
                 return dataclasses.replace(msg, payload=flipped)
             return msg
+
+    def corrupt_checkpoint_leaf(self, directory: str, step: int,
+                                key: str) -> None:
+        """Flip one seeded bit in the data section of a committed
+        checkpoint leaf's ``.npy`` file — silent storage corruption, the
+        case the manifest digests exist to catch. The npy header is left
+        intact (np.load must still parse shape/dtype): the bit lies in the
+        data section, which starts where the header ends."""
+        step_dir = os.path.join(directory, f"step_{step}")
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        path = os.path.join(step_dir, manifest["leaves"][key]["file"])
+        size = os.path.getsize(path)
+        fmt = np.lib.format
+        with open(path, "rb") as f:
+            if fmt.read_magic(f) == (1, 0):
+                fmt.read_array_header_1_0(f)
+            else:
+                fmt.read_array_header_2_0(f)
+            nbytes = size - f.tell()
+        with self._lock:
+            bit = self.rng.randrange(max(1, nbytes) * 8)
+            self.stats["ckpt_corrupted"] += 1
+        with open(path, "r+b") as f:
+            f.seek((size - nbytes) + (bit >> 3))
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ (1 << (bit & 7))]))
 
     def fail_task(self, rank: int, times: int = 1) -> None:
         """Plant ``times`` kernel faults in ``rank``'s local Runtime: the
@@ -1898,6 +1931,7 @@ class Cluster:
         # fault injection (None = perfect network, zero overhead on the
         # delivery path beyond one attribute check)
         self.faults: Optional[FaultInjector] = None
+        self._elastic = None       # bound by ElasticRuntime
         self.ranks = [Rank(self, r, rt_config) for r in range(n_ranks)]
 
     @property

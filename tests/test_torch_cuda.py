@@ -592,6 +592,83 @@ def test_direct_put_between_cards(cuda):
         assert r1.stats["chunks_in"] == 16 and r1.stats["bytes_staged"] == 0
 
 
+def test_ring_allreduce_bit_exact_on_the_card(cuda):
+    """Members' tensors on the card: ring segments and accumulators are
+    objects on the card, every hop's add an ``add_`` on the consumer's
+    transfer stream; the result equals the numpy oracle bit for bit."""
+    from repro_torch.distributed import Cluster, CollectiveGroup
+    resident = []
+
+    class Probe(CollectiveGroup):
+        def _cleanup(self, op):
+            for m, keys in op["keys"].items():
+                for key in keys:
+                    obj = self.cluster.ranks[m].objects.get(key)
+                    if obj is not None:
+                        resident.append(obj.resident_devices())
+            super()._cleanup(op)
+
+    cfg = RuntimeConfig(memory_capacity=1 << 30, chunk_bytes=64 << 10)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    with Cluster(4, cfg) as c:
+        group = Probe(c)
+        for dtype in (torch.float32, torch.int32):
+            ins = [(torch.randn(300_001, generator=g, device=cuda) * 100)
+                   .to(dtype) for _ in range(4)]
+            outs = group.allreduce(ins)
+            oracle = group.oracle_allreduce(ins)
+            for out, want in zip(outs, oracle):
+                assert isinstance(out, np.ndarray)
+                np.testing.assert_array_equal(out, want)
+        reduced = sum(r.stats["coll_bytes_reduced"] for r in c.ranks)
+    assert reduced > 0
+    assert resident and all(resident), resident
+
+
+def test_elastic_kill_revive_on_the_card(cuda, tmp_path):
+    """``run_cluster_elastic`` with slabs on the card: a rank killed after
+    iteration 1 and revived after 2, its slabs restored from the
+    checkpoint onto the card; bit for bit the unfaulted run and
+    ``run_reference``, one stencil launch per slab and iteration."""
+    from repro_torch.distributed import Cluster
+    u0 = np.random.default_rng(10).random((48, 32, 40)).astype(np.float32)
+    cfg = RuntimeConfig(memory_capacity=1 << 30, eager_threshold=16 << 10,
+                        chunk_bytes=64 << 10)
+    outs, launches = [], []
+    for knobs in ({}, dict(kill=(2, 1), revive_at=(2, 2),
+                           ckpt_dir=str(tmp_path))):
+        n = LAUNCHES["jacobi3d_faces"]
+        with Cluster(3, cfg) as c:
+            # dead after 0.8 s without a beat, before the 1.25 s that
+            # would make it a straggler (0.05 s beats, factor 25)
+            out, rep = app.run_cluster_elastic(
+                u0, 4, c, slabs=6, heartbeat_interval_s=0.05,
+                heartbeat_timeout_s=0.8, **knobs)
+        outs.append(out)
+        launches.append(LAUNCHES["jacobi3d_faces"] - n)
+    np.testing.assert_array_equal(outs[0], app.run_reference(u0, 4))
+    np.testing.assert_array_equal(outs[1], outs[0])
+    assert launches == [24, 24]
+    assert rep["elastic"]["recoveries"] == 1 and rep["elastic"]["grows"] >= 1
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import Checkpointer
+    g = torch.Generator(device=cuda).manual_seed(4)
+    state = {"w": torch.randn(64, 32, generator=g, device=cuda),
+             "h": [torch.randn(16, generator=g, device=cuda)
+                   .to(torch.bfloat16)]}
+    ckpt = Checkpointer(str(tmp_path), async_save=True)
+    ckpt.save(0, state)
+    ckpt.wait()
+    got = ckpt.restore(0, state, device=cuda)
+    assert got["w"].device.type == "cuda" and got["w"].dtype == torch.float32
+    assert got["h"][0].device.type == "cuda"
+    assert got["h"][0].dtype == torch.bfloat16
+    assert torch.equal(got["w"], state["w"])
+    assert torch.equal(got["h"][0], state["h"][0])
+
+
 def _wrapper_cases(dev):
     g = torch.Generator(device=dev).manual_seed(12)
 

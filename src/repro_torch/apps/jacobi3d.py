@@ -1,6 +1,6 @@
 """Jacobi3D proxy application (paper §4.3–4.4).
 
-Four execution modes on the same numerics:
+Five execution modes on the same numerics:
 
   run_reference   — single-tensor plain PyTorch oracle
   run_tasked      — PREMA-style: the domain is over-decomposed into mobile
@@ -22,10 +22,14 @@ Four execution modes on the same numerics:
                     detect → shrink → restore → resume loop live. The run
                     survives losing a rank mid-flight with a bounded stall
                     and NO restart, and the answer stays bit-identical.
+  run_spmd        — the SPMD production version: the domain sharded along
+                    x over a mesh axis, each step a ``shard_map`` whose
+                    shards exchange their x faces by ``halo_exchange_1d``
+                    and update their slabs; ``bulk_sync`` holds every
+                    update until every exchange is done (the MPI+CUDA
+                    baseline schedule the paper compares against).
 
-The SPMD mode of the JAX package is not ported yet.
-
-Every update task computes ``stencil_update``, which on a CUDA tensor is the
+Every update computes ``stencil_update``, which on a CUDA tensor is the
 face-taking Jacobi kernel (``repro_torch.kernels.jacobi3d``): the padded
 copy of a chunk is never built.
 """
@@ -41,11 +45,14 @@ import torch
 from repro_torch.convert import to_numpy, to_torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.core import Runtime
+from repro_torch.distributed import spmd
+from repro_torch.distributed.collectives import halo_exchange_1d
 from repro_torch.distributed.collectives_rt import CollectiveGroup
 from repro_torch.distributed.elastic import ElasticRuntime, forget
 from repro_torch.distributed.handlers import handler
 from repro_torch.distributed.mobile_object import OwnerMap, block_distribution
 from repro_torch.distributed.overdecomp import plan_decomposition
+from repro_torch.distributed.spmd import Mesh
 from repro_torch.kernels import ops
 
 
@@ -694,3 +701,45 @@ def run_cluster_elastic(u0: np.ndarray, iters: int, cluster, *,
     for i, (lo, hi) in enumerate(bounds):
         out[lo:hi] = ranks[owner.owner(i)].objects[("jslab", i)].get()
     return out, report
+
+
+# ---------------------------------------------------------------------------
+# SPMD version (shard_map + ppermute over the single-controller mesh)
+# ---------------------------------------------------------------------------
+
+def make_spmd_step(mesh: Mesh, axis: str = "data", bulk_sync: bool = False):
+    """One step over ``u`` sharded along dim 0 of [X,Y,Z] over ``axis``:
+    ``Sharded`` in, ``Sharded`` out. Each shard exchanges its x faces with
+    its neighbours and updates its slab; its y and z faces are zeros,
+    allocated at its first step. bulk_sync=True holds every shard's update
+    until every shard's exchange has completed — the MPI+CUDA baseline
+    schedule; otherwise a shard's update waits only on its own two
+    incoming faces."""
+    zeros: Dict[Tuple[int, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def local_step(u):
+        lo0, hi0 = halo_exchange_1d(u, axis)
+        if bulk_sync:
+            u, lo0, hi0 = spmd.bulk_barrier(u, lo0, hi0)
+        # each shard's own faces, made on its stream: no shared update
+        me = tuple(spmd.axis_index(a) for a in mesh.axis_names)
+        if me not in zeros:
+            zeros[me] = (u.new_zeros((u.shape[0], u.shape[2])),
+                         u.new_zeros((u.shape[0], u.shape[1])))
+        zy, zz = zeros[me]
+        return stencil_update(u, lo0[0], hi0[0], zy, zy, zz, zz)
+
+    return spmd.shard_map(local_step, mesh, in_specs=spmd.P(axis),
+                          out_specs=spmd.P(axis))
+
+
+def run_spmd(u0: np.ndarray, iters: int, mesh: Mesh, axis: str = "data",
+             bulk_sync: bool = False) -> np.ndarray:
+    """``iters`` sweeps of ``u0`` sharded along dim 0 over ``axis`` of
+    ``mesh`` (on its shards' devices)."""
+    step = make_spmd_step(mesh, axis, bulk_sync)
+    u = spmd.device_put(torch.from_numpy(np.ascontiguousarray(u0)), mesh,
+                        spmd.P(axis))
+    for _ in range(iters):
+        u = step(u)
+    return to_numpy(u.full("cpu"))

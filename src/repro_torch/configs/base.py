@@ -4,9 +4,9 @@
 Every ported architecture has one module in this package exporting
 ``CONFIG`` (the exact published configuration) and ``smoke_config()`` (a
 reduced same-family configuration for CPU tests). The port carries the
-decoder-only configurations its serving path runs (dense global-attention
-stacks and the Mamba-2 SSD stack); the others are still to be ported
-(``ROADMAP.md``).
+decoder-only configurations its serving path runs (dense attention stacks,
+global or local and global, and the Mamba-2 SSD stack); the others are
+still to be ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -129,7 +129,7 @@ def canon(arch_id: str) -> str:
 
 
 # the architectures whose every layer kind the port runs
-PORTED_ARCH_IDS = ("phi4_mini_3_8b", "codeqwen15_7b", "yi_9b",
+PORTED_ARCH_IDS = ("gemma3_27b", "phi4_mini_3_8b", "codeqwen15_7b", "yi_9b",
                    "mamba2_370m")
 
 

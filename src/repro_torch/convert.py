@@ -96,52 +96,72 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-# block layouts the port runs: global attention + MLP, and Mamba-2 SSD
+# block layouts the port runs: attention + MLP, and Mamba-2 SSD
 _BLOCK_KEYS = ({"norm1", "attn", "norm2", "mlp"}, {"norm1", "ssd"})
 _CACHE_KEYS = ({"k", "v"}, {"conv", "state"})
+
+
+def _blocks_of(tree: dict, layouts, what: str, cache: bool) -> dict:
+    """The JAX tree's blocks (``periods``, a tuple of one block per
+    position of the period, and ``rem_{i}``) by their path in the port's
+    tree (``models.transformer.block_paths``): parameter paths, or cache
+    paths where ``cache``."""
+    from repro_torch.models.transformer import block_paths
+    periods = list(tree.get("periods", ()))
+    rems = sorted((k for k in tree if k.startswith("rem_")),
+                  key=lambda k: int(k[4:]))
+    blocks = periods + [tree[k] for k in rems]
+    for block in blocks:
+        if set(block) not in layouts:
+            raise NotImplementedError(
+                f"{what} layout {sorted(block)} is not ported; the port runs "
+                f"{[sorted(k) for k in layouts]} (see ROADMAP.md)")
+    paths = block_paths(len(periods), len(rems))
+    return {p[1] if cache else p[0]: b for p, b in zip(paths, blocks,
+                                                       strict=True)}
+
+
+def _conv(node, device):
+    if isinstance(node, dict):
+        return {k: _conv(v, device) for k, v in node.items()}
+    return to_torch(np.asarray(node), device)
 
 
 def lm_from_jax(tree: dict, device="cpu"):
     """The port's weights (a ``ParamTree``) of a JAX decoder-only LM.
 
     ``tree`` is the JAX package's ``unbox``ed parameter tree with numpy
-    leaves: ``embed``, ``final_norm``, ``unembed`` (absent when tied) and
-    ``periods``, a one-element tuple (the period of these stacks is one
-    layer) whose block leaves carry the leading layer axis: ``norm1``,
-    ``attn``, ``norm2``, ``mlp`` for a dense block, ``norm1`` and ``ssd``
-    (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``, ``dt_bias``,
-    ``norm``, ``out_proj``) for an SSD block. Names and layouts map one to
-    one; values keep their dtype."""
-    from repro_torch.models.transformer import ParamTree
-    extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"})
-    if extra or len(tree["periods"]) != 1:
+    leaves: ``embed``, ``final_norm``, ``unembed`` (absent when tied),
+    ``periods``, a tuple of one block per position of the layer pattern
+    whose leaves carry the leading period axis, and ``rem_{i}`` blocks.
+    Blocks are ``norm1``, ``attn``, ``norm2``, ``mlp`` for attention,
+    ``norm1`` and ``ssd`` (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``,
+    ``D``, ``dt_bias``, ``norm``, ``out_proj``) for SSD. Names and layouts
+    map one to one; values keep their dtype."""
+    from repro_torch.models.transformer import ParamTree, put_path
+    extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"}
+                   - {k for k in tree if k.startswith("rem_")})
+    if extra:
         raise NotImplementedError(
-            f"only one-layer periods convert (found {extra} and "
-            f"{len(tree['periods'])} period blocks); see ROADMAP.md")
-    block = tree["periods"][0]
-    if set(block) not in _BLOCK_KEYS:
-        raise NotImplementedError(
-            f"block layout {sorted(block)} is not ported; the port runs "
-            f"{[sorted(k) for k in _BLOCK_KEYS]} (see ROADMAP.md)")
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return to_torch(np.asarray(node), device)
-
-    params = {k: conv(tree[k]) for k in ("embed", "final_norm", "unembed")
-              if k in tree}
-    params["layers"] = conv(block)
+            f"parameters {extra} are not ported (see ROADMAP.md)")
+    params = {k: _conv(tree[k], device)
+              for k in ("embed", "final_norm", "unembed") if k in tree}
+    for path, block in _blocks_of(tree, _BLOCK_KEYS, "block",
+                                  cache=False).items():
+        put_path(params, path, _conv(block, device))
     return ParamTree(params)
 
 
 def cache_from_jax(tree: dict, device="cpu") -> dict:
-    """The port's cache from the JAX package's cache tree
-    ``{"periods": (block,)}``: ``{"k", "v"}: [L, B, T, KH, D]`` for a KV
-    cache, ``{"conv": [L, B, W-1, C], "state": [L, B, H, P, N]}`` for an SSD
-    cache."""
-    (block,) = tree["periods"]
-    if set(block) not in _CACHE_KEYS:
-        raise NotImplementedError(
-            f"cache layout {sorted(block)} is not ported (see ROADMAP.md)")
-    return {k: to_torch(np.asarray(block[k]), device) for k in sorted(block)}
+    """The port's cache from the JAX package's cache tree (``periods``, a
+    tuple of one block per position, and ``rem_{i}``): for a one-layer
+    period ``{"k", "v"}: [L, B, T, KH, D]`` for a KV cache, ``{"conv": [L,
+    B, W-1, C], "state": [L, B, H, P, N]}`` for an SSD cache; for a longer
+    one the same blocks under ``periods`` ("0", "1", ...) and
+    ``rem_{i}``."""
+    from repro_torch.models.transformer import put_path
+    out: dict = {}
+    for path, block in _blocks_of(tree, _CACHE_KEYS, "cache",
+                                  cache=True).items():
+        put_path(out, path, _conv(block, device))
+    return out

@@ -1,0 +1,474 @@
+"""Single-controller SPMD: the port's stand-in for ``jax.sharding.Mesh``,
+``jax.shard_map`` and the ``jax.lax`` collectives (``ppermute``, ``psum``,
+``pmax``, ``axis_index``, ``axis_size``).
+
+A ``Mesh`` names the device of each shard; a device may repeat, so one card
+can hold several shards, as the JAX tests hold forced host devices.
+``shard_map(fn, mesh, in_specs, out_specs)`` splits each input along the
+dims its spec names, runs ``fn`` once per shard and returns the outputs as
+``Sharded`` values (one tensor per shard, the global array ``full()``
+joins). Each shard's ``fn`` runs in its own thread, with its mesh
+coordinates bound thread-locally, so the body calls the collectives with
+JAX's signatures (``ppermute(x, axis_name, perm)``). The threads are the
+mesh's own, started at its first ``shard_map`` and kept for its life.
+
+Ordering on a card. Each shard has one CUDA stream of its own, made with
+the mesh, and runs its body on it. A collective is a rendezvous of the
+shards' threads: each posts its tensor with an event recorded on its
+stream after the tensor's producer, and each receiver's stream waits on the
+events of the peers it reads, then copies their tensors onto its device. No
+shard waits on the device as a whole, nor on a peer it does not read. A
+``Sharded`` output keeps each shard's tensor on its stream with the event
+recorded at the end of its body; the next ``shard_map`` over the same mesh
+consumes it on the same stream, so consecutive steps synchronise the shards
+only where a collective does. ``full()`` waits on the events it copies
+from.
+
+Specs. ``P`` stands for ``PartitionSpec``: one entry per leading dim, each
+``None`` (replicated), a mesh axis name or a tuple of them (major first).
+``in_specs`` is one ``P`` (one argument) or a tuple of them, and likewise
+``out_specs`` for the body's results. An output replicated along an axis
+is taken from the shard at coordinate 0 of it.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import queue
+import threading
+import weakref
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.core import sanitizer
+
+AxisNames = Union[None, str, Tuple[str, ...]]
+
+# seconds a shard waits at a collective for its peers
+COLLECTIVE_TIMEOUT_S = 300.0
+
+
+class P(tuple):
+    """A partition spec: ``P("data")``, ``P(None, "data")``,
+    ``P(("pod", "data"), "model")``."""
+
+    def __new__(cls, *parts: AxisNames):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+class Mesh:
+    """Shards laid out over named axes. ``devices`` lists the device of each
+    shard in row-major order of ``shape``; a device may repeat."""
+
+    def __init__(self, devices: Sequence, shape: Sequence[int],
+                 axis_names: Sequence[str]):
+        self.devices = [torch.device(d) for d in devices]
+        shape = tuple(int(n) for n in shape)
+        self.axis_names = tuple(axis_names)
+        if len(shape) != len(self.axis_names) or \
+                len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"mesh shape {shape} and axes {self.axis_names} "
+                             f"do not match")
+        if math.prod(shape) != len(self.devices) or min(shape, default=1) < 1:
+            raise ValueError(f"mesh shape {shape} needs {math.prod(shape)} "
+                             f"devices, got {len(self.devices)}")
+        # insertion-ordered like jax's Mesh.shape
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
+        self.size = len(self.devices)
+        self.streams = [torch.cuda.Stream(device=d) if d.type == "cuda"
+                        else None for d in self.devices]
+        self._workers: Optional[_Workers] = None
+        self._lock = sanitizer.make_lock("Mesh._lock")
+
+    def run(self, job: Callable[[int], None]) -> None:
+        """``job(i)`` for every shard ``i``, each in the shard's worker
+        thread; returns when all have returned. Calls from several threads
+        take turns (interleaved, their shards would wait at each other's
+        collectives). The workers start at the first call and stop when
+        the mesh is collected."""
+        with self._lock:
+            if self._workers is None:
+                self._workers = _Workers(self.size)
+                weakref.finalize(self, self._workers.close)
+            self._workers.run(job)
+
+    def coords(self, index: int) -> Dict[str, int]:
+        """The axis coordinates of shard ``index``."""
+        out = {}
+        for name in reversed(self.axis_names):
+            index, out[name] = divmod(index, self.shape[name])
+        return {name: out[name] for name in self.axis_names}
+
+    def index(self, coords: Dict[str, int]) -> int:
+        """The shard at ``coords``."""
+        i = 0
+        for name in self.axis_names:
+            i = i * self.shape[name] + coords[name]
+        return i
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, {[str(d) for d in self.devices]})"
+
+
+# ---------------------------------------------------------------------------
+# Sharded values
+# ---------------------------------------------------------------------------
+
+def _axes(entry: AxisNames) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _check_spec(mesh: Mesh, spec: P, ndim: int) -> None:
+    if not isinstance(spec, P):
+        raise TypeError(f"a spec is a P(...), got {spec!r}")
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the value's "
+                         f"{ndim} dims")
+    used = [a for entry in spec for a in _axes(entry)]
+    if len(set(used)) != len(used) or any(a not in mesh.shape for a in used):
+        raise ValueError(f"spec {spec} names an axis twice or one not in "
+                         f"{mesh}")
+
+
+def _blocks(mesh: Mesh, spec: P, index: int,
+            shape: Sequence[int]) -> Tuple[slice, ...]:
+    """The region of a global value of ``shape`` that shard ``index``
+    holds under ``spec``."""
+    coords = mesh.coords(index)
+    region = []
+    for dim, entry in enumerate(spec):
+        axes = _axes(entry)
+        n = math.prod(mesh.shape[a] for a in axes)
+        if shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide "
+                             f"over {axes} ({n} shards)")
+        block = 0
+        for a in axes:
+            block = block * mesh.shape[a] + coords[a]
+        size = shape[dim] // n
+        region.append(slice(block * size, (block + 1) * size))
+    return tuple(region)
+
+
+class Sharded:
+    """A global value held as one tensor per shard of ``mesh`` under
+    ``spec`` (a ``jax.Array`` with a ``NamedSharding``). ``events[i]`` is
+    recorded on shard ``i``'s stream after its tensor was written (``None``
+    on the CPU)."""
+
+    def __init__(self, mesh: Mesh, spec: P, shards: List[torch.Tensor],
+                 events: List[Optional[torch.cuda.Event]]):
+        self.mesh, self.spec = mesh, spec
+        self.shards, self.events = shards, events
+        shape = list(shards[0].shape)
+        for dim, entry in enumerate(spec):
+            shape[dim] *= math.prod(mesh.shape[a] for a in _axes(entry))
+        self.shape = tuple(shape)
+        self.dtype = shards[0].dtype
+
+    def full(self, device=None) -> torch.Tensor:
+        """The global value on ``device`` (shard 0's by default)."""
+        device = torch.device(device) if device is not None \
+            else self.shards[0].device
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        named = {a for entry in self.spec for a in _axes(entry)}
+        for i, (t, ev) in enumerate(zip(self.shards, self.events)):
+            if any(c for a, c in self.mesh.coords(i).items()
+                   if a not in named):
+                continue                      # a replica of shard at 0
+            if ev is not None:
+                stream = torch.cuda.current_stream(t.device)
+                stream.wait_event(ev)
+                t.record_stream(stream)
+            out[_blocks(self.mesh, self.spec, i, self.shape)].copy_(t)
+        return out
+
+
+def device_put(x: torch.Tensor, mesh: Mesh, spec: P) -> Sharded:
+    """``x`` split over ``mesh`` under ``spec``, each block on its shard's
+    device (a view where ``x`` already lies there)."""
+    _check_spec(mesh, spec, x.dim())
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        shards.append(x[_blocks(mesh, spec, i, x.shape)].to(dev))
+    events = []
+    for dev, stream, t in zip(mesh.devices, mesh.streams, shards):
+        if stream is None:
+            events.append(None)
+            continue
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        t.record_stream(stream)
+        events.append(ev)
+    return Sharded(mesh, spec, shards, events)
+
+
+# ---------------------------------------------------------------------------
+# shard_map
+# ---------------------------------------------------------------------------
+
+class _Workers:
+    """One daemon thread per shard, fed jobs by a queue each: a call costs
+    a wake-up per shard, not a thread's start and join."""
+
+    def __init__(self, n: int):
+        self.queues = [queue.SimpleQueue() for _ in range(n)]
+        self.threads = [threading.Thread(target=self._loop, args=(q, i),
+                                         daemon=True, name=f"shard{i}")
+                        for i, q in enumerate(self.queues)]
+        for t in self.threads:
+            t.start()
+
+    @staticmethod
+    def _loop(q: queue.SimpleQueue, i: int) -> None:
+        while True:
+            job = q.get()
+            if job is None:
+                return
+            job(i)
+
+    def run(self, job: Callable[[int], None]) -> None:
+        done = threading.Barrier(len(self.queues) + 1)
+
+        def task(i: int) -> None:
+            try:
+                job(i)
+            finally:
+                done.wait()
+
+        for q in self.queues:
+            q.put(task)
+        done.wait()
+
+    def close(self) -> None:
+        """Stop the workers and wait for them: a worker still running when
+        the interpreter tears down would abort the process."""
+        for q in self.queues:
+            q.put(None)
+        for t in self.threads:
+            if t is not threading.current_thread():
+                t.join(timeout=COLLECTIVE_TIMEOUT_S)
+
+
+class _Group:
+    """The rendezvous of one ``shard_map`` call's shards. Collective ``k``
+    posts into ``slots[k % 2]``: a shard can post collective ``k + 2`` only
+    after every shard has passed collective ``k + 1``'s barrier, hence
+    after every shard has read what ``k`` posted."""
+
+    def __init__(self, n: int):
+        # a body that skips a collective its peers make leaves them
+        # waiting: they fail after the timeout instead of hanging
+        self.barrier = threading.Barrier(n, timeout=COLLECTIVE_TIMEOUT_S)
+        self.slots = [[None] * n, [None] * n]
+
+
+class _Shard(threading.local):
+    mesh: Optional[Mesh] = None
+
+
+_CTX = _Shard()
+
+
+def _ctx():
+    if _CTX.mesh is None:
+        raise NameError("unbound axis name: SPMD collectives run inside "
+                        "shard_map")
+    return _CTX
+
+
+class _Posted:
+    """A tensor a shard posts to a collective, with the event its readers
+    wait on."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+        self.event = None
+        if t.device.type == "cuda":
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
+
+
+def _exchange(t: torch.Tensor) -> List[_Posted]:
+    """Post ``t``; after every shard of the call has posted, return what
+    each posted (indexed by shard)."""
+    ctx = _ctx()
+    slots = ctx.group.slots[ctx.count % 2]
+    ctx.count += 1
+    slots[ctx.index] = _Posted(t)
+    ctx.group.barrier.wait()
+    return list(slots)
+
+
+def _receive(posted: _Posted, device: torch.device) -> torch.Tensor:
+    """A copy of a peer's posted tensor on ``device``, ordered after the
+    peer's producer by its event and before this shard's later work."""
+    src = posted.t
+    if posted.event is None:
+        return src.to(device, copy=True)
+    torch.cuda.current_stream(device).wait_event(posted.event)
+    out = torch.empty_like(src, device=device)
+    # a copy between cards runs on the source card's current stream, which
+    # torch orders after this shard's stream and before its later work
+    out.copy_(src, non_blocking=True)
+    src.record_stream(torch.cuda.current_stream(src.device))
+    return out
+
+
+def _peer(axis_name: str, coord: int) -> int:
+    """The shard at ``coord`` along ``axis_name`` and this shard's
+    coordinates along every other axis."""
+    ctx = _ctx()
+    coords = dict(ctx.coords)
+    coords[axis_name] = coord
+    return ctx.mesh.index(coords)
+
+
+def axis_index(axis_name: str) -> int:
+    """This shard's coordinate along ``axis_name``."""
+    ctx = _ctx()
+    if axis_name not in ctx.coords:
+        raise NameError(f"unbound axis name: {axis_name}")
+    return ctx.coords[axis_name]
+
+
+def axis_size(axis_name: str) -> int:
+    axis_index(axis_name)
+    return _ctx().mesh.shape[axis_name]
+
+
+def ppermute(x: torch.Tensor, axis_name: str,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Shard ``src`` sends ``x`` to ``dst`` along ``axis_name`` for each
+    ``(src, dst)`` of ``perm``; a shard that no pair names as its ``dst``
+    gets zeros. A source may send to several shards."""
+    me = axis_index(axis_name)
+    n = axis_size(axis_name)
+    src_of: Dict[int, int] = {}
+    for s, d in perm:
+        if not (0 <= s < n and 0 <= d < n) or d in src_of:
+            raise ValueError(f"bad permutation {list(perm)} over {n} shards")
+        src_of[d] = s
+    posted = _exchange(x)
+    if me not in src_of:
+        return torch.zeros_like(x)
+    return _receive(posted[_peer(axis_name, src_of[me])], x.device)
+
+
+def _reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
+    """``op`` over the shards along ``axis_name``, folded in coordinate
+    order on every shard, so that all get the same bits."""
+    n = axis_size(axis_name)
+    posted = _exchange(x)
+    me = axis_index(axis_name)
+    acc = None
+    for c in range(n):
+        v = x if c == me else _receive(posted[_peer(axis_name, c)], x.device)
+        acc = v.clone() if acc is None else op(acc, v)
+    return acc
+
+
+def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    return _reduce(x, axis_name, torch.add)
+
+
+def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    return _reduce(x, axis_name, torch.maximum)
+
+
+def bulk_barrier(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Every shard's work up to ``xs`` completes before any shard's work
+    after the call: each shard's stream waits on every shard's event. The
+    bulk-synchronous schedule, where JAX's body uses
+    ``optimization_barrier``. Returns ``xs``."""
+    ctx = _ctx()
+    posted = _exchange(xs[0])
+    stream = ctx.mesh.streams[ctx.index]
+    if stream is not None:
+        for p in posted:
+            stream.wait_event(p.event)
+    return xs
+
+
+def _split(arg, spec: P, mesh: Mesh) -> List[torch.Tensor]:
+    """Each shard's block of one input, on its device."""
+    if isinstance(arg, Sharded):
+        if arg.mesh is mesh and tuple(arg.spec) == tuple(spec):
+            return list(arg.shards)
+        arg = arg.full()
+    return device_put(arg, mesh, spec).shards
+
+
+def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
+    """``fn`` applied to each shard's blocks of the inputs, in a thread per
+    shard; returns a ``Sharded`` per output (one, or a tuple as
+    ``out_specs`` is)."""
+    single_in = isinstance(in_specs, P)
+    single_out = isinstance(out_specs, P)
+    ins = (in_specs,) if single_in else tuple(in_specs)
+    outs = (out_specs,) if single_out else tuple(out_specs)
+
+    def run(*args):
+        if _CTX.mesh is not None:
+            raise RuntimeError("shard_map does not nest")
+        if len(args) != len(ins):
+            raise TypeError(f"shard_map body takes {len(ins)} arguments, "
+                            f"got {len(args)}")
+        per_arg = [_split(a, s, mesh) for a, s in zip(args, ins)]
+        # each shard's stream starts after the caller's work on its device
+        for dev, stream in zip(mesh.devices, mesh.streams):
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(dev))
+        group = _Group(mesh.size)
+        results: List = [None] * mesh.size
+        errors: List[BaseException] = []
+
+        def body(i: int) -> None:
+            dev, stream = mesh.devices[i], mesh.streams[i]
+            _CTX.mesh, _CTX.index, _CTX.coords = mesh, i, mesh.coords(i)
+            _CTX.group, _CTX.count = group, 0
+            try:
+                with contextlib.ExitStack() as stack:
+                    if stream is not None:
+                        stack.enter_context(torch.cuda.device(dev))
+                        stack.enter_context(torch.cuda.stream(stream))
+                        for blocks in per_arg:
+                            blocks[i].record_stream(stream)
+                    out = fn(*(blocks[i] for blocks in per_arg))
+                    out = (out,) if single_out else tuple(out)
+                    if len(out) != len(outs):
+                        raise ValueError(f"shard_map body returned "
+                                         f"{len(out)} values for "
+                                         f"{len(outs)} out_specs")
+                    ev = None
+                    if stream is not None:
+                        ev = torch.cuda.Event()
+                        ev.record(stream)
+                    results[i] = (out, ev)
+            except BaseException as e:   # re-raised by the caller below
+                errors.append(e)
+                group.barrier.abort()    # wake peers held at a collective
+            finally:
+                _CTX.mesh = None
+
+        mesh.run(body)
+        if errors:
+            first = next((e for e in errors
+                          if not isinstance(e, threading.BrokenBarrierError)),
+                         errors[0])
+            raise first
+        values = []
+        for k, spec in enumerate(outs):
+            shards = [results[i][0][k] for i in range(mesh.size)]
+            _check_spec(mesh, spec, shards[0].dim())
+            values.append(Sharded(mesh, spec, shards,
+                                  [results[i][1] for i in range(mesh.size)]))
+        return values[0] if single_out else tuple(values)
+
+    return run

@@ -5,9 +5,12 @@
         --device cpu --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
+        --smoke --device cpu --prompt-len 40 --gen 24
 
-Serves the dense global-attention configurations and mamba2-370m. Runs on
-the CUDA card unless ``--device cpu`` is given.
+Serves the dense attention configurations (global, or gemma3-27b's local
+and global layers) and mamba2-370m. Runs on the CUDA card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -24,12 +27,13 @@ from repro_torch.serve import make_decode_step, make_prefill_step
 
 class Engine:
     """Minimal batched engine: one prefill, then token-by-token decode.
-    A KV cache is allocated at capacity ``[L, B, max_len, KH, D]``; the
-    prefill writes slots ``[0, S)`` and each decode step writes slot
-    ``lengths[b]``, all in place. An SSD stack's cache (``conv``
-    ``[L, B, W-1, C]`` and ``state`` ``[L, B, H, P, N]``) does not grow
-    with length: the prefill and every decode step overwrite it in
-    place."""
+    A global layer's KV cache is allocated at capacity ``[B, max_len, KH,
+    D]`` (stacked over layers); the prefill writes slots ``[0, S)`` and
+    each decode step writes slot ``lengths[b]``, all in place. A local
+    layer's cache is a ring of ``min(window, max_len)`` slots written at
+    ``position % slots``. An SSD stack's cache (``conv`` ``[L, B, W-1, C]``
+    and ``state`` ``[L, B, H, P, N]``) does not grow with length: the
+    prefill and every decode step overwrite it in place."""
 
     def __init__(self, model, params, batch: int, max_len: int):
         self.model = model

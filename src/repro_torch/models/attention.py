@@ -1,17 +1,24 @@
-"""Attention: GQA projections and the global-attention execution paths
+"""Attention: GQA projections and the execution paths
 (``repro/models/attention.py`` at the same path).
 
 - ``flash_attention``: blockwise online-softmax attention in plain torch
   (the JAX package's scan over KV blocks); never materializes the full
   [S, T] score matrix.
 - ``flash_attention_gqa`` (``kernels/flash_attention.py``): the hand-written
-  CUDA kernel that replaces the Pallas one, taken for causal self-attention
-  when ``use_kernel`` is set, as ``use_pallas`` routes ``_pallas_flash``.
-- ``decode_attention``: one new token against a KV cache, plain torch (the
-  JAX package computes it outside any Pallas kernel too).
+  CUDA kernel that replaces the Pallas one, taken for causal global
+  self-attention when ``use_kernel`` is set, as ``use_pallas`` routes
+  ``_pallas_flash``.
+- ``window_attention``: exact sliding-window attention via block-banded
+  computation (each query block attends to itself + previous block), for
+  ``local_attn`` layers.
+- ``decode_attention``: one new token against a KV cache, with a
+  sequence-sharded variant (``seq_sharded_decode``: logsumexp partials
+  combined over a mesh axis of ``distributed.spmd``).
 
-Sliding-window attention, sequence-sharded decode and cross-attention
-(``kv_override``) are not ported yet (ROADMAP.md Queue 1 item 6).
+The JAX package computes the last three outside any Pallas kernel, and so
+they are plain torch here, with float32 scores. Caches for local-attention
+layers are ring buffers of ``min(window, capacity)`` slots. Cross-attention
+(``kv_override``) is not ported yet (ROADMAP.md Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -19,11 +26,14 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
 from repro_torch.kernels.flash_attention import (NEG_INF,
                                                  flash_attention_gqa,
                                                  flash_attention_plain)
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import active_mesh
 
 _NOT_PORTED = "is not ported yet (see ROADMAP.md Queue 1 item 6)"
 
@@ -70,16 +80,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  kv_block=kv_block)
 
 
-def window_attention(*args, **kwargs):
-    raise NotImplementedError(f"window_attention {_NOT_PORTED}")
+# ---------------------------------------------------------------------------
+# Sliding-window attention (exact, block-banded)
+# ---------------------------------------------------------------------------
 
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     positions: torch.Tensor, window: int) -> torch.Tensor:
+    """Causal attention restricted to the last ``window`` positions.
+    q: [B,S,K,G,D], k/v: [B,S,K,D]. Each query block of size W attends to
+    (block-1, block) — exact for window size W. Ragged S is padded
+    internally (padded keys get +inf positions and are never attended)."""
+    b, s, kh, g, d = q.shape
+    w = min(window, s)
+    pad = (-s) % w
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        positions = torch.cat([positions, positions.new_full((pad,), 2**30)])
+    s_orig, s = s, s + pad
+    nb = s // w
 
-def seq_sharded_decode(*args, **kwargs):
-    raise NotImplementedError(f"seq_sharded_decode {_NOT_PORTED}")
+    qr = q.reshape(b, nb, w, kh, g, d)
+    kr = k.reshape(b, nb, w, kh, d)
+    vr = v.reshape(b, nb, w, kh, d)
+    # previous block (zeros for block 0, masked out by positions)
+    kcat = torch.cat([torch.cat([torch.zeros_like(kr[:, :1]), kr[:, :-1]],
+                                dim=1), kr], dim=2)          # [b,nb,2w,kh,d]
+    vcat = torch.cat([torch.cat([torch.zeros_like(vr[:, :1]), vr[:, :-1]],
+                                dim=1), vr], dim=2)
 
+    pos = positions.reshape(nb, w)
+    pprev = torch.cat([torch.full_like(pos[:1], -10**9), pos[:-1]], dim=0)
+    pcat = torch.cat([pprev, pos], dim=1)                     # [nb,2w]
 
-def decode_attention_partial(*args, **kwargs):
-    raise NotImplementedError(f"decode_attention_partial {_NOT_PORTED}")
+    sc = torch.einsum("bnqkgd,bnckd->bnqkgc", qr.float(), kcat.float())
+    sc.mul_(d ** -0.5)
+    valid = (pcat[:, None, :] <= pos[:, :, None]) & \
+            (pos[:, :, None] - pcat[:, None, :] < w)           # [nb,w,2w]
+    sc.masked_fill_(~valid[None, :, :, None, None, :], NEG_INF)
+    p = torch.softmax(sc, dim=-1).to(vcat.dtype)
+    del sc
+    out = torch.einsum("bnqkgc,bnckd->bnqkgd", p.float(), vcat.float())
+    return out.reshape(b, s, kh, g, d).to(q.dtype)[:, :s_orig]
 
 
 # ---------------------------------------------------------------------------
@@ -98,6 +141,70 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, *, valid: torch.Tensor,
+                             axis_name: str) -> torch.Tensor:
+    """Sequence-sharded decode: each shard holds a slice of the KV cache
+    along T; partial attention is combined with a logsumexp reduction over
+    ``axis_name``. Call inside ``spmd.shard_map``. Collective volume:
+    O(B·H·D) per shard instead of gathering O(B·T·K·D) of cache."""
+    d = q.shape[-1]
+    sc = torch.einsum("bkgd,btkd->bkgt", q.float(),
+                      k_cache.float()) * d ** -0.5
+    sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
+    m_glob = spmd.pmax(sc.amax(dim=-1), axis_name)                 # [b,k,g]
+    p = torch.exp(sc - m_glob[..., None])
+    l_loc = p.sum(dim=-1)
+    o_loc = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
+                         v_cache.float())
+    l_glob = spmd.psum(l_loc, axis_name)
+    o_glob = spmd.psum(o_loc, axis_name)
+    out = o_glob / l_glob[..., None].clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
+def seq_sharded_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, *, valid: torch.Tensor,
+                       axis: str = "data") -> torch.Tensor:
+    """``decode_attention`` with the KV cache's seq dim sharded over
+    ``axis`` of the active mesh (``models.sharding.use_sharding``) and the
+    partials combined by logsumexp. q: [B,K,G,D]; cache: [B,T,K,D]; valid:
+    [B,T]. Without a mesh, with ``axis`` of size 1 or absent, or with T
+    not divisible by it, plain ``decode_attention``.
+
+    axis='data' serves long-context decode (batch too small to shard);
+    axis='model' serves kv-head-replicated GQA archs (kv % TP != 0). The
+    batch shards over the other data axes where it divides, the kv heads
+    over 'model' unless it is the seq axis. The result lands on q's
+    device."""
+    mesh = active_mesh()
+    if mesh is None or axis not in mesh.shape or mesh.shape[axis] == 1 \
+            or k_cache.shape[1] % mesh.shape[axis] != 0:
+        return decode_attention(q, k_cache, v_cache, valid=valid)
+    b = q.shape[0]
+    baxes = tuple(a for a in ("pod", "data") if a in mesh.shape and a != axis)
+    bsize = math.prod(mesh.shape[a] for a in baxes)
+    bspec = None
+    if baxes and b % bsize == 0:
+        bspec = baxes if len(baxes) > 1 else baxes[0]
+    msize = mesh.shape.get("model", 1)
+    khead = "model" if (axis != "model" and "model" in mesh.shape
+                        and msize > 1 and q.shape[1] % msize == 0) else None
+
+    def body(qs, ks, vs, vld):
+        return decode_attention_partial(qs, ks, vs, valid=vld,
+                                        axis_name=axis)
+
+    P = spmd.P
+    out = spmd.shard_map(
+        body, mesh,
+        in_specs=(P(bspec, khead), P(bspec, axis, khead),
+                  P(bspec, axis, khead), P(bspec, axis)),
+        out_specs=P(bspec, khead),
+    )(q, k_cache, v_cache, valid)
+    return out.full(q.device)
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +227,7 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                     kind: str, rope_theta: float, n_kv_heads: int, mode: str,
+                    window: int = 0,
                     lengths: Optional[torch.Tensor] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
                     seq_shard_axis: Optional[str] = None,
@@ -128,20 +236,27 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One causal self-attention layer with RoPE (the JAX layer's
     ``causal`` and ``use_rope`` serve only the encoder-decoder, which is not
-    ported). mode: 'train' | 'prefill' | 'decode'.
+    ported). mode: 'train' | 'prefill' | 'decode'. kind: 'global_attn' |
+    'local_attn' (sliding ``window``, a ring-buffer cache).
 
-    Prefill with a ``cache`` writes the layer's k and v into its slots
-    ``[0, S)`` in place and returns it; without one it returns the k and v
-    of length S, as the JAX package does. Decode (``lengths`` [B]: the new
-    token goes to position ``lengths[b]``) writes slot ``lengths[b]`` of the
-    capacity cache in place and returns it. ``use_kernel`` is the
-    counterpart of ``use_pallas``."""
-    if kind != "global_attn":
+    Prefill with a ``cache`` writes the layer's k and v into it in place
+    and returns it: slots ``[0, S)`` of a global layer's capacity cache;
+    for a local layer of t slots, position p of the last ``min(t, S)`` at
+    slot ``p % t``. Without one it returns what the JAX package returns: k
+    and v of length S, or of a local layer the last ``min(window, S)``
+    rolled into ring order. Decode (``lengths`` [B]: the new token goes to
+    position ``lengths[b]``) writes slot ``lengths[b]`` (local: ``% t``)
+    in place, with tensor indices only (no host sync, so a CUDA graph can
+    capture it), and returns the cache. ``use_kernel`` is the counterpart
+    of ``use_pallas``; ``seq_shard_axis`` sends a global layer's decode
+    through ``seq_sharded_decode``."""
+    if kind not in ("global_attn", "local_attn"):
         raise NotImplementedError(f"attention kind {kind!r} {_NOT_PORTED}")
-    if seq_shard_axis is not None:
-        raise NotImplementedError(f"seq_shard_axis {_NOT_PORTED}")
     if kv_override is not None:
         raise NotImplementedError(f"kv_override {_NOT_PORTED}")
+    local = kind == "local_attn"
+    if local and window < 1:
+        raise ValueError(f"a local_attn layer needs a window, got {window}")
     b, s, _ = x.shape
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
@@ -152,18 +267,30 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         q = L.apply_rope(q, positions, rope_theta)
         k = L.apply_rope(k, positions, rope_theta)
         qg = _split_gqa(q, n_kv_heads)
-        if use_kernel and s % 128 == 0:
+        if local:
+            out = window_attention(qg, k, v, positions=positions,
+                                   window=window)
+        elif use_kernel and s % 128 == 0:
             out = flash_attention_gqa(qg, k, v)
         else:
             out = flash_attention(qg, k, v, q_block=flash_block,
                                   kv_block=flash_block)
         new_cache = None
         if mode == "prefill":
+            if local:
+                # ring buffer: slot j holds the position p with p % t == j;
+                # the roll aligns the last w positions to their slots
+                t = window if cache is None else cache["k"].shape[1]
+                w = min(t, s)
+                k, v = (torch.roll(a[:, s - w:], s % w, dims=1)
+                        for a in (k, v))
+            else:
+                w = s
             if cache is None:
                 new_cache = {"k": k, "v": v}
             else:
-                cache["k"][:, :s] = k
-                cache["v"][:, :s] = v
+                cache["k"][:, :w] = k
+                cache["v"][:, :w] = v
                 new_cache = cache
     elif mode == "decode":
         if lengths is None or cache is None:
@@ -173,12 +300,21 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         k = L.apply_rope(k, pos[:, None], rope_theta)
         qd = _split_gqa(q, n_kv_heads)[:, 0]                          # [B,K,G,D]
         t = cache["k"].shape[1]
+        slot = pos % t if local else pos
         rows = torch.arange(b, device=x.device)
-        cache["k"][rows, pos] = k[:, 0]
-        cache["v"][rows, pos] = v[:, 0]
-        valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
-        out = decode_attention(qd, cache["k"], cache["v"],
-                               valid=valid)[:, None]
+        cache["k"][rows, slot] = k[:, 0]
+        cache["v"][rows, slot] = v[:, 0]
+        iota = torch.arange(t, device=x.device)[None, :]
+        if local:
+            valid = iota < torch.clamp(pos + 1, max=t)[:, None]
+        else:
+            valid = iota <= pos[:, None]
+        if seq_shard_axis is not None and not local:
+            out = seq_sharded_decode(qd, cache["k"], cache["v"], valid=valid,
+                                     axis=seq_shard_axis)[:, None]
+        else:
+            out = decode_attention(qd, cache["k"], cache["v"],
+                                   valid=valid)[:, None]
         new_cache = cache
     else:
         raise ValueError(mode)

@@ -1,13 +1,15 @@
 """Model facade (``repro/models/model_zoo.py`` at the same path), for the
-decoder-only architectures the port runs (dense global-attention stacks
-and the Mamba-2 SSD stack).
+decoder-only architectures the port runs (dense attention stacks, global
+or local and global, and the Mamba-2 SSD stack).
 
 ``Model`` exposes:
   init(gen, device)               -> ParamTree (the weights, an nn.Module)
   apply(params, batch, mode, cache) -> (hidden, cache)
-  init_cache(batch, cache_len, device) -> {"k", "v"} at capacity, or the
-                                     SSD cache {"conv", "state"}, whose
-                                     size does not depend on cache_len
+  init_cache(batch, cache_len, device) -> the cache tree: {"k", "v"} at
+                                     capacity (a local layer's ring at
+                                     min(window, cache_len)), or the SSD
+                                     cache {"conv", "state"}, whose size
+                                     does not depend on cache_len
   unembed(params, x)              -> logits
 """
 from __future__ import annotations

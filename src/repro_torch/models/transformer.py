@@ -1,11 +1,18 @@
 """Decoder-only LM assembly (``repro/models/transformer.py`` at the same
-path), for stacks whose every layer is global attention + MLP, or whose
-every layer is a Mamba-2 SSD block (no MLP, no ``norm2``).
+path), for stacks of attention layers (global, or a pattern of local and
+global, each + MLP) and of Mamba-2 SSD blocks (no MLP, no ``norm2``).
 
-As in the JAX package, each layer parameter is stacked along a leading
-``layers`` axis (its ``periods`` tree, whose period is one layer for these
-stacks), and the cache likewise: ``{"k", "v"}: [L, B, T, KH, D]`` for
+As in the JAX package, the layer stack is ``cfg.layer_pattern`` (a
+repeating period, e.g. 5 x local_attn + 1 x global_attn for gemma3)
+repeated ``n_layers // period`` times, then the pattern's first
+``n_layers % period`` kinds as remainder layers. The parameters of each
+position of the period are stacked along a leading axis over the periods,
+and so is the cache. Where the period is one layer the stack sits at
+``layers`` and its cache at the root: ``{"k", "v"}: [L, B, T, KH, D]`` for
 attention, ``{"conv": [L, B, W-1, C], "state": [L, B, H, P, N]}`` for SSD.
+A longer period keeps the JAX package's tree: ``periods`` (one entry per
+position, keyed "0", "1", ...) and ``rem_{i}``, in the parameters and the
+cache alike; a local layer's cache has ``min(window, capacity)`` slots.
 The stack runs as a Python loop over layer views, where the JAX package
 scans. The weights live in a ``ParamTree`` module; the apply functions are
 plain functions over it, like their JAX counterparts.
@@ -13,12 +20,12 @@ plain functions over it, like their JAX counterparts.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import GLOBAL_ATTN, SSD, ModelConfig
+from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, SSD, ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -29,19 +36,23 @@ class Flags:
     """The lowering flags this path reads.
 
     ``use_flash_kernel`` is the counterpart of the JAX package's
-    ``use_pallas_flash``: causal self-attention with S a multiple of 128
-    goes through the hand-written CUDA kernel (its plain version on a CPU
-    tensor). It is on in ``DEFAULT_FLAGS``, the serving path on the card.
-    ``flash_block`` is the block of the plain blockwise path; the JAX
+    ``use_pallas_flash``: causal global self-attention with S a multiple
+    of 128 goes through the hand-written CUDA kernel (its plain version on
+    a CPU tensor). It is on in ``DEFAULT_FLAGS``, the serving path on the
+    card. ``flash_block`` is the block of the plain blockwise path; the JAX
     package declares the same field and its attention uses 512, the
     default here. ``use_ssd_kernel`` takes the SSD block's intra-chunk
     form (one group) from the hand-written CUDA kernel (its plain version
     on a CPU tensor) instead of the einsum path; the JAX model never calls
-    its Pallas kernel, whose function is the same."""
+    its Pallas kernel, whose function is the same. ``seq_shard_kv`` names
+    the mesh axis over which global layers decode with the KV cache
+    sequence-sharded (``attention.seq_sharded_decode`` over the mesh of
+    ``models.sharding.use_sharding``)."""
     param_dtype: Any = torch.bfloat16
     use_flash_kernel: bool = True
     flash_block: int = 512
     use_ssd_kernel: bool = True
+    seq_shard_kv: Optional[str] = None
 
 
 DEFAULT_FLAGS = Flags()
@@ -58,10 +69,11 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE blocks are {_NOT_PORTED}")
     kinds = set(cfg.layer_pattern)
-    if kinds not in ({GLOBAL_ATTN}, {SSD}):
+    if not (kinds <= {GLOBAL_ATTN, LOCAL_ATTN} or kinds == {SSD}):
         raise NotImplementedError(f"{cfg.name}: layer kinds {sorted(kinds)} "
-                                  f"(only all-global-attention or all-SSD "
-                                  f"stacks run) are {_NOT_PORTED}")
+                                  f"(only attention stacks, global and "
+                                  f"local, or all-SSD stacks run) are "
+                                  f"{_NOT_PORTED}")
 
 
 class ParamTree(nn.Module):
@@ -99,14 +111,9 @@ def _at(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 # Per-layer block = attention + MLP, or SSD alone; pre-norm residual
 # ---------------------------------------------------------------------------
 
-def _kind(cfg: ModelConfig) -> str:
-    """The one layer kind of a supported stack."""
-    return cfg.layer_pattern[0]
-
-
-def block_init(gen, cfg: ModelConfig, *, dtype, device,
+def block_init(gen, cfg: ModelConfig, kind: str, *, dtype, device,
                lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
-    if _kind(cfg) == SSD:   # mamba2 blocks have no separate MLP
+    if kind == SSD:   # mamba2 blocks have no separate MLP
         return {"norm1": L.scale_init(cfg.d_model, device=device, lead=lead),
                 "ssd": S.ssd_init(gen, cfg.d_model, cfg.ssm, dtype=dtype,
                                   device=device, lead=lead)}
@@ -122,23 +129,104 @@ def block_init(gen, cfg: ModelConfig, *, dtype, device,
 
 
 def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
-                mode: str, flags: Flags, cache: Optional[Dict] = None,
+                kind: str, mode: str, flags: Flags,
+                cache: Optional[Dict] = None,
                 lengths: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Returns (x, new_cache)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    if _kind(cfg) == SSD:
+    if kind == SSD:
         mix, new_cache = S.ssd_layer(p["ssd"], h, scfg=cfg.ssm, mode=mode,
                                      cache=cache,
                                      use_kernel=flags.use_ssd_kernel)
         return x + mix, new_cache
     mix, new_cache = A.attention_layer(
-        p["attn"], h, kind=GLOBAL_ATTN, rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads, mode=mode,
-        lengths=lengths, cache=cache, use_kernel=flags.use_flash_kernel,
-        flash_block=flags.flash_block)
+        p["attn"], h, kind=kind, window=cfg.window,
+        rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads, mode=mode,
+        lengths=lengths, cache=cache, seq_shard_axis=flags.seq_shard_kv,
+        use_kernel=flags.use_flash_kernel, flash_block=flags.flash_block)
     x = x + mix
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + L.mlp_apply(p["mlp"], h, cfg.gated_mlp), new_cache
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                     *, dtype, device, lead: Tuple[int, ...] = ()
+                     ) -> Dict[str, torch.Tensor]:
+    if kind == SSD:
+        return S.init_ssd_cache(batch, cfg.d_model, cfg.ssm, dtype=dtype,
+                                device=device, lead=lead)
+    if kind == LOCAL_ATTN:
+        cache_len = min(cfg.window, cache_len)
+    return A.init_attn_cache(batch, cache_len, cfg.n_kv_heads,
+                             cfg.resolved_head_dim, dtype=dtype,
+                             device=device, lead=lead)
+
+
+# ---------------------------------------------------------------------------
+# Layout of the stack in the parameter and cache trees
+# ---------------------------------------------------------------------------
+
+Path = Tuple[str, ...]
+
+
+def _period_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    period = len(cfg.layer_pattern)
+    n_periods = cfg.n_layers // period
+    remainder = tuple(cfg.layer_pattern[:cfg.n_layers % period])
+    return n_periods, remainder
+
+
+def block_paths(period: int, n_rem: int) -> List[Tuple[Path, Path]]:
+    """(parameter path, cache path) of the blocks at each of the
+    ``period`` positions of the stacked periods (0 where there are none),
+    then of each of the ``n_rem`` remainder layers. A one-layer period
+    without remainder keeps its stack at ``layers`` and its cache at the
+    root; otherwise the JAX package's ``periods`` (keyed "0", "1", ...)
+    and ``rem_{i}``."""
+    if period == 1 and n_rem == 0:
+        return [(("layers",), ())]
+    return ([(("periods", str(j)),) * 2 for j in range(period)]
+            + [((f"rem_{i}",),) * 2 for i in range(n_rem)])
+
+
+def _stacks(cfg: ModelConfig) -> List[Tuple[Path, Path, str, Optional[int]]]:
+    """Each stack of blocks: (its path in the parameters, in the cache, its
+    kind, its depth or None for a remainder layer's single block)."""
+    n_periods, remainder = _period_layout(cfg)
+    stacked = cfg.layer_pattern if n_periods else ()
+    kinds = [(k, n_periods) for k in stacked] + [(k, None) for k in remainder]
+    return [(pp, cp, kind, depth) for (pp, cp), (kind, depth) in
+            zip(block_paths(len(stacked), len(remainder)), kinds,
+                strict=True)]
+
+
+def _layers(cfg: ModelConfig):
+    """(parameter path, cache path, kind, index in its stack or None) of
+    every layer, in the order the stack runs them."""
+    stacks = _stacks(cfg)
+    stacked = [st for st in stacks if st[3] is not None]
+    n_periods = stacked[0][3] if stacked else 0
+    for i in range(n_periods):
+        for ppath, cpath, kind, _ in stacked:
+            yield ppath, cpath, kind, i
+    for ppath, cpath, kind, depth in stacks:
+        if depth is None:
+            yield ppath, cpath, kind, None
+
+
+def _get(tree: Dict[str, Any], path: Path) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def put_path(tree: Dict[str, Any], path: Path,
+             value: Dict[str, Any]) -> None:
+    """Merge ``value`` into ``tree`` at ``path`` (the root where empty)."""
+    for key in path:
+        tree = tree.setdefault(key, {})
+    tree.update(value)
 
 
 # ---------------------------------------------------------------------------
@@ -149,10 +237,10 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
             flags: Flags = DEFAULT_FLAGS, device="cuda") -> ParamTree:
     """Random weights from ``gen`` (a generator on ``device``):
     ``embed`` [V, D], ``final_norm`` [D], ``unembed`` [D, V] (absent when
-    tied) and ``layers``, each leaf with a leading layer axis: ``norm1``,
-    ``attn.{wq,wk,wv,wo}``, ``norm2``, ``mlp.{wi,wo[,wg]}`` for attention,
-    ``norm1``, ``ssd.{in_proj,conv_w,conv_b,A_log,D,dt_bias,norm,
-    out_proj}`` for SSD."""
+    tied) and the blocks (module docstring), each stacked leaf with a
+    leading axis: ``norm1``, ``attn.{wq,wk,wv,wo}``, ``norm2``,
+    ``mlp.{wi,wo[,wg]}`` for attention, ``norm1``, ``ssd.{in_proj,conv_w,
+    conv_b,A_log,D,dt_bias,norm,out_proj}`` for SSD."""
     _check_supported(cfg)
     dtype = flags.param_dtype
     params: Dict[str, Any] = {
@@ -163,48 +251,56 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         params["unembed"] = L.dense_init(gen, cfg.d_model, cfg.vocab,
                                          dtype=dtype, device=device)
-    params["layers"] = block_init(gen, cfg, dtype=dtype, device=device,
-                                  lead=(cfg.n_layers,))
+    for ppath, _, kind, depth in _stacks(cfg):
+        put_path(params, ppath, block_init(
+            gen, cfg, kind, dtype=dtype, device=device,
+            lead=() if depth is None else (depth,)))
     return ParamTree(params)
 
 
 def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                   flags: Flags = DEFAULT_FLAGS, device="cuda"
-                  ) -> Dict[str, torch.Tensor]:
-    """Zeroed cache: the KV cache at capacity ``{"k", "v"}: [L, B, T, KH,
-    D]``, or the SSD cache ``{"conv": [L, B, W-1, C], "state": [L, B, H,
-    P, N]}`` (float32 state), which does not depend on ``cache_len``."""
+                  ) -> Dict[str, Any]:
+    """Zeroed cache (module docstring for the tree): a KV cache at capacity
+    ``cache_len`` for a global layer, ``min(window, cache_len)`` slots for
+    a local one, or the SSD cache (float32 state), whose size does not
+    depend on ``cache_len``."""
     _check_supported(cfg)
-    if _kind(cfg) == SSD:
-        return S.init_ssd_cache(batch, cfg.d_model, cfg.ssm,
-                                dtype=flags.param_dtype, device=device,
-                                lead=(cfg.n_layers,))
-    return A.init_attn_cache(batch, cache_len, cfg.n_kv_heads,
-                             cfg.resolved_head_dim, dtype=flags.param_dtype,
-                             device=device, lead=(cfg.n_layers,))
+    cache: Dict[str, Any] = {}
+    for _, cpath, kind, depth in _stacks(cfg):
+        put_path(cache, cpath, init_block_cache(
+            cfg, kind, batch, cache_len, dtype=flags.param_dtype,
+            device=device, lead=() if depth is None else (depth,)))
+    return cache
 
 
 def lm_apply(params, batch: Dict[str, torch.Tensor], *,
              cfg: ModelConfig, mode: str, flags: Flags = DEFAULT_FLAGS,
-             cache: Optional[Dict[str, torch.Tensor]] = None
-             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+             cache: Optional[Dict[str, Any]] = None
+             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """Returns (final hidden [B,S,D], cache). The unembedding is applied by
     the caller. A prefill or decode with ``cache`` writes the new entries
     into it in place (KV slots, or each layer's conv and state) and returns
-    it; a prefill without one returns a new cache (KV of length S).
-    ``params`` is a ``ParamTree`` or its ``tree()``."""
+    it; a prefill without one returns a new cache (KV of length S, a local
+    layer's last window). ``params`` is a ``ParamTree`` or its ``tree()``."""
     p = _tree(params)
     lengths = batch.get("lengths")
     x = p["embed"][batch["tokens"].long()]
-    new_layers = []
-    for i in range(cfg.n_layers):
-        c_in = None if cache is None else {k: v[i] for k, v in cache.items()}
-        x, c_out = block_apply(_at(p["layers"], i), x, cfg=cfg, mode=mode,
-                               flags=flags, cache=c_in, lengths=lengths)
+    new_layers: Dict[Path, List[Dict[str, torch.Tensor]]] = {}
+    for ppath, cpath, kind, i in _layers(cfg):
+        bp = _get(p, ppath)
+        c_in = None
+        if cache is not None:
+            c_in = _get(cache, cpath)
+            if i is not None:
+                c_in = {k: v[i] for k, v in c_in.items()}
+        x, c_out = block_apply(bp if i is None else _at(bp, i), x, cfg=cfg,
+                               kind=kind, mode=mode, flags=flags, cache=c_in,
+                               lengths=lengths)
         if mode == "train":
             continue
         if cache is None:
-            new_layers.append(c_out)
+            new_layers.setdefault(cpath, []).append(c_out)
         else:
             for k, v in c_out.items():
                 if v.data_ptr() != c_in[k].data_ptr():
@@ -213,8 +309,11 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
     if mode == "train":
         return x, None
     if cache is None:
-        cache = {k: torch.stack([c[k] for c in new_layers])
-                 for k in new_layers[0]}
+        cache = {}
+        for _, cpath, _, depth in _stacks(cfg):
+            outs = new_layers[cpath]
+            put_path(cache, cpath, outs[0] if depth is None else
+                 {k: torch.stack([c[k] for c in outs]) for k in outs[0]})
     return x, cache
 
 

@@ -31,7 +31,8 @@ def make_decode_step(model: Model):
                     lengths: torch.Tensor):
         """tokens: [B,1] current token; lengths: [B] tokens so far.
         Returns (next_token [B,1] int32, cache), the cache written in
-        place (a KV cache at slot ``lengths[b]``)."""
+        place (a KV cache at slot ``lengths[b]``, a local layer's ring at
+        ``lengths[b] % window``)."""
         batch = {"tokens": tokens, "lengths": lengths}
         x, new_cache = model.apply(params, batch, mode="decode", cache=cache)
         logits = model.unembed(params, x)
@@ -39,12 +40,13 @@ def make_decode_step(model: Model):
     return decode_step
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = ""
-             ) -> List[Tuple[str, torch.Tensor]]:
+def flatten(tree: Dict[str, Any], prefix: str = ""
+            ) -> List[Tuple[str, torch.Tensor]]:
+    """The leaves of a nested dict, named by their dotted paths."""
     out = []
     for key, val in tree.items():
         if isinstance(val, dict):
-            out += _flatten(val, f"{prefix}{key}.")
+            out += flatten(val, f"{prefix}{key}.")
         else:
             out.append((f"{prefix}{key}", val))
     return out
@@ -74,26 +76,28 @@ def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
                        timeout: float = 120.0):
     """Run ``n_steps`` of greedy single-token decode as hetero tasks.
 
-    The weights, the cache (``{"k", "v"}`` or ``{"conv", "state"}``),
-    ``tokens`` [B,1] and ``lengths`` [B] (int32) are tensors on one device;
-    each is adopted in place as a hetero object on the runtime device that
-    holds it, so nothing round-trips through the host. Each step submits
-    ONE task over them (weights read, the rest read-write: the cache is
-    donated and written in place, not copied). Returns ``(tokens_obj,
-    lengths_obj, cache_objs)`` after the loop's barrier; ``cache_objs``
-    maps each of the cache's keys to its object."""
+    The weights, the cache (a tree: ``{"k", "v"}``, ``{"conv", "state"}``,
+    or per stack of a longer layer pattern), ``tokens`` [B,1] and
+    ``lengths`` [B] (int32) are tensors on one device; each is adopted in
+    place as a hetero object on the runtime device that holds it, so
+    nothing round-trips through the host. Each step submits ONE task over
+    them (weights read, the rest read-write: the cache is donated and
+    written in place, not copied). Returns ``(tokens_obj, lengths_obj,
+    cache_objs)`` after the loop's barrier; ``cache_objs`` maps each cache
+    leaf's dotted path (``"k"``, ``"periods.5.v"``) to its object."""
     decode = make_decode_step(model)
     tree = params.tree() if isinstance(params, ParamTree) else params
-    named = _flatten(tree)
+    named = flatten(tree)
     names = [n for n, _ in named]
     n_p = len(named)
-    keys = sorted(cache)
+    c_named = flatten(cache)
+    keys = [n for n, _ in c_named]
     dev = _device_id(runtime, tokens.device)
     p_objs = [runtime.adopt_device_array(t, dev, name=f"dec-p:{n}")
               for n, t in named]
-    c_objs = {key: runtime.adopt_device_array(cache[key], dev,
+    c_objs = {key: runtime.adopt_device_array(t, dev,
                                               name=f"dec-cache:{key}")
-              for key in keys}
+              for key, t in c_named}
     tok_obj = runtime.adopt_device_array(tokens, dev, name="dec-tok")
     len_obj = runtime.adopt_device_array(lengths, dev, name="dec-len")
 
@@ -101,10 +105,11 @@ def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
     # hits every step
     def step_kernel(tok, lens, *leaves):
         params_ = _unflatten(names, leaves[:n_p])
-        cache_ = dict(zip(keys, leaves[n_p:], strict=True))
+        cache_ = _unflatten(keys, leaves[n_p:])
         new_tok, new_cache = decode(params_, cache_, tok, lens)
+        new_c = dict(flatten(new_cache))
         # outputs bind to the write-args in arg order: tok, lens, cache
-        return (new_tok, lens + 1, *(new_cache[k] for k in keys))
+        return (new_tok, lens + 1, *(new_c[k] for k in keys))
 
     args = ([(tok_obj, "rw"), (len_obj, "rw")]
             + [(o, "r") for o in p_objs]

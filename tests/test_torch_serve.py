@@ -71,7 +71,7 @@ def test_configs_equal_the_jax_packages(arch):
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfigs.get_config("gemma3-27b")
+        tconfigs.get_config("recurrentgemma-9b")
     with pytest.raises(ValueError):
         tconfigs.get_config("no-such-arch")
     assert tconfigs.get_config("yi-9b").param_count() == 8_829_403_136
@@ -187,15 +187,16 @@ def test_attention_layer_decode_matches_jax():
 
 
 def test_unported_attention_paths_raise():
+    """Cross-attention (``kv_override``) and the recurrent layer kinds are
+    not ported; local attention and seq-sharded decode are
+    (``test_torch_gemma3.py``)."""
     p = {k: to_torch(v) for k, v in _attn_params(0).items()}
     x = torch.zeros((1, 8, 48))
-    for kw in ({"kind": "local_attn"}, {"kind": "global_attn",
-                                        "seq_shard_axis": "data"}):
+    for kw in ({"kind": "rglru"},
+               {"kind": "global_attn", "kv_override": (x, x)}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TA.attention_layer(p, x, rope_theta=1e4, n_kv_heads=2,
                                mode="train", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TA.window_attention()
 
 
 # ---------------------------------------------------------------------------

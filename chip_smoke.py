@@ -54,9 +54,24 @@ the port's main path through the tasking runtime:
     of 4096 tokens (10 ``flash_attention`` launches, one a global layer;
     the local layers take the plain window path, as in the JAX package)
     and 32 decode steps whose local caches wrap their rings; the checks of
-    yi-9b's phase, the float32-weight prefill at one period (6 layers).
+    yi-9b's phase, the float32-weight prefill at one period (6 layers);
+  * recurrentgemma-9b serving at full width and depth (38 layers: 12
+    periods of RG-LRU, RG-LRU, local (window 2048), 2 RG-LRU remainder
+    layers; 19.3 GB bf16): 4 prompts of 4096 and 32 decode steps with no
+    kernel launch (every counter stays 0: the RG-LRU recurrence and the
+    window path are plain torch, as in the JAX package); greedy decode
+    against a full forward in bf16 and float32 (full depth), the tasked
+    loop as before, and one RG-LRU layer's prefill scan over 64 positions
+    against 64 decode steps in float32 within 1e-4;
+  * pixtral-12b serving at full width and depth (40 global layers, 24.5
+    GB bf16): 4 prompts of 2048 whose first 256 positions carry seeded
+    vision embeddings (40 ``flash_attention`` launches a prefill, none in
+    decode) and 32 decode steps; yi-9b's checks, the full forward fed the
+    same embeddings, the float32 ones at full depth.
     Every serving phase starts with the card nearly empty and must give
-    its memory back.
+    its memory back. Beside phase 2, ``window_attention`` on bf16
+    operands against its products on float32 copies at a gemma3 and a
+    recurrentgemma local layer's prefill shapes, both timed.
 
 Launch counters are zeroed just before each main-path run and read just
 after. The second-to-last line is a JSON object with one entry per kernel of
@@ -65,6 +80,7 @@ prints no result, on any failure or where there is no CUDA device.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import gc
 import json
@@ -91,6 +107,25 @@ SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS = "mamba2-370m", 8, 4096, 32
 # at one period (6 layers): 62 layers in float32 (113 GB) do not fit
 GEMMA_ARCH, GEMMA_BATCH, GEMMA_PROMPT, GEMMA_STEPS = "gemma3-27b", 2, 4096, 32
 GEMMA_F32_LAYERS = 6
+# phase 11: recurrentgemma-9b, prompts of 4096 against its window of 2048
+# (the band cuts rows, the rings wrap), float32 checks at full depth (38
+# layers, 38.5 GB); the RG-LRU check runs one layer's prefill scan over
+# this many positions against as many decode steps, within the JAX test's
+# 1e-4 (float32: the scan and the steps sum in other orders)
+RG_ARCH, RG_BATCH, RG_PROMPT, RG_STEPS = "recurrentgemma-9b", 4, 4096, 32
+RGLRU_SEQ_STEPS, RGLRU_SEQ_TOL = 64, 1e-4
+# phase 12: pixtral-12b, prompts of 2048 whose first 256 positions carry
+# seeded vision embeddings at the scale of the embedding rows (0.02);
+# float32 checks at full depth (40 layers, 49.0 GB)
+PIX_ARCH, PIX_BATCH, PIX_PROMPT, PIX_STEPS = "pixtral-12b", 4, 2048, 32
+VISION_SCALE = 0.02
+# window_attention on bf16 operands against the same function with its
+# products on float32 copies (the CPU's arm), at a gemma3-27b local
+# layer's prefill (q [2, 4096, 16, 2, 128], window 1024) and a
+# recurrentgemma-9b one's (q [4, 4096, 1, 16, 256], window 2048): 2e-2,
+# flash's bf16 bound, for its reason (the float32 sum order can flip a
+# bf16 rounding of p)
+WINDOW_TOL = 2e-2
 # phase 9: run_spmd over 4 shards sharing the card, and steady iterations
 # timed after a warm-up one
 SPMD_SHARDS, SPMD_TIMED = 4, 10
@@ -530,7 +565,8 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
     one-pass kernels, each timed beside the earlier column-group design
     built from ``earlier``, the library of the same source with the
     one-pass dispatch off), and the bf16 entry at gemma3-27b's global
-    layers, q [2, 4096, 16, 2, 128]; each arm also through the GQA entry at
+    layers, q [2, 4096, 16, 2, 128], and pixtral-12b's, q [4, 2048, 8, 4,
+    128]; each arm also through the GQA entry at
     FLASH_SHAPES, one launch a call. The library yardstick is
     scaled_dot_product_attention on the same, broadcast, heads."""
     F = torch.nn.functional
@@ -565,12 +601,14 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
     # [B*H, S, D]; then recurrentgemma-9b's heads (MQA: 16 query heads on
     # one KV head, D = 256) in both arms through the GQA entry; then, in
     # bf16, gemma3-27b's global layers (phase 10's prefill: 2 prompts of
-    # 4096, 16 KV heads of 2 query heads, D = 128).
+    # 4096, 16 KV heads of 2 query heads, D = 128) and pixtral-12b's
+    # (phase 12's: 4 prompts of 2048, 8 KV heads of 4 query heads).
     for b, s, kh, g, d, sfx in (
             (SERVE_BATCH, SERVE_PROMPT, 4, 8, 128, ""),
             (SERVE_BATCH, SERVE_PROMPT, 4, 8, 256, "_d256"),
             (SERVE_BATCH, SERVE_PROMPT, 1, 16, 256, "_d256_kh1g16"),
-            (GEMMA_BATCH, GEMMA_PROMPT, 16, 2, 128, "_gemma3")):
+            (GEMMA_BATCH, GEMMA_PROMPT, 16, 2, 128, "_gemma3"),
+            (PIX_BATCH, PIX_PROMPT, 8, 4, 128, "_pixtral")):
         bh = b * kh * g
         q = torch.randn((b, s, kh, g, d), generator=gen, device=dev)
         k = torch.randn((b, s, kh, d), generator=gen, device=dev)
@@ -581,7 +619,7 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
             ("flash_attention" + sfx, torch.bfloat16, bf16, FLASH_TOL["bf16"],
              (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain,
              flops))
-        if sfx == "_gemma3":
+        if sfx in ("_gemma3", "_pixtral"):
             continue
         if kh == 1:
             f32_case = ((q, k, v), ops.flash_attention_gqa,
@@ -657,6 +695,54 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
         del qs, ks, vs, args
     res["flash_attention"]["max_abs_err_by_shape"] = edge_errs["bf16"]
     res["flash_attention_f32"]["max_abs_err_by_shape"] = edge_errs["f32"]
+    return res
+
+
+def window_checks(gen, bf16) -> dict:
+    """``window_attention`` on bf16 operands (the products' float32
+    results from ``aten::bmm.dtype``) against the same function with its
+    products on float32 copies (``bmm_f32_upcast``, the CPU's arm), at a
+    gemma3-27b local layer's prefill and a recurrentgemma-9b one's; both
+    timed by CUDA events. ``flops``: the banded products it issues (each
+    query block against 2w keys, the masked half included)."""
+    from unittest import mock
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    dev = torch.device("cuda")
+    res = {}
+    for key, arch, b, s in (("gemma3", GEMMA_ARCH, GEMMA_BATCH, GEMMA_PROMPT),
+                            ("recurrentgemma", RG_ARCH, RG_BATCH, RG_PROMPT)):
+        cfg = get_config(arch)
+        kh, d, w = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.window
+        g = cfg.n_heads // kh
+        q = torch.randn((b, s, kh, g, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((b, s, kh, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        pos = torch.arange(s, device=dev)
+
+        def run():
+            return A.window_attention(q, k, v, positions=pos, window=w)
+
+        got = run().float()
+        with mock.patch.object(A, "bmm_f32", A.bmm_f32_upcast):
+            want = run().float()
+            upcast_ms = time_ms(run, 3, warmup=1)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"window {key}: non-finite")
+        check(bool(torch.allclose(got, want, rtol=WINDOW_TOL,
+                                  atol=WINDOW_TOL)),
+              f"window {key} on bf16 operands outside {WINDOW_TOL} of the "
+              f"upcast products (max err {err})")
+        del got, want
+        flops = 8 * b * (s // w) * kh * w * w * g * d
+        res[key] = dict(q=[b, s, kh, g, d], window=w, max_abs_err=err,
+                        tol=WINDOW_TOL, ms=time_ms(run, 3, warmup=1),
+                        upcast_ms=upcast_ms, flops=flops,
+                        bf16_ops_bound_ms=flops / bf16 * 1e3)
+        del q, k, v
     return res
 
 
@@ -784,13 +870,13 @@ def _trace_summary(prof, lo_name: Optional[str] = None) -> dict:
     return out
 
 
-def serve_trace(eng, tokens, kernel: str) -> dict:
+def serve_trace(eng, tokens, kernel: Optional[str], extra: dict) -> dict:
     """A traced prefill and four traced decode steps, after the main run:
     where the device time of each goes (``kernel``: the prefill kernels'
-    name fragment)."""
+    name fragment, where the phase has a kernel)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        nxt, cache = eng.prefill(tokens)
+        nxt, cache = eng.prefill(tokens, extra)
         torch.cuda.synchronize()
     out = {"prefill": _trace_summary(prof, kernel)}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -800,19 +886,30 @@ def serve_trace(eng, tokens, kernel: str) -> dict:
     return out
 
 
-# the serving phases: (arch, batch, prompt tokens, decode steps, the kernel
-# flag, the kernel's LAUNCHES key, the layer kind that launches it, its
-# name in a trace, prefill tolerances, the depth of the float32-weight
-# prefill check: None for the full depth)
+# A serving phase: the model, batch, prompt tokens and decode steps; the
+# kernel flag, the kernel's LAUNCHES key, the layer kind that launches it
+# and its name in a trace (all None for a model whose path launches no
+# kernel: every counter must then stay 0); the prefill tolerances against
+# the plain path; the depth of the float32-weight checks (None for the full
+# depth).
+ServeSpec = collections.namedtuple(
+    "ServeSpec", "arch batch prompt steps flag kernel kernel_kind trace_name "
+    "tols f32_layers")
 SERVE_SPECS = {
-    5: (SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, "use_flash_kernel",
-        "flash_attention", "global_attn", "flash_mma", PREFILL_REL_TOL, None),
-    6: (SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS, "use_ssd_kernel",
-        "ssd_chunk", "ssd", "ssd_", SSM_PREFILL_REL_TOL,   # ssd_y + states
-        None),
-    10: (GEMMA_ARCH, GEMMA_BATCH, GEMMA_PROMPT, GEMMA_STEPS,
-         "use_flash_kernel", "flash_attention", "global_attn", "flash_mma",
-         PREFILL_REL_TOL, GEMMA_F32_LAYERS),
+    5: ServeSpec(SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS,
+                 "use_flash_kernel", "flash_attention", "global_attn",
+                 "flash_mma", PREFILL_REL_TOL, None),
+    6: ServeSpec(SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS, "use_ssd_kernel",
+                 "ssd_chunk", "ssd", "ssd_",                # ssd_y + states
+                 SSM_PREFILL_REL_TOL, None),
+    10: ServeSpec(GEMMA_ARCH, GEMMA_BATCH, GEMMA_PROMPT, GEMMA_STEPS,
+                  "use_flash_kernel", "flash_attention", "global_attn",
+                  "flash_mma", PREFILL_REL_TOL, GEMMA_F32_LAYERS),
+    11: ServeSpec(RG_ARCH, RG_BATCH, RG_PROMPT, RG_STEPS, None, None, None,
+                  None, None, None),
+    12: ServeSpec(PIX_ARCH, PIX_BATCH, PIX_PROMPT, PIX_STEPS,
+                  "use_flash_kernel", "flash_attention", "global_attn",
+                  "flash_mma", PREFILL_REL_TOL, None),
 }
 
 
@@ -831,13 +928,15 @@ def clone_tree(tree: dict) -> dict:
 
 
 def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
-    """Phase 5 (yi-9b), 6 (mamba2-370m) or 10 (gemma3-27b) at full width
-    and depth through the Engine (the main path), then the checks and the
-    tasked decode loop from the same prefill state. The card must hold
-    less than ``MEMORY_BEFORE_SERVE`` before the weights load, and the
-    allocation must come back within ``MEMORY_SLACK`` of that after."""
+    """Phase 5 (yi-9b), 6 (mamba2-370m), 10 (gemma3-27b), 11
+    (recurrentgemma-9b) or 12 (pixtral-12b, its prompts' first 256
+    positions vision embeddings) at full width and depth through the
+    Engine (the main path), then the checks and the tasked decode loop
+    from the same prefill state. The card must hold less than
+    ``MEMORY_BEFORE_SERVE`` before the weights load, and the allocation
+    must come back within ``MEMORY_SLACK`` of that after."""
     import dataclasses
-    from repro_torch.configs import get_config
+    from repro_torch.configs import RGLRU, get_config
     from repro_torch.launch.serve import Engine
     from repro_torch.models import build_model
     from repro_torch.serve import flatten, tasked_decode_loop
@@ -850,10 +949,9 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
           f"allocated on the card before the weights load")
     cfg = get_config(arch)
     # the layers whose kind launches the kernel, once each in a prefill
-    n_kernel = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)]
-                   == kernel_kind for i in range(cfg.n_layers))
+    n_kernel = layers_of(arch, kernel_kind)
     model = build_model(cfg)
-    check(getattr(model.flags, flag)
+    check((flag is None or getattr(model.flags, flag))
           and model.flags.param_dtype == torch.bfloat16,
           f"serve flags {model.flags}: want bf16 and {flag}")
     t0 = time.perf_counter()
@@ -863,11 +961,15 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
          "decode_steps": steps, "init_s": time.perf_counter() - t0,
          "weights_gb": sum(p.numel() * p.element_size()
                            for p in params.parameters()) / 1e9}
-    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
-                           generator=torch.Generator(device=dev).manual_seed(
-                               SEED + 1))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
+    extra = {}
+    if cfg.frontend == "vision":
+        extra["vision_embeds"] = VISION_SCALE * torch.randn(
+            (b, cfg.frontend_tokens, cfg.d_model), device=dev, generator=gen)
+        r["vision_positions"] = cfg.frontend_tokens
     eng = Engine(model, params, b, s + steps)
-    nxt, cache = eng.prefill(tokens)              # warm-up, not counted
+    nxt, cache = eng.prefill(tokens, extra)       # warm-up, not counted
     eng.decode(cache, nxt, s, 2)
     del nxt, cache
     torch.cuda.synchronize()
@@ -878,7 +980,7 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     for k in ops.LAUNCHES:
         ops.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    nxt, cache = eng.prefill(tokens)
+    nxt, cache = eng.prefill(tokens, extra)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     r["launches_in_prefill"] = dict(ops.LAUNCHES)
@@ -897,11 +999,15 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     r["decode_ms_per_step"] = (t3 - t2) * 1e3 / steps
     r["decode_tok_s"] = b * steps / (t3 - t2)
     out = torch.cat([nxt, rest], dim=1)                   # [B, steps + 1]
-    check(r["launches"][kernel] == n_kernel
-          and r["launches_in_prefill"][kernel] == n_kernel,
-          f"serve launched {kernel} {r['launches'][kernel]} times "
-          f"({r['launches_in_prefill'][kernel]} in the prefill), not "
-          f"{n_kernel} (all in the prefill)")
+    if kernel is None:
+        check(not any(r["launches"].values()), f"{cfg.name} launched a "
+              f"kernel in its prefill or decode: {r['launches']}")
+    else:
+        check(r["launches"][kernel] == n_kernel
+              and r["launches_in_prefill"][kernel] == n_kernel,
+              f"serve launched {kernel} {r['launches'][kernel]} times "
+              f"({r['launches_in_prefill'][kernel]} in the prefill), not "
+              f"{n_kernel} (all in the prefill)")
     check(out.shape == (b, steps + 1) and bool(
         ((out >= 0) & (out < cfg.vocab)).all()), "tokens out of range")
 
@@ -922,19 +1028,23 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     r["tasked_equals_engine"] = True
 
     # -- prefill through the kernel vs the plain path on the card --
-    r["prefill_kernel_vs_plain"] = {"bf16": prefill_vs_plain(
-        model, params, tokens, tols["bf16"], flag)}
+    r["prefill_kernel_vs_plain"] = {}
+    if flag is not None:
+        r["prefill_kernel_vs_plain"]["bf16"] = prefill_vs_plain(
+            model, params, tokens, extra, tols["bf16"], flag)
 
     # -- greedy decode vs argmax of a full forward over prompt + tokens --
     r["greedy_vs_full_forward"] = greedy_vs_full_forward(model, params,
-                                                         tokens, out)
+                                                         tokens, extra, out)
     del cache
-    r["trace"] = serve_trace(eng, tokens, trace_name)
-    share = r["trace"]["prefill"].get(f"{trace_name}_share_of_busy", 0.0)
-    check(share > 0, f"no {trace_name!r} kernel time in the traced prefill "
-          f"({r['trace']['prefill']})")
-    # the same prefill check with float32 weights (at ``f32_layers``
-    # where the full depth does not fit): the bf16 ones go
+    r["trace"] = serve_trace(eng, tokens, trace_name, extra)
+    if trace_name is not None:
+        share = r["trace"]["prefill"].get(f"{trace_name}_share_of_busy",
+                                          0.0)
+        check(share > 0, f"no {trace_name!r} kernel time in the traced "
+              f"prefill ({r['trace']['prefill']})")
+    # the same checks with float32 weights (at ``f32_layers`` where the
+    # full depth does not fit): the bf16 ones go
     del eng, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -944,16 +1054,19 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
         model.flags, param_dtype=torch.float32))
     params32 = model32.init(torch.Generator(device=dev).manual_seed(SEED),
                             dev)
-    r["prefill_kernel_vs_plain"]["f32"] = prefill_vs_plain(
-        model32, params32, tokens, tols["f32"], flag)
-    r["prefill_kernel_vs_plain"]["f32"]["layers"] = cfg32.n_layers
+    if flag is not None:
+        r["prefill_kernel_vs_plain"]["f32"] = prefill_vs_plain(
+            model32, params32, tokens, extra, tols["f32"], flag)
+        r["prefill_kernel_vs_plain"]["f32"]["layers"] = cfg32.n_layers
     # and greedy decode with them, where bf16 noise cannot flip a token
-    out32 = Engine(model32, params32, b, s + steps).generate(tokens,
-                                                             steps + 1)
+    out32 = Engine(model32, params32, b, s + steps).generate(
+        tokens, steps + 1, extra)
     r["greedy_vs_full_forward"]["f32"] = greedy_vs_full_forward(
-        model32, params32, tokens, out32)
+        model32, params32, tokens, extra, out32)
     r["greedy_vs_full_forward"]["f32"]["layers"] = cfg32.n_layers
-    del params32, model32, tokens, out32
+    if RGLRU in cfg.layer_pattern:
+        r["rglru"] = rglru_checks(model32, params32, b, s)
+    del params32, model32, tokens, out32, extra
     gc.collect()
     torch.cuda.empty_cache()
     raw = torch.cuda.memory_allocated()
@@ -966,9 +1079,59 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     return r
 
 
-def greedy_vs_full_forward(model, params, tokens, out) -> dict:
+def rglru_checks(model32, params32, b: int, s: int) -> dict:
+    """Phase 11's RG-LRU checks with the float32 weights at full width: the
+    first RG-LRU layer's prefill over ``RGLRU_SEQ_STEPS`` positions against
+    as many decode steps of it (outputs and final state within
+    ``RGLRU_SEQ_TOL``, as the JAX package's test holds its scan); and the
+    time of the prefill's recurrence (``linear_scan`` over [b, s, width]
+    float32, by CUDA events, less the two input copies the timing loop
+    makes)."""
+    from repro_torch.models import rglru as R
+    cfg = model32.cfg
+    dev = torch.device("cuda")
+    lp = {k: v[0] for k, v in params32.tree()["periods"]["0"]["rglru"]
+          .items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    u = torch.randn((b, RGLRU_SEQ_STEPS, cfg.d_model), generator=gen,
+                    device=dev)
+    full, fc = R.rglru_layer(lp, u, rcfg=cfg.rglru, mode="prefill")
+    cache = R.init_rglru_cache(b, cfg.d_model, cfg.rglru,
+                               dtype=torch.float32, device=dev)
+    steps = []
+    for t in range(RGLRU_SEQ_STEPS):
+        y, cache = R.rglru_layer(lp, u[:, t:t + 1], rcfg=cfg.rglru,
+                                 mode="decode", cache=cache)
+        steps.append(y)
+    seq = torch.cat(steps, dim=1)
+    err = (seq - full).abs().max().item()
+    state_err = (cache["state"] - fc["state"]).abs().max().item()
+    check(bool(torch.isfinite(full).all()), "RG-LRU prefill: non-finite")
+    check(bool(torch.allclose(seq, full, rtol=RGLRU_SEQ_TOL,
+                              atol=RGLRU_SEQ_TOL))
+          and bool(torch.allclose(cache["state"], fc["state"],
+                                  rtol=RGLRU_SEQ_TOL, atol=RGLRU_SEQ_TOL)),
+          f"RG-LRU scan against {RGLRU_SEQ_STEPS} decode steps outside "
+          f"{RGLRU_SEQ_TOL} (max err {err}, state {state_err})")
+    del full, fc, cache, steps, seq, u
+    width = cfg.rglru.lru_width or cfg.d_model
+    a = torch.exp(-0.1 * torch.rand((b, s, width), generator=gen,
+                                    device=dev))
+    bt = torch.randn((b, s, width), generator=gen, device=dev)
+    copies = time_ms(lambda: (a.clone(), bt.clone()), 5)
+    scan = time_ms(lambda: R.linear_scan(a.clone(), bt.clone()), 5)
+    del a, bt
+    return {"scan_vs_decode_steps": RGLRU_SEQ_STEPS,
+            "scan_vs_decode_max_abs_err": err,
+            "scan_vs_decode_state_max_abs_err": state_err,
+            "tol": RGLRU_SEQ_TOL, "scan_shape": [b, s, width],
+            "scan_ms": scan - copies, "scan_input_copies_ms": copies}
+
+
+def greedy_vs_full_forward(model, params, tokens, extra, out) -> dict:
     """The Engine's greedy tokens ``out`` [B, steps + 1] after ``tokens``
-    [B, S] against the logits of one forward over prompt + tokens: at
+    [B, S] (with the prefill's ``extra`` inputs) against the logits of one
+    forward over prompt + tokens (with the same ``extra``): at
     least ``GREEDY_MIN_AGREEMENT`` of them agree (their logit is the
     forward's best) and none lies more than ``GREEDY_MAX_SHORTFALL``
     below it."""
@@ -989,7 +1152,7 @@ def greedy_vs_full_forward(model, params, tokens, out) -> dict:
                                         flash_block=blk)
         r["full_forward_block"] = blk
     fwd = build_model(cfg, fwd_flags)
-    hidden, _ = fwd.apply(params, {"tokens": full}, mode="train")
+    hidden, _ = fwd.apply(params, {**extra, "tokens": full}, mode="train")
     logits = fwd.unembed(params, hidden[:, s - 1:]).float()  # [B, steps+1, V]
     del hidden
     top2 = logits.topk(2, dim=-1).values
@@ -1606,15 +1769,32 @@ def collective_checks(mesh) -> dict:
     return out
 
 
-def prefill_vs_plain(model, params, tokens, tol: float, flag: str) -> dict:
+def layers_of(arch: str, kind: str) -> int:
+    """The number of ``kind`` layers in ``arch``'s configuration."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == kind
+               for i in range(cfg.n_layers))
+
+
+def window_share(arch: str, window_ms: float, prefill_ms: float) -> float:
+    """The share of a prefill that its local layers' window path takes:
+    their number times one window call's time at the prefill's shapes
+    (phase 2's window row), over the prefill's time."""
+    return layers_of(arch, "local_attn") * window_ms / prefill_ms
+
+
+def prefill_vs_plain(model, params, tokens, extra, tol: float,
+                     flag: str) -> dict:
     """The prefill's final hidden state through the kernel against the same
     prefill with the kernel ``flag`` off (the plain path)."""
     import dataclasses
     from repro_torch.models import build_model
-    x_on, _ = model.apply(params, {"tokens": tokens}, mode="prefill")
+    batch = {**extra, "tokens": tokens}
+    x_on, _ = model.apply(params, batch, mode="prefill")
     off = build_model(model.cfg, dataclasses.replace(model.flags,
                                                      **{flag: False}))
-    x_off, _ = off.apply(params, {"tokens": tokens}, mode="prefill")
+    x_off, _ = off.apply(params, batch, mode="prefill")
     x_on, x_off = x_on.float(), x_off.float()
     check(bool(torch.isfinite(x_on).all()), "non-finite prefill hidden state")
     rel = ((x_on - x_off).norm() / x_off.norm()).item()
@@ -1686,6 +1866,11 @@ def main() -> int:
     res = kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_lib)
     for key, r in res.items():
         print(f"kernel {key}: {json.dumps(r)}")
+    # the local layers' window path (plain torch, as in the JAX package)
+    window = window_checks(gen, bf16)
+    print(f"window ({card}): {json.dumps(window)}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- phase 3: double DGEMM through the runtime -----------------------------
     rt = Runtime(RuntimeConfig())
@@ -1801,7 +1986,21 @@ def main() -> int:
 
     # -- phase 10: gemma3-27b serving at full width and depth ------------
     gemma = serve_phase(ops, Runtime, RuntimeConfig, 10)
+    gemma["window_share_of_prefill"] = window_share(
+        GEMMA_ARCH, window["gemma3"]["ms"], gemma["prefill_ms"])
     print(f"serve gemma3 ({card}): " + json.dumps(gemma))
+
+    # -- phase 11: recurrentgemma-9b serving at full width and depth -----
+    rg = serve_phase(ops, Runtime, RuntimeConfig, 11)
+    rg["window_share_of_prefill"] = window_share(
+        RG_ARCH, window["recurrentgemma"]["ms"], rg["prefill_ms"])
+    rg["rglru"]["scan_share_of_prefill"] = layers_of(RG_ARCH, "rglru") * \
+        rg["rglru"]["scan_ms"] / rg["prefill_ms"]
+    print(f"serve recurrentgemma ({card}): " + json.dumps(rg))
+
+    # -- phase 12: pixtral-12b serving at full width and depth -----------
+    pix = serve_phase(ops, Runtime, RuntimeConfig, 12)
+    print(f"serve pixtral ({card}): " + json.dumps(pix))
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],

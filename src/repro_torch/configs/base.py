@@ -5,8 +5,9 @@ Every ported architecture has one module in this package exporting
 ``CONFIG`` (the exact published configuration) and ``smoke_config()`` (a
 reduced same-family configuration for CPU tests). The port carries the
 decoder-only configurations its serving path runs (dense attention stacks,
-global or local and global, and the Mamba-2 SSD stack); the others are
-still to be ported (``ROADMAP.md``).
+global or local and global, the vision-embedding backbone, the Mamba-2 SSD
+stack and the RG-LRU + local attention hybrid); the others are still to be
+ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,13 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    lru_width: int = 0          # 0 → d_model
+    conv_width: int = 4
+    expand: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                 # dense | moe | ssm | hybrid | vlm | audio
@@ -54,11 +62,11 @@ class ModelConfig:
     tie_embeddings: bool = False
     # gating MLP (SwiGLU) unless False → GELU MLP (whisper)
     gated_mlp: bool = True
-    # MoE / RG-LRU sub-configs of the families not ported yet; None in
-    # every ported configuration
+    # the MoE sub-config of the family not ported yet; None in every
+    # ported configuration
     moe: Optional[Any] = None
     ssm: Optional[SSMConfig] = None
-    rglru: Optional[Any] = None
+    rglru: Optional[RGLRUConfig] = None
     # encoder-decoder (whisper): encoder layers use bidirectional attention,
     # decoder layers add cross attention.
     enc_dec: bool = False
@@ -81,8 +89,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks + norms), as the
-        JAX package counts it, for stacks of attention + MLP and of SSD
-        layers."""
+        JAX package counts it, for stacks of attention + MLP, SSD and
+        RG-LRU + MLP layers."""
         d, hd = self.d_model, self.resolved_head_dim
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
@@ -94,6 +102,9 @@ class ModelConfig:
             in_proj = d * (2 * di + 2 * self.ssm.ngroups * self.ssm.d_state
                            + nh)
             per_layer[SSD] = in_proj + di * d + di * self.ssm.conv_width
+        if self.rglru is not None:
+            w = self.rglru.lru_width or d
+            per_layer[RGLRU] = 2 * d * w + w * d + 3 * w + mlp
         total = emb
         for i in range(self.n_layers):
             kind = self.layer_pattern[i % len(self.layer_pattern)]
@@ -129,8 +140,8 @@ def canon(arch_id: str) -> str:
 
 
 # the architectures whose every layer kind the port runs
-PORTED_ARCH_IDS = ("gemma3_27b", "phi4_mini_3_8b", "codeqwen15_7b", "yi_9b",
-                   "mamba2_370m")
+PORTED_ARCH_IDS = ("recurrentgemma_9b", "gemma3_27b", "phi4_mini_3_8b",
+                   "codeqwen15_7b", "yi_9b", "pixtral_12b", "mamba2_370m")
 
 
 def _module(arch_id: str):

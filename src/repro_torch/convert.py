@@ -3,8 +3,8 @@
 ``to_torch`` and ``to_numpy`` move numpy arrays (a Jacobi domain, DGEMM
 operands, hetero-object values) into and out of torch tensors with the
 dtype mapped both ways. ``lm_from_jax`` and ``cache_from_jax`` carry the
-JAX package's model weights and caches (KV, or SSD conv and state), handed
-over as trees of numpy arrays, into the port's layout.
+JAX package's model weights and caches (KV, or SSD and RG-LRU conv and
+state), handed over as trees of numpy arrays, into the port's layout.
 
 bfloat16 has no numpy dtype of its own. Where a numpy bfloat16 exists (it is
 registered by whichever package provides it, e.g. the one JAX ships with), it
@@ -96,8 +96,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-# block layouts the port runs: attention + MLP, and Mamba-2 SSD
-_BLOCK_KEYS = ({"norm1", "attn", "norm2", "mlp"}, {"norm1", "ssd"})
+# block layouts the port runs: attention + MLP, Mamba-2 SSD, RG-LRU + MLP
+_BLOCK_KEYS = ({"norm1", "attn", "norm2", "mlp"}, {"norm1", "ssd"},
+               {"norm1", "rglru", "norm2", "mlp"})
+# KV caches; SSD and RG-LRU caches (conv inputs, float32 state)
 _CACHE_KEYS = ({"k", "v"}, {"conv", "state"})
 
 
@@ -136,8 +138,11 @@ def lm_from_jax(tree: dict, device="cpu"):
     whose leaves carry the leading period axis, and ``rem_{i}`` blocks.
     Blocks are ``norm1``, ``attn``, ``norm2``, ``mlp`` for attention,
     ``norm1`` and ``ssd`` (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``,
-    ``D``, ``dt_bias``, ``norm``, ``out_proj``) for SSD. Names and layouts
-    map one to one; values keep their dtype."""
+    ``D``, ``dt_bias``, ``norm``, ``out_proj``) for SSD, ``norm1``,
+    ``rglru`` (``in_x``, ``in_gate``, ``conv_w``, ``conv_b``, ``w_r``,
+    ``b_r``, ``w_i``, ``b_i``, ``lam``, ``out``), ``norm2``, ``mlp`` for
+    RG-LRU. Names and layouts map one to one; values keep their dtype
+    (float32 leaves stay float32 under bf16 weights)."""
     from repro_torch.models.transformer import ParamTree, put_path
     extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"}
                    - {k for k in tree if k.startswith("rem_")})
@@ -157,8 +162,9 @@ def cache_from_jax(tree: dict, device="cpu") -> dict:
     tuple of one block per position, and ``rem_{i}``): for a one-layer
     period ``{"k", "v"}: [L, B, T, KH, D]`` for a KV cache, ``{"conv": [L,
     B, W-1, C], "state": [L, B, H, P, N]}`` for an SSD cache; for a longer
-    one the same blocks under ``periods`` ("0", "1", ...) and
-    ``rem_{i}``."""
+    one the same blocks under ``periods`` ("0", "1", ...) and ``rem_{i}``,
+    an RG-LRU layer's as ``{"conv": [B, K-1, W], "state": [B, W]}`` (with
+    the leading period axis under ``periods``). Values keep their dtype."""
     from repro_torch.models.transformer import put_path
     out: dict = {}
     for path, block in _blocks_of(tree, _CACHE_KEYS, "cache",

@@ -7,16 +7,23 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
         --smoke --device cpu --prompt-len 40 --gen 24
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
+        --smoke --device cpu
 
 Serves the dense attention configurations (global, or gemma3-27b's local
-and global layers) and mamba2-370m. Runs on the CUDA card unless
+and global layers), pixtral-12b (its vision frontend a stub: ``main``
+passes zero ``vision_embeds`` for the first ``frontend_tokens``
+positions, as the JAX package's does), mamba2-370m and recurrentgemma-9b
+(RG-LRU and local attention layers). Runs on the CUDA card unless
 ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,9 +38,10 @@ class Engine:
     D]`` (stacked over layers); the prefill writes slots ``[0, S)`` and
     each decode step writes slot ``lengths[b]``, all in place. A local
     layer's cache is a ring of ``min(window, max_len)`` slots written at
-    ``position % slots``. An SSD stack's cache (``conv`` ``[L, B, W-1, C]``
-    and ``state`` ``[L, B, H, P, N]``) does not grow with length: the
-    prefill and every decode step overwrite it in place."""
+    ``position % slots`` (the JAX Engine's ``grow``, which pads a ring no
+    longer than the prompt out to ``max_len``, is not copied). An SSD or
+    RG-LRU layer's cache (``conv`` and ``state``) does not grow with
+    length: the prefill and every decode step overwrite it in place."""
 
     def __init__(self, model, params, batch: int, max_len: int):
         self.model = model
@@ -43,16 +51,19 @@ class Engine:
         self._prefill = make_prefill_step(model)
         self._decode = make_decode_step(model)
 
-    def prefill(self, tokens: torch.Tensor
+    def prefill(self, tokens: torch.Tensor,
+                extra: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens [B,S] → (next token [B,1] int32, cache after the
-        prefill)."""
+        prefill). ``extra`` (e.g. ``{"vision_embeds": [B, n_tok, D]}``)
+        joins the prefill's batch."""
         b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(f"prompt of {s} tokens exceeds max_len "
                              f"{self.max_len}")
         cache = self.model.init_cache(b, self.max_len, tokens.device)
-        return self._prefill(self.params, {"tokens": tokens}, cache)
+        return self._prefill(self.params, {**(extra or {}), "tokens": tokens},
+                             cache)
 
     def decode(self, cache: Dict[str, torch.Tensor], cur: torch.Tensor,
                length: int, steps: int) -> torch.Tensor:
@@ -70,10 +81,13 @@ class Engine:
             out.append(cur)
         return torch.cat(out, dim=1) if out else cur[:, :0]
 
-    def generate(self, tokens: torch.Tensor, gen: int) -> torch.Tensor:
+    def generate(self, tokens: torch.Tensor, gen: int,
+                 extra: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
         """``gen`` tokens per request: the prefill's, then ``gen - 1``
-        decode steps. Returns [B, gen] int32."""
-        nxt, cache = self.prefill(tokens)
+        decode steps. ``extra`` joins the prefill's batch only, as in the
+        JAX Engine. Returns [B, gen] int32."""
+        nxt, cache = self.prefill(tokens, extra)
         rest = self.decode(cache, nxt, tokens.shape[1], gen - 1)
         return torch.cat([nxt, rest], dim=1)
 
@@ -99,8 +113,12 @@ def main(argv=None):
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator(device).manual_seed(1),
                            device=device)
+    extra = {}
+    if cfg.frontend == "vision":
+        extra["vision_embeds"] = torch.zeros(
+            (args.batch, cfg.frontend_tokens, cfg.d_model), device=device)
     t0 = time.perf_counter()
-    out = eng.generate(tokens, args.gen)
+    out = eng.generate(tokens, args.gen, extra)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

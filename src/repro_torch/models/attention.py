@@ -16,7 +16,9 @@
   combined over a mesh axis of ``distributed.spmd``).
 
 The JAX package computes the last three outside any Pallas kernel, and so
-they are plain torch here, with float32 scores. Caches for local-attention
+they are plain torch here, with float32 scores. Their products take the
+operands in their own dtype with a float32 result (``bmm_f32``), as the JAX
+package's ``preferred_element_type`` does. Caches for local-attention
 layers are ring buffers of ``min(window, capacity)`` slots. Cross-attention
 (``kv_override``) is not ported yet (ROADMAP.md Queue 1 item 6).
 """
@@ -52,6 +54,23 @@ def attn_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
         "wo": L.normal(gen, lead + (n_heads, head_dim, d_model), s_out,
                        dtype, device),
     }
+
+
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm`` of two operands of one dtype with a float32 result. On
+    the card the operands stay as they are and the products accumulate in
+    float32 (``aten::bmm.dtype``); the CPU has no kernel for that, and
+    there ``bmm_f32_upcast`` casts them first. A product of two bf16
+    values is exact in float32, so both compute one function, up to the
+    order of the float32 sums."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return bmm_f32_upcast(a, b)
+
+
+def bmm_f32_upcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``bmm_f32`` with the operands cast to float32 first."""
+    return torch.bmm(a.float(), b.float())
 
 
 def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -101,27 +120,39 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s_orig, s = s, s + pad
     nb = s // w
 
-    qr = q.reshape(b, nb, w, kh, g, d)
-    kr = k.reshape(b, nb, w, kh, d)
-    vr = v.reshape(b, nb, w, kh, d)
-    # previous block (zeros for block 0, masked out by positions)
-    kcat = torch.cat([torch.cat([torch.zeros_like(kr[:, :1]), kr[:, :-1]],
-                                dim=1), kr], dim=2)          # [b,nb,2w,kh,d]
-    vcat = torch.cat([torch.cat([torch.zeros_like(vr[:, :1]), vr[:, :-1]],
-                                dim=1), vr], dim=2)
+    # the blocks as one batch of products over (b, block, kv head): q
+    # [., w*g, d]; k and v [., 2w, d], each block after the one before it
+    # (zeros before block 0, masked out by positions), read from a strided
+    # view of k and v padded by one block in front
+    qb = q.reshape(b, nb, w, kh, g, d).permute(0, 1, 3, 2, 4, 5).reshape(
+        b * nb * kh, w * g, d)
+
+    def band(x):
+        xp = F.pad(x, (0, 0, 0, 0, w, 0))                     # [b,s+w,kh,d]
+        st = xp.stride()
+        view = xp.as_strided((b, nb, kh, 2 * w, d),
+                             (st[0], w * st[1], st[2], st[1], st[3]))
+        return view.reshape(b * nb * kh, 2 * w, d)
 
     pos = positions.reshape(nb, w)
     pprev = torch.cat([torch.full_like(pos[:1], -10**9), pos[:-1]], dim=0)
     pcat = torch.cat([pprev, pos], dim=1)                     # [nb,2w]
-
-    sc = torch.einsum("bnqkgd,bnckd->bnqkgc", qr.float(), kcat.float())
-    sc.mul_(d ** -0.5)
     valid = (pcat[:, None, :] <= pos[:, :, None]) & \
             (pos[:, :, None] - pcat[:, None, :] < w)           # [nb,w,2w]
-    sc.masked_fill_(~valid[None, :, :, None, None, :], NEG_INF)
-    p = torch.softmax(sc, dim=-1).to(vcat.dtype)
-    del sc
-    out = torch.einsum("bnqkgc,bnckd->bnqkgd", p.float(), vcat.float())
+
+    # the float32 scores scaled and masked in place; the softmax (one pass,
+    # where an in-place one takes four) into a second tile, the first
+    # freed before p is rounded to v's dtype
+    sc = bmm_f32(qb, band(k).transpose(1, 2))
+    del qb
+    sc6 = sc.view(b, nb, kh, w, g, 2 * w)
+    sc6.mul_(d ** -0.5)
+    sc6.masked_fill_(~valid[None, :, None, :, None, :], NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    del sc, sc6
+    p = p.to(v.dtype)
+    out = bmm_f32(p, band(v))                                 # [.,w*g,d]
+    out = out.view(b, nb, kh, w, g, d).permute(0, 1, 3, 2, 4, 5)
     return out.reshape(b, s, kh, g, d).to(q.dtype)[:, :s_orig]
 
 
@@ -129,18 +160,34 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # Decode attention
 # ---------------------------------------------------------------------------
 
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Masked float32 scores [B,K,G,T] of q [B,K,G,D] against the cache
+    [B,T,K,D]: one product over (b, kv head), in the operands' dtype."""
+    b, kh, g, d = q.shape
+    t = k_cache.shape[1]
+    kt = k_cache.transpose(1, 2).reshape(b * kh, t, d)   # a view where kh = 1
+    sc = bmm_f32(q.reshape(b * kh, g, d), kt.transpose(1, 2))
+    sc = sc.view(b, kh, g, t).mul_(d ** -0.5)
+    return sc.masked_fill_(~valid[:, None, None, :], NEG_INF)
+
+
+def _decode_values(p: torch.Tensor, v_cache: torch.Tensor) -> torch.Tensor:
+    """p [B,K,G,T] (rounded to the cache's dtype) times the cache
+    [B,T,K,D]: float32 [B,K,G,D]."""
+    b, kh, g, t = p.shape
+    d = v_cache.shape[-1]
+    vt = v_cache.transpose(1, 2).reshape(b * kh, t, d)
+    out = bmm_f32(p.to(v_cache.dtype).reshape(b * kh, g, t), vt)
+    return out.view(b, kh, g, d)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *,
                      valid: torch.Tensor) -> torch.Tensor:
     """q: [B,K,G,D] (one step), cache: [B,T,K,D], valid: [B,T] bool."""
-    d = q.shape[-1]
-    sc = torch.einsum("bkgd,btkd->bkgt", q.float(),
-                      k_cache.float()) * d ** -0.5
-    sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
-    p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.to(q.dtype)
+    p = torch.softmax(_decode_scores(q, k_cache, valid), dim=-1)
+    return _decode_values(p, v_cache).to(q.dtype)
 
 
 def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
@@ -150,15 +197,11 @@ def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
     along T; partial attention is combined with a logsumexp reduction over
     ``axis_name``. Call inside ``spmd.shard_map``. Collective volume:
     O(B·H·D) per shard instead of gathering O(B·T·K·D) of cache."""
-    d = q.shape[-1]
-    sc = torch.einsum("bkgd,btkd->bkgt", q.float(),
-                      k_cache.float()) * d ** -0.5
-    sc = sc.masked_fill(~valid[:, None, None, :], NEG_INF)
+    sc = _decode_scores(q, k_cache, valid)
     m_glob = spmd.pmax(sc.amax(dim=-1), axis_name)                 # [b,k,g]
     p = torch.exp(sc - m_glob[..., None])
     l_loc = p.sum(dim=-1)
-    o_loc = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
-                         v_cache.float())
+    o_loc = _decode_values(p, v_cache)
     l_glob = spmd.psum(l_loc, axis_name)
     o_glob = spmd.psum(o_loc, axis_name)
     out = o_glob / l_glob[..., None].clamp_min(1e-30)
@@ -251,7 +294,8 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     of ``use_pallas``; ``seq_shard_axis`` sends a global layer's decode
     through ``seq_sharded_decode``."""
     if kind not in ("global_attn", "local_attn"):
-        raise NotImplementedError(f"attention kind {kind!r} {_NOT_PORTED}")
+        raise ValueError(f"attention_layer: {kind!r} is not an attention "
+                         f"kind (global_attn, local_attn)")
     if kv_override is not None:
         raise NotImplementedError(f"kv_override {_NOT_PORTED}")
     local = kind == "local_attn"

@@ -1,6 +1,7 @@
 """Model facade (``repro/models/model_zoo.py`` at the same path), for the
 decoder-only architectures the port runs (dense attention stacks, global
-or local and global, and the Mamba-2 SSD stack).
+or local and global, with or without the vision embeddings, the Mamba-2
+SSD stack, and RG-LRU with local attention).
 
 ``Model`` exposes:
   init(gen, device)               -> ParamTree (the weights, an nn.Module)
@@ -8,8 +9,9 @@ or local and global, and the Mamba-2 SSD stack).
   init_cache(batch, cache_len, device) -> the cache tree: {"k", "v"} at
                                      capacity (a local layer's ring at
                                      min(window, cache_len)), or the SSD
-                                     cache {"conv", "state"}, whose size
-                                     does not depend on cache_len
+                                     or RG-LRU cache {"conv", "state"},
+                                     whose size does not depend on
+                                     cache_len
   unembed(params, x)              -> logits
 """
 from __future__ import annotations

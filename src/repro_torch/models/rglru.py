@@ -1,0 +1,175 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin) (``repro/models/rglru.py``
+at the same path).
+
+Temporal mixing block: two input branches (GeLU gate branch; conv1d + RG-LRU
+branch), merged multiplicatively, projected back. The RG-LRU recurrence
+
+    h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t),
+    a_t = exp(-c * softplus(Lambda) * r_t)
+
+is a linear recurrence in h. Train and prefill evaluate it with a log-depth
+scan (``linear_scan``: Hillis–Steele doubling, where the JAX package calls
+``jax.lax.associative_scan``), decode with a single-step update written into
+the cache in place. The recurrence and input gates use block-diagonal
+projections (``n_blocks`` heads) as in the paper. The JAX package computes
+all of it outside any Pallas kernel, and so it is plain torch here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import RGLRUConfig
+from repro_torch.models import layers as L
+
+_C = 8.0
+
+
+def rglru_init(gen, d_model: int, rcfg: RGLRUConfig, n_blocks: int, *,
+               dtype, device, lead: Tuple[int, ...] = ()
+               ) -> Dict[str, torch.Tensor]:
+    """Random weights from ``gen``; ``lead`` prepends stacking axes. The
+    biases and ``lam`` stay float32 whatever ``dtype``; ``lam`` is
+    deterministic, so that ``a ** c`` spans [0.9, 0.999] over channels."""
+    w = rcfg.lru_width or d_model
+    bd = w // n_blocks
+    lam = torch.log(torch.expm1(
+        -torch.log(torch.linspace(0.9, 0.999, w, dtype=torch.float32)) / _C))
+
+    def zeros(dt):
+        return torch.zeros(lead + (w,), dtype=dt, device=device)
+
+    return {
+        "in_x": L.dense_init(gen, d_model, w, dtype=dtype, device=device,
+                             lead=lead),
+        "in_gate": L.dense_init(gen, d_model, w, dtype=dtype, device=device,
+                                lead=lead),
+        "conv_w": L.normal(gen, lead + (rcfg.conv_width, w),
+                           1.0 / math.sqrt(rcfg.conv_width), dtype, device),
+        "conv_b": zeros(dtype),
+        "w_r": L.normal(gen, lead + (n_blocks, bd, bd), 1.0 / math.sqrt(bd),
+                        dtype, device),
+        "b_r": zeros(torch.float32),
+        "w_i": L.normal(gen, lead + (n_blocks, bd, bd), 1.0 / math.sqrt(bd),
+                        dtype, device),
+        "b_i": zeros(torch.float32),
+        "lam": lam.to(device).expand(lead + (w,)).clone(),
+        "out": L.dense_init(gen, w, d_model, dtype=dtype, device=device,
+                            lead=lead),
+    }
+
+
+def _block_diag(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: [B,S,W]; w: [H, W/H, W/H] block-diagonal projection, in x's
+    dtype."""
+    b, s, width = x.shape
+    h, bd, _ = w.shape
+    xr = x.reshape(b, s, h, bd)
+    return torch.einsum("bshi,hij->bshj", xr, w).reshape(b, s, width)
+
+
+def _gates(params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (log_a [B,S,W] fp32, gated_input [B,S,W] fp32)."""
+    r = torch.sigmoid(_block_diag(x, params["w_r"]).float() + params["b_r"])
+    i = torch.sigmoid(_block_diag(x, params["w_i"]).float() + params["b_i"])
+    log_a = -_C * F.softplus(params["lam"]) * r                # <= 0
+    gated = i * x.float()
+    return log_a, gated
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along dim 1 from h_{-1} = 0, in log depth:
+    Hillis–Steele doubling, combining (a1, b1) then (a2, b2) into
+    (a1 * a2, a2 * b1 + b2) at offsets 1, 2, 4, .... It multiplies the
+    a's (each in (0, 1]) and never exponentiates a sum of logs, which over
+    thousands of steps leaves float32's range. Each pass writes into a
+    second buffer (the two swap), so no pass reads what it writes. May
+    overwrite ``a`` and ``b``; returns h."""
+    s = a.shape[1]
+    a2, b2 = torch.empty_like(a), torch.empty_like(b)
+    off = 1
+    while off < s:
+        b2[:, :off] = b[:, :off]
+        torch.addcmul(b[:, off:], a[:, off:], b[:, :-off], out=b2[:, off:])
+        b, b2 = b2, b
+        if 2 * off < s:        # the last pass needs no products of a
+            a2[:, :off] = a[:, :off]
+            torch.mul(a[:, off:], a[:, :-off], out=a2[:, off:])
+            a, a2 = a2, a
+        off *= 2
+    return b
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv in x's dtype. x: [B,S,W]; w: [K,W]; state:
+    the last K-1 inputs [B,K-1,W] or None (zeros). The sum of the shifted
+    products in the JAX package's order, then the bias. Returns (y, new
+    state)."""
+    width = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    xp = torch.cat([state, x], dim=1)
+    s = x.shape[1]
+    y = sum(xp[:, i:i + s] * w[i] for i in range(width)) + b
+    return y, xp[:, xp.shape[1] - (width - 1):]
+
+
+def rglru_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
+                rcfg: RGLRUConfig, mode: str,
+                cache: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """u: [B,S,D]. mode: train | prefill | decode. cache: {"conv":
+    [B,K-1,W] in the weight dtype, "state": [B,W] fp32}. A prefill starts
+    from the cache's conv inputs and state where it is given one, from
+    zeros otherwise; a decode needs it. With a cache, prefill and decode
+    write the new conv inputs and state into it in place (tensor ops only,
+    so a CUDA graph can capture a decode step) and return it; a prefill
+    without one returns new tensors; train returns None."""
+    gate = F.gelu(u @ params["in_gate"], approximate="tanh")
+    x = u @ params["in_x"]
+    x, new_conv = _causal_conv(x, params["conv_w"], params["conv_b"],
+                               None if cache is None else cache["conv"])
+
+    log_a, gated = _gates(params, x)
+    a = torch.exp(log_a)
+    b_term = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
+                                        1e-12)) * gated
+    if mode in ("train", "prefill"):
+        if cache is not None:
+            b_term[:, 0] += a[:, 0] * cache["state"].float()
+        h = linear_scan(a, b_term)
+    elif mode == "decode":
+        if cache is None:
+            raise ValueError("rglru_layer: decode needs a cache")
+        h = a * cache["state"].float()[:, None] + b_term         # [B,1,W]
+    else:
+        raise ValueError(mode)
+    new_cache = None
+    if mode != "train":
+        if cache is None:
+            new_cache = {"conv": new_conv, "state": h[:, -1]}
+        else:
+            cache["conv"].copy_(new_conv)
+            cache["state"].copy_(h[:, -1])
+            new_cache = cache
+
+    y = h.to(u.dtype) * gate
+    return y @ params["out"], new_cache
+
+
+def init_rglru_cache(batch: int, d_model: int, rcfg: RGLRUConfig, *, dtype,
+                     device, lead: Tuple[int, ...] = ()
+                     ) -> Dict[str, torch.Tensor]:
+    """Zeroed cache: conv inputs in ``dtype``, the state in float32."""
+    w = rcfg.lru_width or d_model
+    return {
+        "conv": torch.zeros(lead + (batch, rcfg.conv_width - 1, w),
+                            dtype=dtype, device=device),
+        "state": torch.zeros(lead + (batch, w), dtype=torch.float32,
+                             device=device),
+    }

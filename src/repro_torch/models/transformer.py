@@ -1,6 +1,8 @@
 """Decoder-only LM assembly (``repro/models/transformer.py`` at the same
 path), for stacks of attention layers (global, or a pattern of local and
-global, each + MLP) and of Mamba-2 SSD blocks (no MLP, no ``norm2``).
+global, each + MLP), of Mamba-2 SSD blocks (no MLP, no ``norm2``) and of
+RG-LRU and local attention layers (each + MLP), with the vision frontend's
+precomputed embeddings written over the head of the sequence.
 
 As in the JAX package, the layer stack is ``cfg.layer_pattern`` (a
 repeating period, e.g. 5 x local_attn + 1 x global_attn for gemma3)
@@ -12,7 +14,9 @@ and so is the cache. Where the period is one layer the stack sits at
 attention, ``{"conv": [L, B, W-1, C], "state": [L, B, H, P, N]}`` for SSD.
 A longer period keeps the JAX package's tree: ``periods`` (one entry per
 position, keyed "0", "1", ...) and ``rem_{i}``, in the parameters and the
-cache alike; a local layer's cache has ``min(window, capacity)`` slots.
+cache alike; a local layer's cache has ``min(window, capacity)`` slots, an
+RG-LRU layer's is ``{"conv": [B, K-1, W], "state": [B, W]}`` (the state in
+float32).
 The stack runs as a Python loop over layer views, where the JAX package
 scans. The weights live in a ``ParamTree`` module; the apply functions are
 plain functions over it, like their JAX counterparts.
@@ -25,9 +29,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import GLOBAL_ATTN, LOCAL_ATTN, SSD, ModelConfig
+from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
+                                      ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
 
@@ -63,17 +69,18 @@ _NOT_PORTED = "not ported yet (see ROADMAP.md Queue 1 item 6)"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.enc_dec or cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder and "
+    if cfg.enc_dec or cfg.frontend not in ("none", "vision"):
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder and audio "
                                   f"frontend models are {_NOT_PORTED}")
     if cfg.moe is not None:
         raise NotImplementedError(f"{cfg.name}: MoE blocks are {_NOT_PORTED}")
     kinds = set(cfg.layer_pattern)
-    if not (kinds <= {GLOBAL_ATTN, LOCAL_ATTN} or kinds == {SSD}):
+    if not (kinds <= {GLOBAL_ATTN, LOCAL_ATTN} or kinds == {SSD}
+            or kinds <= {RGLRU, LOCAL_ATTN}):
         raise NotImplementedError(f"{cfg.name}: layer kinds {sorted(kinds)} "
                                   f"(only attention stacks, global and "
-                                  f"local, or all-SSD stacks run) are "
-                                  f"{_NOT_PORTED}")
+                                  f"local, all-SSD stacks and RG-LRU with "
+                                  f"local attention run) are {_NOT_PORTED}")
 
 
 class ParamTree(nn.Module):
@@ -108,7 +115,8 @@ def _at(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# Per-layer block = attention + MLP, or SSD alone; pre-norm residual
+# Per-layer block = (attention | RG-LRU) + MLP, or SSD alone; pre-norm
+# residual
 # ---------------------------------------------------------------------------
 
 def block_init(gen, cfg: ModelConfig, kind: str, *, dtype, device,
@@ -117,11 +125,16 @@ def block_init(gen, cfg: ModelConfig, kind: str, *, dtype, device,
         return {"norm1": L.scale_init(cfg.d_model, device=device, lead=lead),
                 "ssd": S.ssd_init(gen, cfg.d_model, cfg.ssm, dtype=dtype,
                                   device=device, lead=lead)}
+    if kind == RGLRU:
+        mix = {"rglru": R.rglru_init(gen, cfg.d_model, cfg.rglru, cfg.n_heads,
+                                     dtype=dtype, device=device, lead=lead)}
+    else:
+        mix = {"attn": A.attn_init(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.resolved_head_dim,
+                                   dtype=dtype, device=device, lead=lead)}
     return {
         "norm1": L.scale_init(cfg.d_model, device=device, lead=lead),
-        "attn": A.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                            cfg.resolved_head_dim, dtype=dtype,
-                            device=device, lead=lead),
+        **mix,
         "norm2": L.scale_init(cfg.d_model, device=device, lead=lead),
         "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
                           dtype=dtype, device=device, lead=lead),
@@ -140,11 +153,15 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                                      cache=cache,
                                      use_kernel=flags.use_ssd_kernel)
         return x + mix, new_cache
-    mix, new_cache = A.attention_layer(
-        p["attn"], h, kind=kind, window=cfg.window,
-        rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads, mode=mode,
-        lengths=lengths, cache=cache, seq_shard_axis=flags.seq_shard_kv,
-        use_kernel=flags.use_flash_kernel, flash_block=flags.flash_block)
+    if kind == RGLRU:
+        mix, new_cache = R.rglru_layer(p["rglru"], h, rcfg=cfg.rglru,
+                                       mode=mode, cache=cache)
+    else:
+        mix, new_cache = A.attention_layer(
+            p["attn"], h, kind=kind, window=cfg.window,
+            rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads, mode=mode,
+            lengths=lengths, cache=cache, seq_shard_axis=flags.seq_shard_kv,
+            use_kernel=flags.use_flash_kernel, flash_block=flags.flash_block)
     x = x + mix
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + L.mlp_apply(p["mlp"], h, cfg.gated_mlp), new_cache
@@ -156,6 +173,9 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
     if kind == SSD:
         return S.init_ssd_cache(batch, cfg.d_model, cfg.ssm, dtype=dtype,
                                 device=device, lead=lead)
+    if kind == RGLRU:
+        return R.init_rglru_cache(batch, cfg.d_model, cfg.rglru, dtype=dtype,
+                                  device=device, lead=lead)
     if kind == LOCAL_ATTN:
         cache_len = min(cfg.window, cache_len)
     return A.init_attn_cache(batch, cache_len, cfg.n_kv_heads,
@@ -239,8 +259,10 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
     ``embed`` [V, D], ``final_norm`` [D], ``unembed`` [D, V] (absent when
     tied) and the blocks (module docstring), each stacked leaf with a
     leading axis: ``norm1``, ``attn.{wq,wk,wv,wo}``, ``norm2``,
-    ``mlp.{wi,wo[,wg]}`` for attention, ``norm1``, ``ssd.{in_proj,conv_w,
-    conv_b,A_log,D,dt_bias,norm,out_proj}`` for SSD."""
+    ``mlp.{wi,wo[,wg]}`` for attention, the same with ``rglru.{in_x,
+    in_gate,conv_w,conv_b,w_r,b_r,w_i,b_i,lam,out}`` in place of ``attn``
+    for RG-LRU, ``norm1``, ``ssd.{in_proj,conv_w,conv_b,A_log,D,dt_bias,
+    norm,out_proj}`` for SSD."""
     _check_supported(cfg)
     dtype = flags.param_dtype
     params: Dict[str, Any] = {
@@ -263,8 +285,8 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                   ) -> Dict[str, Any]:
     """Zeroed cache (module docstring for the tree): a KV cache at capacity
     ``cache_len`` for a global layer, ``min(window, cache_len)`` slots for
-    a local one, or the SSD cache (float32 state), whose size does not
-    depend on ``cache_len``."""
+    a local one, or the SSD or RG-LRU cache (float32 state), whose size
+    does not depend on ``cache_len``."""
     _check_supported(cfg)
     cache: Dict[str, Any] = {}
     for _, cpath, kind, depth in _stacks(cfg):
@@ -272,6 +294,18 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
             cfg, kind, batch, cache_len, dtype=flags.param_dtype,
             device=device, lead=() if depth is None else (depth,)))
     return cache
+
+
+def _embed_inputs(p: Dict[str, Any], cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embeddings [B,S,D]; for the vision frontend, the batch's
+    precomputed ``vision_embeds`` [B, n_tok, D] (cast to the weight dtype)
+    over the first n_tok positions. Decode batches carry none."""
+    x = p["embed"][batch["tokens"].long()]
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"]
+        x[:, :ve.shape[1]] = ve.to(x.dtype)
+    return x
 
 
 def lm_apply(params, batch: Dict[str, torch.Tensor], *,
@@ -282,10 +316,12 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
     the caller. A prefill or decode with ``cache`` writes the new entries
     into it in place (KV slots, or each layer's conv and state) and returns
     it; a prefill without one returns a new cache (KV of length S, a local
-    layer's last window). ``params`` is a ``ParamTree`` or its ``tree()``."""
+    layer's last window). ``batch`` holds ``tokens`` [B,S], ``lengths`` [B]
+    in decode, and may hold ``vision_embeds`` (``_embed_inputs``).
+    ``params`` is a ``ParamTree`` or its ``tree()``."""
     p = _tree(params)
     lengths = batch.get("lengths")
-    x = p["embed"][batch["tokens"].long()]
+    x = _embed_inputs(p, cfg, batch)
     new_layers: Dict[Path, List[Dict[str, torch.Tensor]]] = {}
     for ppath, cpath, kind, i in _layers(cfg):
         bp = _get(p, ppath)

@@ -7,6 +7,8 @@ machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -857,3 +859,104 @@ def test_traced_gemma3_decode_equals_interpreted(cuda):
     np.testing.assert_array_equal(out[True][1], out[False][1])
     for k in out[False][2]:
         np.testing.assert_array_equal(out[True][2][k], out[False][2][k])
+
+
+def test_attention_products_on_bf16_operands_match_the_upcast(cuda,
+                                                              monkeypatch):
+    """``window_attention`` (a ragged prompt of 3.5 windows) and
+    ``decode_attention`` (GQA and MQA caches) on the card multiply the
+    bf16 operands with float32 results; with the products on float32
+    copies (the CPU's arm) they agree within 2e-2, flash's bf16 bound (the
+    float32 sum order can flip a bf16 rounding of p)."""
+    from repro_torch.models import attention as A
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cases = []
+    for kh, gq in ((2, 4), (1, 8)):
+        q = torch.randn((2, 224, kh, gq, 64), generator=g, device=cuda)
+        k, v = (torch.randn((2, 224, kh, 64), generator=g, device=cuda)
+                for _ in range(2))
+        pos = torch.arange(224, device=cuda)
+        cases.append((A.window_attention, (q, k, v),
+                      dict(positions=pos, window=64)))
+        valid = (torch.arange(224, device=cuda) < 150)[None].expand(2, 224)
+        cases.append((A.decode_attention, (q[:, 0], k, v), dict(valid=valid)))
+    for fn, args, kw in cases:
+        args = [x.bfloat16() for x in args]
+        got = fn(*args, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(A, "bmm_f32", A.bmm_f32_upcast)
+            want = fn(*args, **kw)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_recurrentgemma_serves_on_the_card(cuda):
+    """The recurrentgemma smoke model on the card: no kernel launch in a
+    prefill or decode (RG-LRU and window layers are plain torch), the
+    prefill within 1e-4 of the same weights on the CPU, and the tasked
+    decode loop under trace_graphs bit for bit the interpreted one over
+    the mixed cache."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    from repro_torch.serve import flatten, tasked_decode_loop
+    cfg = get_smoke_config("recurrentgemma-9b")
+    model = build_smoke(cfg, use_flash_kernel=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = dict(LAUNCHES)
+    x, _ = model.apply(params, {"tokens": toks}, mode="prefill")
+    x_cpu, _ = model.apply(copy.deepcopy(params).cpu(),
+                           {"tokens": toks.cpu()}, mode="prefill")
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=1e-4, atol=1e-4)
+    nxt, cache = Engine(model, params, 2, 60).prefill(toks)
+    out = {}
+    for traced in (False, True):
+        c = {}
+        for name, t in flatten(cache):
+            node = c
+            *path, last = name.split(".")
+            for key in path:
+                node = node.setdefault(key, {})
+            node[last] = t.clone()
+        with Runtime(RuntimeConfig(trace_graphs=traced)) as rt:
+            tok, lens, c_objs = tasked_decode_loop(
+                rt, model, params, c, nxt.clone(),
+                torch.full((2,), 40, dtype=torch.int32, device=cuda), 12)
+            out[traced] = (tok.get(), lens.get(),
+                           {k: o.get() for k, o in c_objs.items()})
+            if traced:
+                assert rt.stats()["graph_replays"] == 12 - 3
+    assert dict(LAUNCHES) == before
+    np.testing.assert_array_equal(out[True][0], out[False][0])
+    for k in out[False][2]:
+        np.testing.assert_array_equal(out[True][2][k], out[False][2][k])
+
+
+def test_pixtral_prefill_goes_through_the_kernel(cuda):
+    """The pixtral smoke model on the card with vision embeddings: one
+    flash launch a layer in a prefill of 128 tokens, the plain path's
+    hidden state, and none in decode."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    cfg = get_smoke_config("pixtral-12b")
+    on = build_smoke(cfg, use_flash_kernel=True)
+    off = build_smoke(cfg)
+    params = on.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 128), device=cuda, generator=g)
+    ve = 0.02 * torch.randn((2, cfg.frontend_tokens, cfg.d_model),
+                            device=cuda, generator=g)
+    batch = {"tokens": toks, "vision_embeds": ve}
+    n = LAUNCHES["flash_attention"]
+    x_on, _ = on.apply(params, batch, mode="prefill")
+    assert LAUNCHES["flash_attention"] == n + cfg.n_layers
+    x_off, _ = off.apply(params, batch, mode="prefill")
+    torch.testing.assert_close(x_on, x_off, rtol=1e-4, atol=1e-4)
+    out = Engine(on, params, 2, 160).generate(toks, 16,
+                                              {"vision_embeds": ve})
+    assert out.shape == (2, 16) and out.device.type == "cuda"
+    assert LAUNCHES["flash_attention"] == n + cfg.n_layers + cfg.n_layers

@@ -1,7 +1,7 @@
 """Parity of the port's serving path (``repro_torch.configs``, ``models``,
 ``serve`` and ``launch.serve``) with the JAX package's, for the dense
-configurations and mamba2-370m, at the smoke configurations, without a
-mesh.
+configurations, mamba2-370m, recurrentgemma-9b and pixtral-12b, at the
+smoke configurations, without a mesh.
 
 The same numpy inputs and the JAX package's own weights (carried across by
 ``repro_torch.convert.lm_from_jax``) go through both. The JAX Pallas flash
@@ -35,7 +35,8 @@ from repro_torch.models import layers as TL
 from repro_torch.serve import tasked_decode_loop
 
 TOL = 1e-4
-ARCHS = ("yi_9b", "phi4_mini_3_8b", "codeqwen15_7b", "mamba2_370m")
+ARCHS = ("yi_9b", "phi4_mini_3_8b", "codeqwen15_7b", "mamba2_370m",
+         "recurrentgemma_9b", "pixtral_12b")
 
 
 def _jax_model(arch, **flags):
@@ -70,11 +71,16 @@ def test_configs_equal_the_jax_packages(arch):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfigs.get_config("recurrentgemma-9b")
+    for arch in ("olmoe-1b-7b", "llama4-scout-17b-16e", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tconfigs.get_config(arch)
     with pytest.raises(ValueError):
         tconfigs.get_config("no-such-arch")
     assert tconfigs.get_config("yi-9b").param_count() == 8_829_403_136
+    assert tconfigs.get_config("recurrentgemma-9b").param_count() == \
+        9_572_032_512
+    assert tconfigs.get_config("pixtral-12b").param_count() == \
+        12_247_777_280
     assert tconfigs.get_config("mamba2-370m").param_count() == 368_123_904
 
 
@@ -187,16 +193,17 @@ def test_attention_layer_decode_matches_jax():
 
 
 def test_unported_attention_paths_raise():
-    """Cross-attention (``kv_override``) and the recurrent layer kinds are
-    not ported; local attention and seq-sharded decode are
-    (``test_torch_gemma3.py``)."""
+    """Cross-attention (``kv_override``) is not ported; local attention and
+    seq-sharded decode are (``test_torch_gemma3.py``). A recurrent layer
+    kind is not an attention kind: ``attention_layer`` refuses it (the
+    RG-LRU layer is ``models.rglru``, ``test_torch_rglru.py``)."""
     p = {k: to_torch(v) for k, v in _attn_params(0).items()}
     x = torch.zeros((1, 8, 48))
-    for kw in ({"kind": "rglru"},
-               {"kind": "global_attn", "kv_override": (x, x)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TA.attention_layer(p, x, rope_theta=1e4, n_kv_heads=2,
-                               mode="train", **kw)
+    kw = dict(rope_theta=1e4, n_kv_heads=2, mode="train")
+    with pytest.raises(ValueError, match="not an attention kind"):
+        TA.attention_layer(p, x, kind="rglru", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TA.attention_layer(p, x, kind="global_attn", kv_override=(x, x), **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -67,11 +67,25 @@ the port's main path through the tasking runtime:
     GB bf16): 4 prompts of 2048 whose first 256 positions carry seeded
     vision embeddings (40 ``flash_attention`` launches a prefill, none in
     decode) and 32 decode steps; yi-9b's checks, the full forward fed the
-    same embeddings, the float32 ones at full depth.
+    same embeddings, the float32 ones at full depth;
+  * MoE serving of olmoe-1b-7b at full width and depth (16 layers of 64
+    experts, top-8; 13.8 GB bf16) and of llama4-scout-17b-16e at full
+    width with 8 of its 48 layers (16 experts, top-1, a shared expert;
+    39.4 GB bf16, float32 checks at 4 layers): 4 prompts of 2048 (16 and
+    8 ``flash_attention`` launches a prefill, none in decode) and 32
+    steps, every MoE layer through ``moe_ep``'s dense fallback (no mesh,
+    as under the JAX Engine's 1x1 mesh); yi-9b's checks, a check between
+    two paths taking one path's expert choices in the other where
+    rounding reorders near-tied experts (the flips printed); the MoE
+    layers' routing, expert products and combine traced by name; then
+    one full-width MoE layer through ``moe_ep`` over four shards sharing
+    the card against the dense oracle, without and with dropped
+    assignments, in bf16 and float32.
     Every serving phase starts with the card nearly empty and must give
     its memory back. Beside phase 2, ``window_attention`` on bf16
     operands against its products on float32 copies at a gemma3 and a
-    recurrentgemma local layer's prefill shapes, both timed.
+    recurrentgemma local layer's prefill shapes, both timed; phase 2's
+    flash rows also run at olmoe's and llama4-scout's head layouts.
 
 Launch counters are zeroed just before each main-path run and read just
 after. The second-to-last line is a JSON object with one entry per kernel of
@@ -81,6 +95,7 @@ prints no result, on any failure or where there is no CUDA device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import gc
 import json
@@ -119,6 +134,25 @@ RGLRU_SEQ_STEPS, RGLRU_SEQ_TOL = 64, 1e-4
 # float32 checks at full depth (40 layers, 49.0 GB)
 PIX_ARCH, PIX_BATCH, PIX_PROMPT, PIX_STEPS = "pixtral-12b", 4, 2048, 32
 VISION_SCALE = 0.02
+# phase 13: olmoe-1b-7b at full width and depth (16 layers of 64 experts,
+# top-8; 13.84 GB bf16), float32 checks at full depth (27.7 GB). Phase 14:
+# llama4-scout-17b-16e at full width with 8 of its 48 layers (16 experts,
+# top-1, a shared expert; 39.4 GB bf16: 48 layers are 215.5 GB, more than
+# a card holds), float32 checks at 4 layers (43.5 GB). One card serves
+# through moe_ep's dense fallback (no mesh), as the JAX Engine's 1x1 mesh
+# does.
+MOE_ARCH, SCOUT_ARCH = "olmoe-1b-7b", "llama4-scout-17b-16e"
+SCOUT_LAYERS, SCOUT_F32_LAYERS = 8, 4
+# the EP check after each: one full-width MoE layer's moe_ep over a (1, 4)
+# mesh of shards sharing the card, on x [4, 2048, D] (seq-sharded, 512
+# positions a shard), at capacity factors E/k (no drops), 1.25 (the
+# default) and 1.0, against the dense oracle with the assignments the
+# capacity rule drops zeroed: float32 max abs 1e-4 (the same products in
+# other shapes and sum orders), bf16 relative L2 2e-2 (the combine rounds
+# to bf16 in another order); aux float32 within 1e-6
+EP_SHARDS = 4
+EP_TOL = {"f32": 1e-4, "bf16": 2e-2}
+EP_AUX_TOL = 1e-6
 # window_attention on bf16 operands against the same function with its
 # products on float32 copies (the CPU's arm), at a gemma3-27b local
 # layer's prefill (q [2, 4096, 16, 2, 128], window 1024) and a
@@ -566,7 +600,8 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
     built from ``earlier``, the library of the same source with the
     one-pass dispatch off), and the bf16 entry at gemma3-27b's global
     layers, q [2, 4096, 16, 2, 128], and pixtral-12b's, q [4, 2048, 8, 4,
-    128]; each arm also through the GQA entry at
+    128], olmoe-1b-7b's, q [4, 2048, 16, 1, 128], and llama4-scout's, q
+    [4, 2048, 8, 5, 128]; each arm also through the GQA entry at
     FLASH_SHAPES, one launch a call. The library yardstick is
     scaled_dot_product_attention on the same, broadcast, heads."""
     F = torch.nn.functional
@@ -601,14 +636,18 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
     # [B*H, S, D]; then recurrentgemma-9b's heads (MQA: 16 query heads on
     # one KV head, D = 256) in both arms through the GQA entry; then, in
     # bf16, gemma3-27b's global layers (phase 10's prefill: 2 prompts of
-    # 4096, 16 KV heads of 2 query heads, D = 128) and pixtral-12b's
-    # (phase 12's: 4 prompts of 2048, 8 KV heads of 4 query heads).
+    # 4096, 16 KV heads of 2 query heads, D = 128), pixtral-12b's (phase
+    # 12's: 4 prompts of 2048, 8 KV heads of 4 query heads), olmoe-1b-7b's
+    # (phase 13's: 16 KV heads of one query head) and llama4-scout's
+    # (phase 14's: 8 KV heads of 5 query heads).
     for b, s, kh, g, d, sfx in (
             (SERVE_BATCH, SERVE_PROMPT, 4, 8, 128, ""),
             (SERVE_BATCH, SERVE_PROMPT, 4, 8, 256, "_d256"),
             (SERVE_BATCH, SERVE_PROMPT, 1, 16, 256, "_d256_kh1g16"),
             (GEMMA_BATCH, GEMMA_PROMPT, 16, 2, 128, "_gemma3"),
-            (PIX_BATCH, PIX_PROMPT, 8, 4, 128, "_pixtral")):
+            (PIX_BATCH, PIX_PROMPT, 8, 4, 128, "_pixtral"),
+            (SERVE_BATCH, SERVE_PROMPT, 16, 1, 128, "_olmoe"),
+            (SERVE_BATCH, SERVE_PROMPT, 8, 5, 128, "_llama4")):
         bh = b * kh * g
         q = torch.randn((b, s, kh, g, d), generator=gen, device=dev)
         k = torch.randn((b, s, kh, d), generator=gen, device=dev)
@@ -619,7 +658,7 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
             ("flash_attention" + sfx, torch.bfloat16, bf16, FLASH_TOL["bf16"],
              (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain,
              flops))
-        if sfx in ("_gemma3", "_pixtral"):
+        if sfx in ("_gemma3", "_pixtral", "_olmoe", "_llama4"):
             continue
         if kh == 1:
             f32_case = ((q, k, v), ops.flash_attention_gqa,
@@ -886,30 +925,237 @@ def serve_trace(eng, tokens, kernel: Optional[str], extra: dict) -> dict:
     return out
 
 
+def moe_prefill_parts(eng, tokens, extra) -> dict:
+    """A traced prefill of an MoE model with each layer's MoE call, its
+    routing and its expert products inside profiler ranges: the device
+    time of the kernels launched under each, and its share of the
+    prefill's busy time. The combine (with a shared expert, where there
+    is one) is the MoE call's time less the other two."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe as M
+    labels = {"moe_dense": "moe", "_route": "routing",
+              "_expert_ffn": "expert_products"}
+    saved = {n: getattr(M, n) for n in labels}
+
+    def ranged(label, fn):
+        def call(*args, **kw):
+            with record_function(f"moe.{label}"):
+                return fn(*args, **kw)
+        return call
+
+    try:
+        for n, label in labels.items():
+            setattr(M, n, ranged(label, saved[n]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.prefill(tokens, extra)
+            torch.cuda.synchronize()
+    finally:
+        for n, fn in saved.items():
+            setattr(M, n, fn)
+    ms = dict.fromkeys(labels.values(), 0.0)
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.events():
+        if e.name.startswith("moe.") and e.device_type != cuda:
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = e.cuda_time_total
+            ms[e.name[4:]] += total / 1e3
+    dev = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events()
+           if e.device_type == cuda and not e.name.startswith("moe.")]
+    if not dev or not ms["moe"]:
+        return {"device_trace": "not measured"}
+    busy = _busy_us(dev, min(a for _, a, _ in dev),
+                    max(b for _, _, b in dev)) / 1e3
+    ms["combine_and_shared"] = ms["moe"] - ms["routing"] - \
+        ms["expert_products"]
+    return {"busy_ms": busy, "ms": ms,
+            "share_of_busy": {k: v / busy for k, v in ms.items()}}
+
+
+def dense_with_drops(p, slices, mcfg, gated: bool, cf: float):
+    """The plain oracle of ``moe_ep`` over sequence shards: ``moe_dense``
+    over each shard's token slice with the weight of every assignment the
+    capacity rule drops zeroed. An assignment's slot is the number of
+    earlier ones (in token, then k order) to the same expert in its slice,
+    from a cumulative sum of one-hot rows; slots at or past the capacity
+    (``ceil(T * k / E * cf)`` rounded up to a multiple of 4, at least 4)
+    drop. Returns the output [B, S, D] and the number of drops."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    e, k = mcfg.num_experts, mcfg.top_k
+    outs, dropped = [], 0
+    for xs in slices:
+        b, s, d = xs.shape
+        t = b * s
+        xf = xs.reshape(t, d)
+        w, idx, _ = M._route(p["router"], xf, mcfg)
+        cap = math.ceil(t * k / e * cf)
+        cap = max(4, (cap + 3) // 4 * 4)
+        flat = idx.reshape(-1)
+        slot = (torch.nn.functional.one_hot(flat, e).cumsum(0) - 1).gather(
+            1, flat[:, None]).view(t, k)
+        keep = slot < cap
+        dropped += int((~keep).sum())
+        ys = M._expert_ffn(p, xf.expand(e, t, d), gated)
+        comb = torch.zeros((t, e), dtype=xs.dtype, device=xs.device)
+        comb.scatter_(1, idx, (w * keep).to(xs.dtype))
+        out = torch.einsum("te,etd->td", comb, ys)
+        if mcfg.d_ff_shared:
+            out = out + L.mlp_apply(p["shared"], xf, gated)
+        outs.append(out.view(b, s, d))
+        del ys
+    return torch.cat(outs, dim=1), dropped
+
+
+@contextlib.contextmanager
+def counted_rendezvous():
+    """The number of SPMD rendezvous (``spmd._exchange`` calls of shard 0)
+    while open."""
+    from repro_torch.distributed import spmd
+    exchange, count = spmd._exchange, [0]
+
+    def counting(t):
+        if spmd._ctx().index == 0:
+            count[0] += 1
+        return exchange(t)
+
+    spmd._exchange = counting
+    try:
+        yield count
+    finally:
+        spmd._exchange = exchange
+
+
+def ep_check(arch: str) -> dict:
+    """One full-width MoE layer of ``arch`` (seeded weights) through
+    ``moe_ep`` over a (1, EP_SHARDS) mesh of shards sharing the card, on
+    x [4, 2048, D] (sequence-sharded), in bf16 and float32. At capacity
+    factor E / k no routing can overflow a buffer: the output must lie
+    within ``EP_TOL`` of ``moe_dense`` over each shard's token slice (the
+    tokens each shard routes) and the aux loss, the mean of the shards',
+    within ``EP_AUX_TOL`` of the mean of those calls' (float32). At the
+    default 1.25 the output is held to ``dense_with_drops`` and the share
+    of dropped assignments printed, and again at 1.0, where the buffers of
+    the more loaded experts overflow. ``moe_dense`` over all tokens (its
+    aux is not the shards' mean) and the times of one ``moe_ep`` and one
+    ``moe_dense`` call are printed beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.sharding import use_sharding
+    cfg = get_config(arch)
+    mcfg, gated = cfg.moe, cfg.gated_mlp
+    e, k = mcfg.num_experts, mcfg.top_k
+    dev = torch.device("cuda")
+    mesh = make_smoke_mesh(1, EP_SHARDS, devices=[dev] * EP_SHARDS)
+    r = {"x": [SERVE_BATCH, SERVE_PROMPT, cfg.d_model], "shards": EP_SHARDS,
+         "experts_per_shard": e // EP_SHARDS}
+
+    def ep(p, x, cf):
+        with use_sharding(mesh):
+            return M.moe_ep(p, x, mcfg, gated, capacity_factor=cf)
+
+    for arm, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        p = M.moe_init(gen, cfg.d_model, mcfg, gated, dtype=dtype,
+                       device=dev)
+        x = torch.randn((SERVE_BATCH, SERVE_PROMPT, cfg.d_model),
+                        generator=gen, device=dev).to(dtype)
+        slices = x.chunk(EP_SHARDS, dim=1)
+        per_slice = [M.moe_dense(p, xs, mcfg, gated) for xs in slices]
+        want = torch.cat([o for o, _ in per_slice], dim=1).float()
+        want_aux = sum(a for _, a in per_slice) / EP_SHARDS
+        full, full_aux = M.moe_dense(p, x, mcfg, gated)
+        a = {"dense_all_tokens": {
+            "aux": full_aux.item(),
+            "max_abs_vs_per_slice": (full.float() - want).abs().max().item()}}
+        del per_slice, full
+        for name, cf in (("no_drops", e / k), ("default", 1.25),
+                         ("tight", 1.0)):
+            with counted_rendezvous() as count:
+                got, aux = ep(p, x, cf)
+            oracle, dropped = dense_with_drops(p, slices, mcfg, gated, cf)
+            got, oracle = got.float(), oracle.float()
+            torch.cuda.synchronize()
+            err = (got - oracle).abs().max().item()
+            rel = ((got - oracle).norm() / oracle.norm()).item()
+            c = {"capacity_factor": cf, "dropped": dropped,
+                 "dropped_share": dropped / (x.shape[0] * x.shape[1] * k),
+                 "max_abs_vs_oracle": err, "rel_l2_vs_oracle": rel,
+                 "aux": aux.item(), "rendezvous_per_call": count[0]}
+            what = f"{arch} moe_ep {arm} at capacity factor {cf}"
+            check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+            if arm == "f32":
+                check(err <= EP_TOL["f32"], f"{what}: {err} (max abs) from "
+                      f"the dense oracle, above {EP_TOL['f32']}")
+            else:
+                check(rel <= EP_TOL["bf16"], f"{what}: {rel} (relative L2) "
+                      f"from the dense oracle, above {EP_TOL['bf16']}")
+            if name == "no_drops":
+                check(dropped == 0, f"{what}: the oracle dropped {dropped}")
+                c["max_abs_vs_moe_dense"] = (got - want).abs().max().item()
+                c["aux_vs_moe_dense"] = abs(aux.item() - want_aux.item())
+                if arm == "f32":
+                    check(c["max_abs_vs_moe_dense"] <= EP_TOL["f32"],
+                          f"{what}: {c['max_abs_vs_moe_dense']} from "
+                          f"moe_dense")
+                    check(c["aux_vs_moe_dense"] <= EP_AUX_TOL,
+                          f"{what}: aux {aux.item()} against moe_dense's "
+                          f"{want_aux.item()}")
+            elif name == "default":
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    ep(p, x, cf)
+                torch.cuda.synchronize()
+                c["ep_wall_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+                c["ep_ms"] = time_ms(lambda: ep(p, x, cf), 3, warmup=1)
+                c["dense_ms"] = time_ms(
+                    lambda: M.moe_dense(p, x, mcfg, gated), 3, warmup=1)
+            a[name] = c
+            del got, oracle, aux
+        r[arm] = a
+        del p, x, slices, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    del mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
 # A serving phase: the model, batch, prompt tokens and decode steps; the
 # kernel flag, the kernel's LAUNCHES key, the layer kind that launches it
 # and its name in a trace (all None for a model whose path launches no
 # kernel: every counter must then stay 0); the prefill tolerances against
-# the plain path; the depth of the float32-weight checks (None for the full
-# depth).
+# the plain path; the depth served in bf16 and the depth of the
+# float32-weight checks (None for the full depth).
 ServeSpec = collections.namedtuple(
     "ServeSpec", "arch batch prompt steps flag kernel kernel_kind trace_name "
-    "tols f32_layers")
+    "tols layers f32_layers")
 SERVE_SPECS = {
     5: ServeSpec(SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS,
                  "use_flash_kernel", "flash_attention", "global_attn",
-                 "flash_mma", PREFILL_REL_TOL, None),
+                 "flash_mma", PREFILL_REL_TOL, None, None),
     6: ServeSpec(SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_STEPS, "use_ssd_kernel",
                  "ssd_chunk", "ssd", "ssd_",                # ssd_y + states
-                 SSM_PREFILL_REL_TOL, None),
+                 SSM_PREFILL_REL_TOL, None, None),
     10: ServeSpec(GEMMA_ARCH, GEMMA_BATCH, GEMMA_PROMPT, GEMMA_STEPS,
                   "use_flash_kernel", "flash_attention", "global_attn",
-                  "flash_mma", PREFILL_REL_TOL, GEMMA_F32_LAYERS),
+                  "flash_mma", PREFILL_REL_TOL, None, GEMMA_F32_LAYERS),
     11: ServeSpec(RG_ARCH, RG_BATCH, RG_PROMPT, RG_STEPS, None, None, None,
-                  None, None, None),
+                  None, None, None, None),
     12: ServeSpec(PIX_ARCH, PIX_BATCH, PIX_PROMPT, PIX_STEPS,
                   "use_flash_kernel", "flash_attention", "global_attn",
-                  "flash_mma", PREFILL_REL_TOL, None),
+                  "flash_mma", PREFILL_REL_TOL, None, None),
+    13: ServeSpec(MOE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS,
+                  "use_flash_kernel", "flash_attention", "global_attn",
+                  "flash_mma", PREFILL_REL_TOL, None, None),
+    14: ServeSpec(SCOUT_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS,
+                  "use_flash_kernel", "flash_attention", "global_attn",
+                  "flash_mma", PREFILL_REL_TOL, SCOUT_LAYERS,
+                  SCOUT_F32_LAYERS),
 }
 
 
@@ -929,27 +1175,31 @@ def clone_tree(tree: dict) -> dict:
 
 def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     """Phase 5 (yi-9b), 6 (mamba2-370m), 10 (gemma3-27b), 11
-    (recurrentgemma-9b) or 12 (pixtral-12b, its prompts' first 256
-    positions vision embeddings) at full width and depth through the
-    Engine (the main path), then the checks and the tasked decode loop
-    from the same prefill state. The card must hold less than
-    ``MEMORY_BEFORE_SERVE`` before the weights load, and the allocation
-    must come back within ``MEMORY_SLACK`` of that after."""
+    (recurrentgemma-9b), 12 (pixtral-12b, its prompts' first 256
+    positions vision embeddings), 13 (olmoe-1b-7b) or 14 (llama4-scout,
+    8 of its 48 layers) at full width through the Engine (the main path),
+    then the checks and the tasked decode loop from the same prefill
+    state. The card must hold less than ``MEMORY_BEFORE_SERVE`` before the
+    weights load, and the allocation must come back within
+    ``MEMORY_SLACK`` of that after."""
     import dataclasses
     from repro_torch.configs import RGLRU, get_config
     from repro_torch.launch.serve import Engine
     from repro_torch.models import build_model
     from repro_torch.serve import flatten, tasked_decode_loop
     (arch, b, s, steps, flag, kernel, kernel_kind, trace_name, tols,
-     f32_layers) = SERVE_SPECS[phase]
+     layers, f32_layers) = SERVE_SPECS[phase]
     dev = torch.device("cuda")
     gc.collect()
     mem0 = allocated_without_workspaces()
     check(mem0 < MEMORY_BEFORE_SERVE, f"phase {phase}: {mem0} B still "
           f"allocated on the card before the weights load")
     cfg = get_config(arch)
+    config_layers = cfg.n_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     # the layers whose kind launches the kernel, once each in a prefill
-    n_kernel = layers_of(arch, kernel_kind)
+    n_kernel = layers_of(arch, kernel_kind, cfg.n_layers)
     model = build_model(cfg)
     check((flag is None or getattr(model.flags, flag))
           and model.flags.param_dtype == torch.bfloat16,
@@ -957,7 +1207,9 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
     torch.cuda.synchronize()
-    r = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "prompt": s,
+    r = {"arch": cfg.name, "layers": cfg.n_layers,
+         "config_layers": config_layers,
+         "f32_layers": f32_layers or cfg.n_layers, "batch": b, "prompt": s,
          "decode_steps": steps, "init_s": time.perf_counter() - t0,
          "weights_gb": sum(p.numel() * p.element_size()
                            for p in params.parameters()) / 1e9}
@@ -1034,10 +1286,23 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
             model, params, tokens, extra, tols["bf16"], flag)
 
     # -- greedy decode vs argmax of a full forward over prompt + tokens --
-    r["greedy_vs_full_forward"] = greedy_vs_full_forward(model, params,
-                                                         tokens, extra, out)
-    del cache
+    # (an MoE model's: with the experts of a rerun of the same prefill and
+    # decode, whose tokens must be the main run's)
+    routes = None
+    if cfg.moe is not None:
+        with routed() as rec:
+            again = eng.generate(tokens, steps + 1, extra)
+        check(torch.equal(again, out), f"{cfg.name}: a second greedy run "
+              f"gave other tokens")
+        routes = rec["idx"]
+        del rec, again
+    r["greedy_vs_full_forward"] = greedy_vs_full_forward(
+        model, params, tokens, extra, out, routes)
+    del cache, routes
     r["trace"] = serve_trace(eng, tokens, trace_name, extra)
+    if cfg.moe is not None:
+        r["trace"]["prefill_moe_parts"] = moe_prefill_parts(eng, tokens,
+                                                            extra)
     if trace_name is not None:
         share = r["trace"]["prefill"].get(f"{trace_name}_share_of_busy",
                                           0.0)
@@ -1059,10 +1324,13 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
             model32, params32, tokens, extra, tols["f32"], flag)
         r["prefill_kernel_vs_plain"]["f32"]["layers"] = cfg32.n_layers
     # and greedy decode with them, where bf16 noise cannot flip a token
-    out32 = Engine(model32, params32, b, s + steps).generate(
-        tokens, steps + 1, extra)
+    with routed() as rec:
+        out32 = Engine(model32, params32, b, s + steps).generate(
+            tokens, steps + 1, extra)
     r["greedy_vs_full_forward"]["f32"] = greedy_vs_full_forward(
-        model32, params32, tokens, extra, out32)
+        model32, params32, tokens, extra, out32,
+        rec["idx"] if cfg.moe is not None else None)
+    del rec
     r["greedy_vs_full_forward"]["f32"]["layers"] = cfg32.n_layers
     if RGLRU in cfg.layer_pattern:
         r["rglru"] = rglru_checks(model32, params32, b, s)
@@ -1128,13 +1396,18 @@ def rglru_checks(model32, params32, b: int, s: int) -> dict:
             "scan_ms": scan - copies, "scan_input_copies_ms": copies}
 
 
-def greedy_vs_full_forward(model, params, tokens, extra, out) -> dict:
+def greedy_vs_full_forward(model, params, tokens, extra, out,
+                           routes: Optional[list] = None) -> dict:
     """The Engine's greedy tokens ``out`` [B, steps + 1] after ``tokens``
     [B, S] (with the prefill's ``extra`` inputs) against the logits of one
     forward over prompt + tokens (with the same ``extra``): at
     least ``GREEDY_MIN_AGREEMENT`` of them agree (their logit is the
     forward's best) and none lies more than ``GREEDY_MAX_SHORTFALL``
-    below it."""
+    below it. For an MoE model ``routes`` holds the expert choices of a
+    prefill and ``steps`` decode steps that gave ``out`` (``routed``):
+    the checked forward takes them (``full_forward_pins``), and the
+    forward on its own routing is reported beside it with the positions
+    whose top-k set differs."""
     import dataclasses
     from repro_torch.configs import GLOBAL_ATTN
     from repro_torch.models import build_model
@@ -1152,32 +1425,111 @@ def greedy_vs_full_forward(model, params, tokens, extra, out) -> dict:
                                         flash_block=blk)
         r["full_forward_block"] = blk
     fwd = build_model(cfg, fwd_flags)
-    hidden, _ = fwd.apply(params, {**extra, "tokens": full}, mode="train")
-    logits = fwd.unembed(params, hidden[:, s - 1:]).float()  # [B, steps+1, V]
-    del hidden
+
+    def logits_of():
+        hidden, _ = fwd.apply(params, {**extra, "tokens": full},
+                              mode="train")
+        return fwd.unembed(params, hidden[:, s - 1:]).float()  # [B,steps+1,V]
+
+    if routes is not None:
+        r["own_routing"] = agreement(logits_of(), out)
+        pins = full_forward_pins(routes, cfg.n_layers, full.shape[0], s,
+                                 n - s)
+        with routed(pins) as rec:
+            logits = logits_of()
+        r["routing"] = {"rows_differing_in_top_k": rec["flips"],
+                        "rows": rec["rows"],
+                        "decode_rows_differing_in_top_k": sum(
+                            int(rec["flips_by_call"][i].view(
+                                full.shape[0], n)[:, s:].sum())
+                            for i in range(cfg.n_layers))}
+        del pins
+    else:
+        logits = logits_of()
+    r.update(agreement(logits, out))
+    del logits
+    what = f"{cfg.name} ({model.flags.param_dtype})"
+    agree = r["agreement"]
+    check(agree >= GREEDY_MIN_AGREEMENT, f"{what}: greedy decode agrees with "
+          f"the full forward on {agree:.4f} of tokens, below "
+          f"{GREEDY_MIN_AGREEMENT}")
+    check(r["max_logit_shortfall"] <= GREEDY_MAX_SHORTFALL,
+          f"{what}: a decoded token's logit lies {r['max_logit_shortfall']} "
+          f"below the full forward's best, more than {GREEDY_MAX_SHORTFALL}")
+    return r
+
+
+def agreement(logits: torch.Tensor, out: torch.Tensor) -> dict:
+    """How the greedy tokens ``out`` [B, n] sit in ``logits`` [B, n, V]:
+    the share whose logit is the best (exact ties counted), the share that
+    is the first argmax, and how far below the best the others lie."""
     top2 = logits.topk(2, dim=-1).values
     # how far below the full forward's best logit each decoded token lies
     # (0 where the two agree)
     shortfall = top2[..., 0] - logits.gather(-1, out.long()[..., None])[..., 0]
-    agree = (shortfall == 0).float().mean().item()
     first = logits.argmax(dim=-1) == out
-    r.update({
-        "agreement": agree, "threshold": GREEDY_MIN_AGREEMENT,
+    return {
+        "agreement": (shortfall == 0).float().mean().item(),
+        "threshold": GREEDY_MIN_AGREEMENT,
         "argmax_agreement": first.float().mean().item(),
         "tied_at_best": int(((shortfall == 0) & ~first).sum().item()),
         "shortfalls_where_not_first": shortfall[~first].tolist(),
         "max_logit_shortfall": shortfall.max().item(),
         "shortfall_tol": GREEDY_MAX_SHORTFALL,
-        "median_top2_gap": (top2[..., 0] - top2[..., 1]).median().item()})
-    del logits
-    what = f"{cfg.name} ({model.flags.param_dtype})"
-    check(agree >= GREEDY_MIN_AGREEMENT, f"{what}: greedy decode agrees with "
-          f"the full forward on {agree:.4f} of tokens, below "
-          f"{GREEDY_MIN_AGREEMENT}")
-    check(shortfall.max().item() <= GREEDY_MAX_SHORTFALL,
-          f"{what}: a decoded token's logit lies {shortfall.max().item()} "
-          f"below the full forward's best, more than {GREEDY_MAX_SHORTFALL}")
-    return r
+        "median_top2_gap": (top2[..., 0] - top2[..., 1]).median().item()}
+
+
+@contextlib.contextmanager
+def routed(pins: Optional[list] = None):
+    """While open, every MoE routing call (``models.moe._route``) is
+    recorded in call order: the dict yielded lists each call's expert
+    indices under ``idx``. With ``pins`` (index tensors in the same call
+    order) each call takes its pinned experts in place of its own top-k,
+    weighted by its own probabilities renormalised over them, and
+    ``flips`` counts the rows whose own top-k set differs from the pinned
+    one (``flips_by_call``: which rows, per call). Bf16 rounding that
+    differs between two paths moves a router logit by about 1e-3, enough
+    to reorder two near-tied experts; a check between the paths pins one
+    to the other's experts so that it measures the paths, not the
+    flip."""
+    from repro_torch.models import moe as M
+    route = M._route
+    rec = {"idx": [], "flips": 0, "rows": 0, "flips_by_call": []}
+
+    def call(router_w, x, mcfg):
+        w, idx, aux = route(router_w, x, mcfg)
+        if pins is not None:
+            pin = pins[len(rec["idx"])]
+            differs = (idx.sort(-1).values != pin.sort(-1).values).any(-1)
+            rec["flips_by_call"].append(differs)
+            rec["flips"] += int(differs.sum())
+            rec["rows"] += idx.shape[0]
+            w = torch.softmax(x.float() @ router_w, dim=-1).gather(-1, pin)
+            w, idx = w / w.sum(-1, keepdim=True).clamp_min(1e-9), pin
+        rec["idx"].append(idx)
+        return w, idx, aux
+
+    M._route = call
+    try:
+        yield rec
+    finally:
+        M._route = route
+
+
+def full_forward_pins(routes: list, n_layers: int, b: int, s: int,
+                      steps: int) -> list:
+    """The expert choices of a prefill of S positions and ``steps`` decode
+    steps (``routes``: the prefill's ``n_layers`` calls, then each step's)
+    as one forward over S + steps positions would route them: per layer,
+    [B * (S + steps), k]."""
+    check(len(routes) == n_layers * (1 + steps),
+          f"recorded {len(routes)} routing calls, not {n_layers} x "
+          f"{1 + steps}")
+    pre, dec = routes[:n_layers], routes[n_layers:]
+    return [torch.cat([pre[i].view(b, s, -1)]
+                      + [dec[j * n_layers + i].view(b, 1, -1)
+                         for j in range(steps)], dim=1).reshape(
+                          b * (s + steps), -1) for i in range(n_layers)]
 
 
 def tasked_decode(Runtime, RuntimeConfig, tasked_decode_loop, model, params,
@@ -1769,12 +2121,13 @@ def collective_checks(mesh) -> dict:
     return out
 
 
-def layers_of(arch: str, kind: str) -> int:
-    """The number of ``kind`` layers in ``arch``'s configuration."""
+def layers_of(arch: str, kind: str, n_layers: Optional[int] = None) -> int:
+    """The number of ``kind`` layers in ``arch``'s configuration (cut to
+    its first ``n_layers`` where given)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     return sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] == kind
-               for i in range(cfg.n_layers))
+               for i in range(n_layers or cfg.n_layers))
 
 
 def window_share(arch: str, window_ms: float, prefill_ms: float) -> float:
@@ -1787,22 +2140,40 @@ def window_share(arch: str, window_ms: float, prefill_ms: float) -> float:
 def prefill_vs_plain(model, params, tokens, extra, tol: float,
                      flag: str) -> dict:
     """The prefill's final hidden state through the kernel against the same
-    prefill with the kernel ``flag`` off (the plain path)."""
+    prefill with the kernel ``flag`` off (the plain path). For an MoE
+    model the checked plain prefill takes the kernel prefill's experts
+    (``routed``); the plain prefill on its own routing is reported beside
+    it."""
     import dataclasses
     from repro_torch.models import build_model
     batch = {**extra, "tokens": tokens}
-    x_on, _ = model.apply(params, batch, mode="prefill")
     off = build_model(model.cfg, dataclasses.replace(model.flags,
                                                      **{flag: False}))
-    x_off, _ = off.apply(params, batch, mode="prefill")
+    r = {}
+    if model.cfg.moe is None:
+        x_on, _ = model.apply(params, batch, mode="prefill")
+        x_off, _ = off.apply(params, batch, mode="prefill")
+    else:
+        with routed() as rec:
+            x_on, _ = model.apply(params, batch, mode="prefill")
+        x_own, _ = off.apply(params, batch, mode="prefill")
+        r["own_routing_rel_l2"] = ((x_on.float() - x_own.float()).norm()
+                                   / x_own.float().norm()).item()
+        del x_own
+        with routed(rec["idx"]) as pinned:
+            x_off, _ = off.apply(params, batch, mode="prefill")
+        r["rows_differing_in_top_k"] = pinned["flips"]
+        r["rows"] = pinned["rows"]
+        del rec, pinned
     x_on, x_off = x_on.float(), x_off.float()
     check(bool(torch.isfinite(x_on).all()), "non-finite prefill hidden state")
     rel = ((x_on - x_off).norm() / x_off.norm()).item()
     check(rel <= tol, f"prefill hidden state through the kernel is {rel} "
           f"(relative L2) from the plain path, above {tol} "
           f"({model.flags.param_dtype})")
-    return {"rel_l2": rel, "max_abs": (x_on - x_off).abs().max().item(),
-            "tol_rel_l2": tol}
+    r.update(rel_l2=rel, max_abs=(x_on - x_off).abs().max().item(),
+             tol_rel_l2=tol)
+    return r
 
 
 def main() -> int:
@@ -2001,6 +2372,17 @@ def main() -> int:
     # -- phase 12: pixtral-12b serving at full width and depth -----------
     pix = serve_phase(ops, Runtime, RuntimeConfig, 12)
     print(f"serve pixtral ({card}): " + json.dumps(pix))
+
+    # -- phase 13: olmoe-1b-7b serving at full width and depth, then one
+    # MoE layer expert-parallel over four shards sharing the card --------
+    olmoe = serve_phase(ops, Runtime, RuntimeConfig, 13)
+    olmoe["ep"] = ep_check(MOE_ARCH)
+    print(f"serve olmoe ({card}): " + json.dumps(olmoe))
+
+    # -- phase 14: llama4-scout-17b-16e at full width, 8 of 48 layers ----
+    scout = serve_phase(ops, Runtime, RuntimeConfig, 14)
+    scout["ep"] = ep_check(SCOUT_ARCH)
+    print(f"serve llama4-scout ({card}): " + json.dumps(scout))
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],

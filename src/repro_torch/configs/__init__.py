@@ -7,6 +7,7 @@ from repro_torch.configs.base import (  # noqa: F401
     RGLRU,
     SSD,
     ModelConfig,
+    MoEConfig,
     RGLRUConfig,
     SSMConfig,
     canon,

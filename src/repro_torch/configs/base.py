@@ -6,14 +6,14 @@ Every ported architecture has one module in this package exporting
 reduced same-family configuration for CPU tests). The port carries the
 decoder-only configurations its serving path runs (dense attention stacks,
 global or local and global, the vision-embedding backbone, the Mamba-2 SSD
-stack and the RG-LRU + local attention hybrid); the others are still to be
-ported (``ROADMAP.md``).
+stack, the RG-LRU + local attention hybrid and the MoE stacks); the
+encoder-decoder one is still to be ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Layer kinds used in the per-period layer pattern.
@@ -22,6 +22,19 @@ GLOBAL_ATTN = "global_attn"   # full causal attention
 LOCAL_ATTN = "local_attn"     # sliding-window attention
 RGLRU = "rglru"               # RG-LRU recurrent block (recurrentgemma)
 SSD = "ssd"                   # Mamba-2 state-space duality block
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    # llama4-style always-on shared expert (0 = none)
+    d_ff_shared: int = 0
+    # which layers are MoE: every `interleave`-th layer (1 = all layers)
+    interleave: int = 1
+    router_jitter: float = 0.0
+    load_balance_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +75,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     # gating MLP (SwiGLU) unless False → GELU MLP (whisper)
     gated_mlp: bool = True
-    # the MoE sub-config of the family not ported yet; None in every
-    # ported configuration
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     # encoder-decoder (whisper): encoder layers use bidirectional attention,
@@ -89,12 +100,12 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate parameter count (embedding + blocks + norms), as the
-        JAX package counts it, for stacks of attention + MLP, SSD and
-        RG-LRU + MLP layers."""
+        JAX package counts it."""
         d, hd = self.d_model, self.resolved_head_dim
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-        mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        mlp_mult = 3 if self.gated_mlp else 2
+        mlp = mlp_mult * d * self.d_ff
         per_layer = {GLOBAL_ATTN: attn + mlp, LOCAL_ATTN: attn + mlp}
         if self.ssm is not None:
             di = self.ssm.expand * d
@@ -105,12 +116,35 @@ class ModelConfig:
         if self.rglru is not None:
             w = self.rglru.lru_width or d
             per_layer[RGLRU] = 2 * d * w + w * d + 3 * w + mlp
+        if self.moe is not None:
+            moe_mlp = (self.moe.num_experts * mlp_mult * d
+                       * self.moe.d_ff_expert
+                       + mlp_mult * d * self.moe.d_ff_shared
+                       + d * self.moe.num_experts)
         total = emb
         for i in range(self.n_layers):
             kind = self.layer_pattern[i % len(self.layer_pattern)]
-            total += per_layer[kind] + 2 * d  # norms
+            blk = per_layer[kind]
+            if self.moe is not None and kind in (GLOBAL_ATTN, LOCAL_ATTN) \
+                    and i % self.moe.interleave == self.moe.interleave - 1:
+                blk = blk - mlp + moe_mlp
+            total += blk + 2 * d  # norms
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed top_k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        base = dataclasses.replace(self, moe=None).param_count()
+        d = self.d_model
+        mlp_mult = 3 if self.gated_mlp else 2
+        n_moe_layers = sum(1 for i in range(self.n_layers)
+                           if i % self.moe.interleave
+                           == self.moe.interleave - 1)
+        delta = n_moe_layers * mlp_mult * d * (
+            self.moe.top_k * self.moe.d_ff_expert + self.moe.d_ff_shared
+            - self.d_ff)
+        return int(base + delta)
 
 ARCH_IDS = (
     "recurrentgemma_9b",
@@ -141,7 +175,8 @@ def canon(arch_id: str) -> str:
 
 # the architectures whose every layer kind the port runs
 PORTED_ARCH_IDS = ("recurrentgemma_9b", "gemma3_27b", "phi4_mini_3_8b",
-                   "codeqwen15_7b", "yi_9b", "pixtral_12b", "mamba2_370m")
+                   "codeqwen15_7b", "yi_9b", "pixtral_12b", "mamba2_370m",
+                   "llama4_scout_17b_a16e", "olmoe_1b_7b")
 
 
 def _module(arch_id: str):

@@ -96,9 +96,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-# block layouts the port runs: attention + MLP, Mamba-2 SSD, RG-LRU + MLP
+# block layouts the port runs: attention + MLP, Mamba-2 SSD, RG-LRU + MLP,
+# attention + MoE
 _BLOCK_KEYS = ({"norm1", "attn", "norm2", "mlp"}, {"norm1", "ssd"},
-               {"norm1", "rglru", "norm2", "mlp"})
+               {"norm1", "rglru", "norm2", "mlp"},
+               {"norm1", "attn", "norm2", "moe"})
+# an MoE subtree: the router and experts, optionally the gate and a shared
+# MLP
+_MOE_KEYS = ({"router", "wi", "wo"}, {"router", "wi", "wo", "wg", "shared"})
+_MLP_KEYS = ({"wi", "wo"}, {"wi", "wo", "wg"})
 # KV caches; SSD and RG-LRU caches (conv inputs, float32 state)
 _CACHE_KEYS = ({"k", "v"}, {"conv", "state"})
 
@@ -114,13 +120,22 @@ def _blocks_of(tree: dict, layouts, what: str, cache: bool) -> dict:
                   key=lambda k: int(k[4:]))
     blocks = periods + [tree[k] for k in rems]
     for block in blocks:
-        if set(block) not in layouts:
+        if set(block) not in layouts or not _moe_ported(block.get("moe")):
             raise NotImplementedError(
                 f"{what} layout {sorted(block)} is not ported; the port runs "
                 f"{[sorted(k) for k in layouts]} (see ROADMAP.md)")
     paths = block_paths(len(periods), len(rems))
     return {p[1] if cache else p[0]: b for p, b in zip(paths, blocks,
                                                        strict=True)}
+
+
+def _moe_ported(moe) -> bool:
+    """Whether an MoE subtree (None: none) has a layout the port runs."""
+    if moe is None:
+        return True
+    lo, hi = _MOE_KEYS
+    return lo <= set(moe) <= hi and (
+        "shared" not in moe or set(moe["shared"]) in _MLP_KEYS)
 
 
 def _conv(node, device):
@@ -141,8 +156,11 @@ def lm_from_jax(tree: dict, device="cpu"):
     ``D``, ``dt_bias``, ``norm``, ``out_proj``) for SSD, ``norm1``,
     ``rglru`` (``in_x``, ``in_gate``, ``conv_w``, ``conv_b``, ``w_r``,
     ``b_r``, ``w_i``, ``b_i``, ``lam``, ``out``), ``norm2``, ``mlp`` for
-    RG-LRU. Names and layouts map one to one; values keep their dtype
-    (float32 leaves stay float32 under bf16 weights)."""
+    RG-LRU, ``norm1``, ``attn``, ``norm2``, ``moe`` (``router``, ``wi``,
+    ``wo``, optionally ``wg`` and ``shared.{wi,wo[,wg]}``) for attention +
+    MoE. Names and layouts map one to one; values keep their dtype
+    (float32 leaves, the MoE router among them, stay float32 under bf16
+    weights)."""
     from repro_torch.models.transformer import ParamTree, put_path
     extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"}
                    - {k for k in tree if k.startswith("rem_")})

@@ -1,6 +1,6 @@
 """Single-controller SPMD: the port's stand-in for ``jax.sharding.Mesh``,
 ``jax.shard_map`` and the ``jax.lax`` collectives (``ppermute``, ``psum``,
-``pmax``, ``axis_index``, ``axis_size``).
+``pmax``, ``pmean``, ``all_to_all``, ``axis_index``, ``axis_size``).
 
 A ``Mesh`` names the device of each shard; a device may repeat, so one card
 can hold several shards, as the JAX tests hold forced host devices.
@@ -232,6 +232,9 @@ class _Workers:
             if job is None:
                 return
             job(i)
+            # the finished job holds its call's inputs and the mesh, whose
+            # collection stops these threads: let both go
+            del job
 
     def run(self, job: Callable[[int], None]) -> None:
         done = threading.Barrier(len(self.queues) + 1)
@@ -306,18 +309,24 @@ def _exchange(t: torch.Tensor) -> List[_Posted]:
     return list(slots)
 
 
-def _receive(posted: _Posted, device: torch.device) -> torch.Tensor:
-    """A copy of a peer's posted tensor on ``device``, ordered after the
-    peer's producer by its event and before this shard's later work."""
-    src = posted.t
+def _copy(posted: _Posted, src: torch.Tensor, out: torch.Tensor) -> None:
+    """Copy ``src`` (``posted``'s tensor or a view of it) into ``out``,
+    ordered after the peer's producer by its event and before this
+    shard's later work."""
     if posted.event is None:
-        return src.to(device, copy=True)
-    torch.cuda.current_stream(device).wait_event(posted.event)
-    out = torch.empty_like(src, device=device)
+        out.copy_(src)
+        return
+    torch.cuda.current_stream(out.device).wait_event(posted.event)
     # a copy between cards runs on the source card's current stream, which
     # torch orders after this shard's stream and before its later work
     out.copy_(src, non_blocking=True)
     src.record_stream(torch.cuda.current_stream(src.device))
+
+
+def _receive(posted: _Posted, device: torch.device) -> torch.Tensor:
+    """A copy of a peer's posted tensor on ``device``."""
+    out = torch.empty_like(posted.t, device=device)
+    _copy(posted, posted.t, out)
     return out
 
 
@@ -376,6 +385,46 @@ def _reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
 
 def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     return _reduce(x, axis_name, torch.add)
+
+
+def pmean(x: torch.Tensor, axis_name: AxisNames) -> torch.Tensor:
+    """``psum`` over ``axis_name`` (one axis or a tuple of them, reduced in
+    turn) divided by the number of shards it spans: every shard gets the
+    same bits."""
+    n = 1
+    for a in _axes(axis_name):
+        x = psum(x, a)
+        n *= axis_size(a)
+    return x / n
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
+               concat_axis: int, *, tiled: bool = False) -> torch.Tensor:
+    """``x`` split along ``split_axis`` into one chunk per shard along
+    ``axis_name``: chunk ``j`` goes to the shard at coordinate ``j``,
+    which concatenates what it receives along ``concat_axis`` in the
+    order of the senders' coordinates. Each shard copies only the chunk
+    addressed to it, a view of the sender's posted tensor. Only JAX's
+    ``tiled=True`` form."""
+    if not tiled:
+        raise NotImplementedError("all_to_all: only tiled=True is ported")
+    n = axis_size(axis_name)
+    me = axis_index(axis_name)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
+                         f"does not split over {n} shards")
+    size = x.shape[split_axis] // n
+    shape = list(x.shape)
+    shape[split_axis] = size
+    width = shape[concat_axis]
+    shape[concat_axis] *= n
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    posted = _exchange(x)
+    for c in range(n):
+        src = posted[_peer(axis_name, c)]
+        _copy(src, src.t.narrow(split_axis, me * size, size),
+              out.narrow(concat_axis, c * width, width))
+    return out
 
 
 def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
@@ -455,7 +504,8 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
                 errors.append(e)
                 group.barrier.abort()    # wake peers held at a collective
             finally:
-                _CTX.mesh = None
+                # the group holds the last collectives' posted tensors
+                _CTX.mesh = _CTX.group = None
 
         mesh.run(body)
         if errors:

@@ -11,13 +11,17 @@
         --arch recurrentgemma-9b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --smoke --device cpu
 
 Serves the dense attention configurations (global, or gemma3-27b's local
 and global layers), pixtral-12b (its vision frontend a stub: ``main``
 passes zero ``vision_embeds`` for the first ``frontend_tokens``
-positions, as the JAX package's does), mamba2-370m and recurrentgemma-9b
-(RG-LRU and local attention layers). Runs on the CUDA card unless
-``--device cpu`` is given.
+positions, as the JAX package's does), mamba2-370m, recurrentgemma-9b
+(RG-LRU and local attention layers) and the MoE configurations
+(olmoe-1b-7b, llama4-scout-17b-16e: without a mesh every MoE layer takes
+the dense oracle, as under the JAX Engine's 1x1 mesh). Runs on the CUDA
+card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

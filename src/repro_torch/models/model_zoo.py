@@ -1,7 +1,7 @@
 """Model facade (``repro/models/model_zoo.py`` at the same path), for the
 decoder-only architectures the port runs (dense attention stacks, global
-or local and global, with or without the vision embeddings, the Mamba-2
-SSD stack, and RG-LRU with local attention).
+or local and global, with or without the vision embeddings, with MLP or
+MoE layers, the Mamba-2 SSD stack, and RG-LRU with local attention).
 
 ``Model`` exposes:
   init(gen, device)               -> ParamTree (the weights, an nn.Module)

@@ -1,0 +1,212 @@
+"""Mixture-of-Experts FFN with top-k routing (``repro/models/moe.py`` at
+the same path).
+
+Two execution paths:
+
+- ``moe_dense``: oracle path — computes every expert on every token and
+  combines with routing weights. Exact, used for smoke tests, for serving
+  on one card (``moe_ep`` falls back to it without a mesh, as the JAX
+  package's does) and as the reference for the EP path's correctness
+  tests. It does ``num_experts / top_k`` times the routed FLOPs.
+- ``moe_ep``: expert parallelism over the ``model`` axis of the active
+  mesh (``models.sharding.use_sharding``) inside ``spmd.shard_map``:
+  tokens are slotted into per-expert capacity buffers, exchanged with
+  ``all_to_all``, processed as batched products on the expert owner, and
+  combined back. FLOPs scale with top_k·capacity_factor, not num_experts.
+
+Routing picks the top k probabilities with ``torch.topk``, which does not
+say how it orders ties, where ``jax.lax.top_k`` takes the lower index:
+the seeded float32 router probabilities of the tests do not tie, so the
+two agree. Slot ranks come from a stable sort of the expert ids, as
+``jnp.argsort(stable=True)``: within an expert a token's rank follows
+token order. Nothing here adds into a location twice through atomics
+(the combine sums over k in a fixed order), so decode steps repeat bit
+for bit. Both paths return ``(out, aux)``; aux is the Switch load-balance
+loss.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.distributed import spmd
+from repro_torch.models import layers as L
+from repro_torch.models.sharding import active_mesh
+
+
+def moe_init(gen, d_model: int, mcfg: MoEConfig, gated: bool, *, dtype,
+             device, lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """``router`` [D, E] float32; ``wi``, ``wg`` [E, D, F] and ``wo``
+    [E, F, D] in ``dtype``; ``shared`` (an MLP) where the config has one;
+    ``lead`` prepends stacking axes."""
+    e, ff = mcfg.num_experts, mcfg.d_ff_expert
+    sc = 1.0 / math.sqrt(d_model)
+    p = {"router": L.normal(gen, lead + (d_model, e), sc, torch.float32,
+                            device),
+         "wi": L.normal(gen, lead + (e, d_model, ff), sc, dtype, device),
+         "wo": L.normal(gen, lead + (e, ff, d_model), 1.0 / math.sqrt(ff),
+                        dtype, device)}
+    if gated:
+        p["wg"] = L.normal(gen, lead + (e, d_model, ff), sc, dtype, device)
+    if mcfg.d_ff_shared:
+        p["shared"] = L.mlp_init(gen, d_model, mcfg.d_ff_shared, gated,
+                                 dtype=dtype, device=device, lead=lead)
+    return p
+
+
+def _route(router_w: torch.Tensor, x: torch.Tensor, mcfg: MoEConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (weights [T,k] float32, expert_idx [T,k], aux_loss
+    scalar)."""
+    probs = torch.softmax(x.float() @ router_w, dim=-1)
+    weights, idx = probs.topk(mcfg.top_k, dim=-1)
+    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Switch-style load balance loss: E * sum_e f_e * p_e, f_e the mean
+    # number of a token's k slots routed to e (counted by a scatter-add,
+    # which needs no read-back of the largest index)
+    e = mcfg.num_experts
+    me = probs.mean(dim=0)                                        # [E]
+    counts = torch.zeros(e, dtype=torch.float32, device=x.device)
+    counts.scatter_add_(0, idx.reshape(-1),
+                        torch.ones(idx.numel(), device=x.device))
+    fe = counts / x.shape[0]
+    aux = e * (me * fe).sum() * mcfg.load_balance_loss_weight
+    return weights, idx, aux
+
+
+def _expert_ffn(p, h: torch.Tensor, gated: bool) -> torch.Tensor:
+    """h: [E, C, D] -> [E, C, D] (batched per-expert dense MLP)."""
+    up = torch.bmm(h, p["wi"])
+    if gated:
+        up = F.silu(torch.bmm(h, p["wg"])) * up
+    else:
+        up = F.gelu(up, approximate="tanh")
+    return torch.bmm(up, p["wo"])
+
+
+def moe_dense(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle: every expert on every token. x: [B,S,D]. The combine
+    matrix is built in x's dtype from the routing weights cast to it."""
+    b, s, d = x.shape
+    e = mcfg.num_experts
+    xf = x.reshape(b * s, d)
+    weights, idx, aux = _route(p["router"], xf, mcfg)
+    # every token as every expert's block (a view: no copy per expert)
+    ys = _expert_ffn(p, xf.expand(e, b * s, d), gated)            # [E,T,D]
+    # top-k indices in a row are distinct: a scatter into zeros is the JAX
+    # package's scatter-add, without colliding writes
+    comb = torch.zeros((b * s, e), dtype=x.dtype, device=x.device)
+    comb.scatter_(1, idx, weights.to(x.dtype))
+    out = torch.einsum("te,etd->td", comb, ys)
+    if mcfg.d_ff_shared:
+        out = out + L.mlp_apply(p["shared"], xf, gated)
+    return out.reshape(b, s, d), aux
+
+
+def capacity(t_loc: int, mcfg: MoEConfig, capacity_factor: float) -> int:
+    """Slots per (shard, expert) buffer for ``t_loc`` local tokens: at
+    least 4, a multiple of 4."""
+    cap = int(math.ceil(t_loc * mcfg.top_k / mcfg.num_experts
+                        * capacity_factor))
+    return max(4, ((cap + 3) // 4) * 4)
+
+
+def slot_ranks(idx: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """Each assignment's slot in its expert's buffer [T,k]: the number of
+    assignments to the same expert before it in (token, k) order."""
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    counts = torch.zeros(num_experts, dtype=torch.long, device=idx.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    starts = counts.cumsum(0) - counts
+    rank = torch.empty_like(flat_e)
+    rank[order] = torch.arange(flat_e.numel(), device=idx.device) \
+        - starts[flat_e[order]]
+    return rank.view(idx.shape)
+
+
+def _ep_local(p, xf: torch.Tensor, mcfg: MoEConfig, gated: bool, axis: str,
+              capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Body run per (data, model) shard inside ``spmd.shard_map``.
+    xf: [T_loc, D] local tokens; ``p`` holds the router and this shard's
+    experts (sharded over ``axis``)."""
+    tp = spmd.axis_size(axis)
+    t_loc, d = xf.shape
+    e = mcfg.num_experts
+    e_loc = e // tp
+    k = mcfg.top_k
+    cap = capacity(t_loc, mcfg, capacity_factor)
+
+    weights, idx, aux = _route(p["router"], xf, mcfg)              # [T,k]
+    rank = slot_ranks(idx, e).reshape(-1)
+    keep = rank < cap
+    # each kept assignment's row of the [E*cap, D] dispatch buffers; the
+    # dropped ones write a spare last row, which no one reads
+    rows = torch.where(keep, idx.reshape(-1) * cap + rank, e * cap)
+    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
+    buf[rows] = xf[:, None].expand(t_loc, k, d).reshape(t_loc * k, d)
+    # exchange: [tp, E_loc, cap, D] -> owner gets [tp, E_loc, cap, D]
+    buf = buf[:e * cap].view(tp, e_loc, cap, d)
+    buf = spmd.all_to_all(buf, axis, 0, 0, tiled=True)
+    h = buf.transpose(0, 1).reshape(e_loc, tp * cap, d)    # [E_loc,tp*cap,D]
+    y = _expert_ffn(p, h, gated)                           # local experts
+    y = y.view(e_loc, tp, cap, d).transpose(0, 1).reshape(tp, e_loc, cap, d)
+    y = spmd.all_to_all(y, axis, 0, 0, tiled=True)
+    # combine back to tokens: each assignment's row, weighted, summed
+    # over k in order
+    gathered = y.view(e * cap, d)[torch.where(keep, rows, 0)]     # [T*k, D]
+    gathered = torch.where(keep[:, None], gathered, 0)
+    w = weights.reshape(-1).to(xf.dtype)
+    out = (gathered * w[:, None]).view(t_loc, k, d).sum(dim=1)
+    return out, aux
+
+
+def moe_ep(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
+           axis: str = "model", capacity_factor: float = 1.25,
+           data_axes: Tuple[str, ...] = ("pod", "data"),
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE. x: [B,S,D], sharded over the data axes. Runs
+    over the active mesh; without one, with ``axis`` absent or of size 1,
+    or with the experts not dividing over it, the dense oracle. Tokens
+    shard over ``axis`` along S where it divides (each model shard routes
+    its own slice), else (decode) every model shard routes them all. The
+    result lands on x's device."""
+    mesh = active_mesh()
+    if mesh is None or axis not in mesh.shape or mesh.shape[axis] == 1 \
+            or mcfg.num_experts % mesh.shape[axis] != 0:
+        return moe_dense(p, x, mcfg, gated)
+    s = x.shape[1]
+    batch_axes = tuple(a for a in data_axes if a in mesh.shape)
+    tp = mesh.shape[axis]
+    seq_shard = s % tp == 0 and s >= tp
+    # the router, replicated, and the experts, sharded over ``axis``
+    names = ["router"] + [n for n in ("wi", "wo", "wg") if n in p]
+
+    def body(*args):
+        *weights, xloc = args
+        bl, sl, dl = xloc.shape
+        out, aux = _ep_local(dict(zip(names, weights)),
+                             xloc.reshape(bl * sl, dl), mcfg, gated, axis,
+                             capacity_factor)
+        # aux differs per shard; mean over all axes for a global scalar
+        aux = spmd.pmean(aux, axis)
+        if batch_axes:
+            aux = spmd.pmean(aux, batch_axes)
+        return out.view(bl, sl, dl), aux
+
+    bax = batch_axes if len(batch_axes) != 1 else batch_axes[0]
+    xs = spmd.P(bax if batch_axes else None, axis if seq_shard else None)
+    especs = tuple(spmd.P() if n == "router" else spmd.P(axis)
+                   for n in names)
+    out, aux = spmd.shard_map(body, mesh, in_specs=especs + (xs,),
+                              out_specs=(xs, spmd.P()))(
+        *(p[n] for n in names), x)
+    out, aux = out.full(x.device), aux.full(x.device)
+    if mcfg.d_ff_shared:
+        out = out + L.mlp_apply(p["shared"], x, gated)
+    return out, aux

@@ -5,8 +5,8 @@ divisibility-aware (kv_heads=1 cannot shard 16-way).
 
 The port shards nothing implicitly: it has no ``constrain``. The mesh that
 ``use_sharding`` activates is read by the modules that run explicitly over
-it (``models.attention.seq_sharded_decode``), and ``resolve_spec`` gives
-the spec a logical layout would take.
+it (``models.attention.seq_sharded_decode``, ``models.moe.moe_ep``), and
+``resolve_spec`` gives the spec a logical layout would take.
 """
 from __future__ import annotations
 

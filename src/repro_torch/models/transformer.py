@@ -1,8 +1,9 @@
 """Decoder-only LM assembly (``repro/models/transformer.py`` at the same
 path), for stacks of attention layers (global, or a pattern of local and
-global, each + MLP), of Mamba-2 SSD blocks (no MLP, no ``norm2``) and of
-RG-LRU and local attention layers (each + MLP), with the vision frontend's
-precomputed embeddings written over the head of the sequence.
+global, each + MLP, or + MoE where the config has one), of Mamba-2 SSD
+blocks (no MLP, no ``norm2``) and of RG-LRU and local attention layers
+(each + MLP), with the vision frontend's precomputed embeddings written
+over the head of the sequence.
 
 As in the JAX package, the layer stack is ``cfg.layer_pattern`` (a
 repeating period, e.g. 5 x local_attn + 1 x global_attn for gemma3)
@@ -33,6 +34,7 @@ from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
@@ -53,8 +55,11 @@ class Flags:
     its Pallas kernel, whose function is the same. ``seq_shard_kv`` names
     the mesh axis over which global layers decode with the KV cache
     sequence-sharded (``attention.seq_sharded_decode`` over the mesh of
-    ``models.sharding.use_sharding``)."""
+    ``models.sharding.use_sharding``). ``moe_mode`` takes an MoE layer
+    through ``moe.moe_ep`` ("ep": expert-parallel over the active mesh,
+    the dense oracle without one) or ``moe.moe_dense`` ("dense")."""
     param_dtype: Any = torch.bfloat16
+    moe_mode: str = "ep"
     use_flash_kernel: bool = True
     flash_block: int = 512
     use_ssd_kernel: bool = True
@@ -62,8 +67,8 @@ class Flags:
 
 
 DEFAULT_FLAGS = Flags()
-SMOKE_FLAGS = Flags(param_dtype=torch.float32, use_flash_kernel=False,
-                    use_ssd_kernel=False)
+SMOKE_FLAGS = Flags(param_dtype=torch.float32, moe_mode="dense",
+                    use_flash_kernel=False, use_ssd_kernel=False)
 
 _NOT_PORTED = "not ported yet (see ROADMAP.md Queue 1 item 6)"
 
@@ -72,8 +77,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.enc_dec or cfg.frontend not in ("none", "vision"):
         raise NotImplementedError(f"{cfg.name}: encoder-decoder and audio "
                                   f"frontend models are {_NOT_PORTED}")
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are {_NOT_PORTED}")
     kinds = set(cfg.layer_pattern)
     if not (kinds <= {GLOBAL_ATTN, LOCAL_ATTN} or kinds == {SSD}
             or kinds <= {RGLRU, LOCAL_ATTN}):
@@ -115,9 +118,14 @@ def _at(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# Per-layer block = (attention | RG-LRU) + MLP, or SSD alone; pre-norm
-# residual
+# Per-layer block = (attention | RG-LRU) + (MLP | MoE), or SSD alone;
+# pre-norm residual
 # ---------------------------------------------------------------------------
+
+def _is_moe_layer(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.moe is not None and kind in (GLOBAL_ATTN, LOCAL_ATTN) \
+        and cfg.moe.interleave == 1
+
 
 def block_init(gen, cfg: ModelConfig, kind: str, *, dtype, device,
                lead: Tuple[int, ...] = ()) -> Dict[str, Any]:
@@ -132,12 +140,17 @@ def block_init(gen, cfg: ModelConfig, kind: str, *, dtype, device,
         mix = {"attn": A.attn_init(gen, cfg.d_model, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.resolved_head_dim,
                                    dtype=dtype, device=device, lead=lead)}
+    if _is_moe_layer(cfg, kind):
+        ffn = {"moe": M.moe_init(gen, cfg.d_model, cfg.moe, cfg.gated_mlp,
+                                 dtype=dtype, device=device, lead=lead)}
+    else:
+        ffn = {"mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                                 dtype=dtype, device=device, lead=lead)}
     return {
         "norm1": L.scale_init(cfg.d_model, device=device, lead=lead),
         **mix,
         "norm2": L.scale_init(cfg.d_model, device=device, lead=lead),
-        "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                          dtype=dtype, device=device, lead=lead),
+        **ffn,
     }
 
 
@@ -146,7 +159,8 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                 cache: Optional[Dict] = None,
                 lengths: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache). An MoE layer's load-balance loss is dropped
+    here (the JAX package returns it for training)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == SSD:
         mix, new_cache = S.ssd_layer(p["ssd"], h, scfg=cfg.ssm, mode=mode,
@@ -164,7 +178,12 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
             use_kernel=flags.use_flash_kernel, flash_block=flags.flash_block)
     x = x + mix
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp_apply(p["mlp"], h, cfg.gated_mlp), new_cache
+    if "moe" in p:
+        moe = M.moe_ep if flags.moe_mode == "ep" else M.moe_dense
+        y, _ = moe(p["moe"], h, cfg.moe, cfg.gated_mlp)
+    else:
+        y = L.mlp_apply(p["mlp"], h, cfg.gated_mlp)
+    return x + y, new_cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
@@ -259,7 +278,8 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
     ``embed`` [V, D], ``final_norm`` [D], ``unembed`` [D, V] (absent when
     tied) and the blocks (module docstring), each stacked leaf with a
     leading axis: ``norm1``, ``attn.{wq,wk,wv,wo}``, ``norm2``,
-    ``mlp.{wi,wo[,wg]}`` for attention, the same with ``rglru.{in_x,
+    ``mlp.{wi,wo[,wg]}`` (an MoE layer: ``moe.{router,wi,wo[,wg]
+    [,shared.{wi,wo[,wg]}]}``) for attention, the same with ``rglru.{in_x,
     in_gate,conv_w,conv_b,w_r,b_r,w_i,b_i,lam,out}`` in place of ``attn``
     for RG-LRU, ``norm1``, ``ssd.{in_proj,conv_w,conv_b,A_log,D,dt_bias,
     norm,out_proj}`` for SSD."""

@@ -241,6 +241,25 @@ def test_flash_attention_gqa_close_to_plain(cuda, g):
                                    atol=tol)
 
 
+@pytest.mark.parametrize("kh,g", [(16, 1), (8, 5)])
+def test_flash_gqa_at_the_moe_head_layouts(cuda, kh, g):
+    """olmoe-1b-7b's heads (16 KV heads of one query head) and
+    llama4-scout's (8 of 5), causal, D = 128: one launch a call, within
+    the kernel's bounds of the plain version in both dtypes."""
+    gen = torch.Generator(device=cuda).manual_seed(kh + g)
+    q = torch.randn((2, 384, kh, g, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 384, kh, 128), generator=gen, device=cuda)
+            for _ in range(2))
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+        n = LAUNCHES["flash_attention"]
+        got = ops.flash_attention_gqa(qq, kk, vv)
+        assert LAUNCHES["flash_attention"] == n + 1
+        want = ops.flash_attention_plain(qq, kk, vv)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
 @pytest.mark.parametrize("g", [1, 8])
 @pytest.mark.parametrize("d", [8, 12, 64, 128, 130, 136, 160, 192, 200, 256,
                                264])
@@ -511,7 +530,10 @@ def test_traced_run_tasked_replays_cuda_graphs(cuda):
 
 
 @pytest.mark.parametrize("arch,flag", [("yi-9b", "use_flash_kernel"),
-                                       ("mamba2-370m", "use_ssd_kernel")])
+                                       ("mamba2-370m", "use_ssd_kernel"),
+                                       ("olmoe-1b-7b", "use_flash_kernel"),
+                                       ("llama4-scout-17b-16e",
+                                        "use_flash_kernel")])
 def test_traced_tasked_decode_equals_interpreted(cuda, arch, flag):
     """The tasked decode loop of a smoke model under trace_graphs: the
     graph writes the adopted cache in place (never copied) and gives the
@@ -960,3 +982,63 @@ def test_pixtral_prefill_goes_through_the_kernel(cuda):
                                               {"vision_embeds": ve})
     assert out.shape == (2, 16) and out.device.type == "cuda"
     assert LAUNCHES["flash_attention"] == n + cfg.n_layers + cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# MoE on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-16e"])
+def test_moe_smoke_model_serves_on_the_card(cuda, arch):
+    """The MoE smoke model on the card with the flash flag on: one flash
+    launch a layer in a prefill of 128 tokens, the hidden state within
+    1e-4 of the same weights on the CPU, greedy tokens from the Engine."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    cfg = get_smoke_config(arch)
+    model = build_smoke(cfg, use_flash_kernel=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 128), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    n = LAUNCHES["flash_attention"]
+    x, _ = model.apply(params, {"tokens": toks}, mode="prefill")
+    assert LAUNCHES["flash_attention"] == n + cfg.n_layers
+    x_cpu, _ = model.apply(copy.deepcopy(params).cpu(),
+                           {"tokens": toks.cpu()}, mode="prefill")
+    torch.testing.assert_close(x.cpu(), x_cpu, rtol=1e-4, atol=1e-4)
+    out = Engine(model, params, 2, 140).generate(toks, 8)
+    assert out.shape == (2, 8) and out.device.type == "cuda"
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-16e"])
+def test_moe_ep_on_four_shards_of_the_card(cuda, arch):
+    """``moe_ep`` at the smoke config over a (1, 4) mesh of shards sharing
+    the card: at capacity factor E/k within 1e-4 of ``moe_dense`` over each
+    shard's token slice (float32), and at 1.25, with drops, within 1e-5 of
+    the same call over CPU shards (held to the JAX package on the CPU)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.sharding import use_sharding
+    cfg = get_smoke_config(arch)
+    mcfg = cfg.moe
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    p = M.moe_init(gen, cfg.d_model, mcfg, cfg.gated_mlp,
+                   dtype=torch.float32, device=cuda)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen, device=cuda)
+    mesh = make_smoke_mesh(1, 4, devices=[cuda] * 4)
+    with use_sharding(mesh):
+        got, _ = M.moe_ep(p, x, mcfg, cfg.gated_mlp,
+                          capacity_factor=mcfg.num_experts / mcfg.top_k)
+        low = M.moe_ep(p, x, mcfg, cfg.gated_mlp)
+    want = torch.cat([M.moe_dense(p, xs, mcfg, cfg.gated_mlp)[0]
+                      for xs in x.chunk(4, dim=1)], dim=1)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    cpu = torch.device("cpu")
+    p_cpu = {k: {kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+             else v.cpu() for k, v in p.items()}
+    with use_sharding(make_smoke_mesh(1, 4, devices=[cpu] * 4)):
+        low_cpu = M.moe_ep(p_cpu, x.cpu(), mcfg, cfg.gated_mlp)
+    for a, b in zip(low, low_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)

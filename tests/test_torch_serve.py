@@ -71,9 +71,10 @@ def test_configs_equal_the_jax_packages(arch):
 
 
 def test_unported_configs_raise():
-    for arch in ("olmoe-1b-7b", "llama4-scout-17b-16e", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tconfigs.get_config(arch)
+    """whisper-large-v3 (encoder-decoder) is the config still to port; the
+    MoE ones are ported (``test_torch_moe.py``)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tconfigs.get_config("whisper-large-v3")
     with pytest.raises(ValueError):
         tconfigs.get_config("no-such-arch")
     assert tconfigs.get_config("yi-9b").param_count() == 8_829_403_136

@@ -61,10 +61,38 @@ def _port_run(body, x, n, n_out=1):
     return [o.full().numpy() for o in (out if n_out > 1 else (out,))]
 
 
-# the four patterns, each with its numpy oracle over the blocks of x
-# (2 rows a shard)
+# the patterns, each with its numpy oracle over the blocks of x (2 rows a
+# shard)
 def _blocks(x, n):
     return [x[2 * i:2 * i + 2] for i in range(n)]
+
+
+def _lax(m):
+    """The SPMD primitives beside a collectives module: ``jax.lax`` with
+    the JAX package's, ``spmd`` with the port's."""
+    return jax.lax if m is JC else spmd
+
+
+def _all_to_all(m):
+    """Each shard stacks n scaled copies of its block (chunk j is the block
+    times j + 1) and exchanges them: shard i receives chunk i of every
+    shard, in the senders' order."""
+    xp = jnp if m is JC else torch
+
+    def body(a):
+        n = _lax(m).axis_size("data")
+        chunks = xp.stack([a * (j + 1) for j in range(n)])
+        out = _lax(m).all_to_all(chunks.reshape(2 * n, 3), "data", 0, 0,
+                                 tiled=True)
+        return out
+    return body
+
+
+def _mean(b, n):
+    acc = b[0]
+    for blk in b[1:]:
+        acc = acc + blk
+    return acc / n
 
 
 CASES = {
@@ -89,6 +117,12 @@ CASES = {
             lambda b, n: [np.concatenate([b[1]] + b[1:])]),
     "get": (lambda m: lambda a: m.spmd_get(a, "data", 1), 1,
             lambda b, n: [np.concatenate([b[1]] * n)]),
+    "all_to_all": (_all_to_all, 1,
+                   lambda b, n: [np.concatenate([b[j] * (i + 1)
+                                                 for i in range(n)
+                                                 for j in range(n)])]),
+    "pmean": (lambda m: lambda a: _lax(m).pmean(a, "data"), 1,
+              lambda b, n: [np.concatenate([_mean(b, n)] * n)]),
 }
 
 
@@ -197,6 +231,37 @@ def test_sharded_values_round_trip_on_a_2d_mesh():
     assert torch.equal(rep.full(), torch.zeros_like(x))
 
 
+def test_all_to_all_and_pmean_on_a_2d_mesh():
+    """On a (2, 2) mesh: ``pmean`` over both axes is the mean over the four
+    shards, the same bits on each (a fold over data, then model, then the
+    division); ``all_to_all`` over model, split along dim 1 and joined
+    along dim 0, exchanges only among the shards that share a data
+    coordinate; the untiled form and a split that does not divide
+    raise."""
+    mesh = _tmesh(2, 2)
+    x = np.random.default_rng(7).standard_normal((4, 8)).astype(np.float32)
+    b = [[x[2 * d:2 * d + 2, 4 * m:4 * m + 4] for m in range(2)]
+         for d in range(2)]
+    spec = P("data", "model")
+    mean = spmd.shard_map(lambda a: spmd.pmean(a, ("data", "model")), mesh,
+                          in_specs=spec, out_specs=spec)(torch.from_numpy(x))
+    want = ((b[0][0] + b[1][0]) + (b[0][1] + b[1][1])) / 4
+    np.testing.assert_array_equal(mean.full().numpy(), np.tile(want, (2, 2)))
+    got = spmd.shard_map(
+        lambda a: spmd.all_to_all(a, "model", 1, 0, tiled=True), mesh,
+        in_specs=spec, out_specs=spec)(torch.from_numpy(x))
+    want = np.block([[np.concatenate([b[d][0][:, 2 * m:2 * m + 2],
+                                      b[d][1][:, 2 * m:2 * m + 2]])
+                      for m in range(2)] for d in range(2)])
+    np.testing.assert_array_equal(got.full().numpy(), want)
+    for bad in (lambda a: spmd.all_to_all(a, "model", 0, 0),
+                lambda a: spmd.all_to_all(a[:1], "model", 0, 0,
+                                          tiled=True)):
+        with pytest.raises((NotImplementedError, ValueError)):
+            spmd.shard_map(bad, mesh, in_specs=spec, out_specs=spec)(
+                torch.from_numpy(x))
+
+
 def test_spmd_misuse_raises():
     with pytest.raises(NameError):
         spmd.axis_index("data")
@@ -261,6 +326,34 @@ def test_collectives_under_thread_switching_stress():
     shift = sum(1 + r % 3 for r in range(rounds))
     np.testing.assert_array_equal(out.full().numpy(),
                                   np.roll(x, shift, axis=0))
+
+
+def test_all_to_all_under_thread_switching_stress():
+    """16 shards, a short switch interval, 30 rounds: an ``all_to_all``
+    over split and concat dim 0 is a block transpose, so two in a row give
+    every shard its block back, and ``pmean`` gives every shard the same
+    bits."""
+    n, rounds = 16, 30
+    x = np.random.default_rng(8).standard_normal((n * n, 3)).astype(
+        np.float32)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def body(a):
+            start, mean = a, spmd.pmean(a, "data")
+            for _ in range(rounds):
+                a = spmd.all_to_all(a, "data", 0, 0, tiled=True)
+                a = spmd.all_to_all(a, "data", 0, 0, tiled=True)
+                assert torch.equal(a, start)
+                assert torch.equal(spmd.pmean(a, "data"), mean)
+            return mean
+
+        out = spmd.shard_map(body, _tmesh(n), P("data"), P("data"))(
+            torch.from_numpy(x))
+    finally:
+        sys.setswitchinterval(interval)
+    means = out.full().numpy().reshape(n, n, 3)
+    assert (means == means[:1]).all()
 
 
 def test_host_round_trip_keeps_the_value():

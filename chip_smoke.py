@@ -80,7 +80,17 @@ the port's main path through the tasking runtime:
     layers' routing, expert products and combine traced by name; then
     one full-width MoE layer through ``moe_ep`` over four shards sharing
     the card against the dense oracle, without and with dropped
-    assignments, in bf16 and float32.
+    assignments, in bf16 and float32;
+  * whisper-large-v3 (encoder-decoder) at full width and depth (32
+    encoder and 32 decoder layers, 3.29 GB bf16): 8 requests of 1500
+    seeded frames (the audio frontend a stub, as in the JAX package) and
+    decoder prompts of 128 tokens from ``data.pipeline.SyntheticLM``, 32
+    decode steps; no kernel launch (every attention call is the plain
+    blockwise path, as in the JAX package); yi-9b's greedy and tasked
+    checks, the bf16 prefill on bf16 operands against its products
+    upcast, the float32 prefill and decode logits against a full
+    forward, the encoder's time, one encoder attention call beside SDPA,
+    the prefill's device time by part and the decode step's floor.
     Every serving phase starts with the card nearly empty and must give
     its memory back. Beside phase 2, ``window_attention`` on bf16
     operands against its products on float32 copies at a gemma3 and a
@@ -143,6 +153,21 @@ VISION_SCALE = 0.02
 # does.
 MOE_ARCH, SCOUT_ARCH = "olmoe-1b-7b", "llama4-scout-17b-16e"
 SCOUT_LAYERS, SCOUT_F32_LAYERS = 8, 4
+# phase 15: whisper-large-v3 at full width and depth (32 encoder and 32
+# decoder layers; 3.29 GB bf16, 6.57 GB float32 with the learned positions),
+# 8 requests of 1500 seeded frames at the scale tests/test_arch_smoke.py
+# draws them (0.1) and decoder prompts of 128 tokens from
+# data.pipeline.SyntheticLM, 32 decode steps (160 positions, inside
+# Whisper's 448-token decoder context). No kernel is on its path, as in the
+# JAX package. Checks: the bf16 prefill on bf16 operands within 2e-2
+# relative L2 of the same prefill with the products upcast (flash's bf16
+# bound: the float32 sum order can flip a bf16 rounding of p); float32
+# prefill and decode logits within 1e-4 of the full forward (the same
+# products in other shapes and sum orders)
+WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = \
+    "whisper-large-v3", 8, 128, 32
+FRAME_SCALE = 0.1
+WHISPER_UPCAST_TOL, WHISPER_LOGITS_TOL = 2e-2, 1e-4
 # the EP check after each: one full-width MoE layer's moe_ep over a (1, 4)
 # mesh of shards sharing the card, on x [4, 2048, D] (seq-sharded, 512
 # positions a shard), at capacity factors E/k (no drops), 1.25 (the
@@ -925,6 +950,28 @@ def serve_trace(eng, tokens, kernel: Optional[str], extra: dict) -> dict:
     return out
 
 
+def ranged_device_ms(prof, prefix: str, labels):
+    """The device time (ms) of the kernels launched under the profiler
+    ranges named ``prefix + label``, summed by label, and the busy time
+    (ms) of the traced window's device events (None where the trace holds
+    none)."""
+    ms = dict.fromkeys(labels, 0.0)
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.events():
+        if e.name.startswith(prefix) and e.device_type != cuda:
+            total = getattr(e, "device_time_total", None)
+            if total is None:
+                total = e.cuda_time_total
+            ms[e.name[len(prefix):]] += total / 1e3
+    dev = [(e.name, e.time_range.start, e.time_range.end)
+           for e in prof.events()
+           if e.device_type == cuda and not e.name.startswith(prefix)]
+    if not dev:
+        return ms, None
+    return ms, _busy_us(dev, min(a for _, a, _ in dev),
+                        max(b for _, _, b in dev)) / 1e3
+
+
 def moe_prefill_parts(eng, tokens, extra) -> dict:
     """A traced prefill of an MoE model with each layer's MoE call, its
     routing and its expert products inside profiler ranges: the device
@@ -953,21 +1000,9 @@ def moe_prefill_parts(eng, tokens, extra) -> dict:
     finally:
         for n, fn in saved.items():
             setattr(M, n, fn)
-    ms = dict.fromkeys(labels.values(), 0.0)
-    cuda = torch.autograd.DeviceType.CUDA
-    for e in prof.events():
-        if e.name.startswith("moe.") and e.device_type != cuda:
-            total = getattr(e, "device_time_total", None)
-            if total is None:
-                total = e.cuda_time_total
-            ms[e.name[4:]] += total / 1e3
-    dev = [(e.name, e.time_range.start, e.time_range.end)
-           for e in prof.events()
-           if e.device_type == cuda and not e.name.startswith("moe.")]
-    if not dev or not ms["moe"]:
+    ms, busy = ranged_device_ms(prof, "moe.", labels.values())
+    if busy is None or not ms["moe"]:
         return {"device_trace": "not measured"}
-    busy = _busy_us(dev, min(a for _, a, _ in dev),
-                    max(b for _, _, b in dev)) / 1e3
     ms["combine_and_shared"] = ms["moe"] - ms["routing"] - \
         ms["expert_products"]
     return {"busy_ms": busy, "ms": ms,
@@ -1156,6 +1191,8 @@ SERVE_SPECS = {
                   "use_flash_kernel", "flash_attention", "global_attn",
                   "flash_mma", PREFILL_REL_TOL, SCOUT_LAYERS,
                   SCOUT_F32_LAYERS),
+    15: ServeSpec(WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS,
+                  None, None, None, None, None, None, None),
 }
 
 
@@ -1176,11 +1213,12 @@ def clone_tree(tree: dict) -> dict:
 def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     """Phase 5 (yi-9b), 6 (mamba2-370m), 10 (gemma3-27b), 11
     (recurrentgemma-9b), 12 (pixtral-12b, its prompts' first 256
-    positions vision embeddings), 13 (olmoe-1b-7b) or 14 (llama4-scout,
-    8 of its 48 layers) at full width through the Engine (the main path),
-    then the checks and the tasked decode loop from the same prefill
-    state. The card must hold less than ``MEMORY_BEFORE_SERVE`` before the
-    weights load, and the allocation must come back within
+    positions vision embeddings), 13 (olmoe-1b-7b), 14 (llama4-scout,
+    8 of its 48 layers) or 15 (whisper-large-v3, frames into the encoder,
+    prompts from ``SyntheticLM``) at full width through the Engine (the
+    main path), then the checks and the tasked decode loop from the same
+    prefill state. The card must hold less than ``MEMORY_BEFORE_SERVE``
+    before the weights load, and the allocation must come back within
     ``MEMORY_SLACK`` of that after."""
     import dataclasses
     from repro_torch.configs import RGLRU, get_config
@@ -1214,8 +1252,18 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
          "weights_gb": sum(p.numel() * p.element_size()
                            for p in params.parameters()) / 1e9}
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    tokens = torch.randint(0, cfg.vocab, (b, s), device=dev, generator=gen)
     extra = {}
+    if cfg.enc_dec:
+        from repro_torch.data import DataConfig, SyntheticLM
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                      global_batch=b, seed=SEED))
+        tokens = torch.from_numpy(data.batch(0)["tokens"]).to(dev)
+        extra["frames"] = FRAME_SCALE * torch.randn(
+            (b, cfg.encoder_seq, cfg.d_model), device=dev, generator=gen)
+        r["frames"] = cfg.encoder_seq
+    else:
+        tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
+                               generator=gen)
     if cfg.frontend == "vision":
         extra["vision_embeds"] = VISION_SCALE * torch.randn(
             (b, cfg.frontend_tokens, cfg.d_model), device=dev, generator=gen)
@@ -1244,10 +1292,13 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     t3 = time.perf_counter()
     r["launches"] = dict(ops.LAUNCHES)
     r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    r["cache_gb"] = sum(v.numel() * v.element_size()
-                        for _, v in flatten(cache)) / 1e9
+    cache_bytes = {k: v.numel() * v.element_size()
+                   for k, v in flatten(cache)}
+    r["cache_gb"] = sum(cache_bytes.values()) / 1e9
     r["prefill_ms"] = (t1 - t0) * 1e3
     r["prefill_tok_s"] = b * s / (t1 - t0)
+    if cfg.enc_dec:
+        r["prefill_frames_s"] = b * cfg.encoder_seq / (t1 - t0)
     r["decode_ms_per_step"] = (t3 - t2) * 1e3 / steps
     r["decode_tok_s"] = b * steps / (t3 - t2)
     out = torch.cat([nxt, rest], dim=1)                   # [B, steps + 1]
@@ -1300,6 +1351,8 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
         model, params, tokens, extra, out, routes)
     del cache, routes
     r["trace"] = serve_trace(eng, tokens, trace_name, extra)
+    if cfg.enc_dec:
+        r.update(encdec_bf16_checks(eng, tokens, extra, r, cache_bytes))
     if cfg.moe is not None:
         r["trace"]["prefill_moe_parts"] = moe_prefill_parts(eng, tokens,
                                                             extra)
@@ -1334,6 +1387,9 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     r["greedy_vs_full_forward"]["f32"]["layers"] = cfg32.n_layers
     if RGLRU in cfg.layer_pattern:
         r["rglru"] = rglru_checks(model32, params32, b, s)
+    if cfg.enc_dec:
+        r["f32_logits_vs_full_forward"] = logits_vs_full_forward(
+            model32, params32, tokens, extra, steps)
     del params32, model32, tokens, out32, extra
     gc.collect()
     torch.cuda.empty_cache()
@@ -1345,6 +1401,225 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     check(abs(mem1 - mem0) <= MEMORY_SLACK, f"phase {phase}: device memory "
           f"allocated {mem0} B before and {mem1} B after")
     return r
+
+
+def encdec_bf16_checks(eng, tokens, extra, r: dict, cache_bytes) -> dict:
+    """Phase 15's bf16 checks and times, after the main run: the prefill
+    on bf16 operands against the same prefill with its products upcast;
+    the encoder's time alone (host clock, synchronised, after the main
+    run's warm-up); one encoder attention call at the prefill's shapes on
+    bf16 operands and upcast, beside SDPA; the prefill's device time by
+    part; and the decode step's floor from the bytes it must read."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.serve import flatten
+    model, params = eng.model, eng.params
+    cfg = model.cfg
+    b = tokens.shape[0]
+    out = {"prefill_bf16_operands_vs_upcast": prefill_vs_upcast(
+        model, params, tokens, extra, WHISPER_UPCAST_TOL)}
+    frames = extra["frames"]
+    t = frames.shape[1]
+    padded = torch.nn.functional.pad(frames, (0, 0, 0, (-t) % 128))
+    enc_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ED.encode(params, padded, cfg, model.flags)
+        torch.cuda.synchronize()
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    out["encoder_ms"] = enc_ms
+    out["encoder_frames_s"] = b * t / (min(enc_ms) / 1e3)
+    out["encoder_attention_call"] = encoder_attention_call(
+        cfg, b, padded.shape[1])
+    out["prefill_parts"] = encdec_prefill_parts(eng, tokens, extra)
+    # a decode step reads the decoder's and the unembedding's weights, the
+    # whole self cache (masked past each length) and the whole cross cache
+    tree = params.tree()
+    weight_bytes = sum(v.numel() * v.element_size() for k, v in
+                       flatten(tree) if k.startswith("decoder.")
+                       or k == "unembed")
+    step_bytes = weight_bytes + sum(cache_bytes.values())
+    _, (_, _, mem_rate) = peaks(torch.cuda.get_device_name(0))
+    out["decode_floor"] = {
+        "weight_bytes": weight_bytes, "cache_bytes": cache_bytes,
+        "bytes_per_step": step_bytes,
+        "floor_ms_per_step": step_bytes / mem_rate * 1e3}
+    return out
+
+
+def prefill_vs_upcast(model, params, tokens, extra, tol: float) -> dict:
+    """The prefill's final hidden state with the attention products on the
+    operands' own dtype (``attention.bmm_f32``, the card's arm) against the
+    same prefill with the operands cast to float32 first
+    (``bmm_f32_upcast``, the CPU's arm), in relative L2."""
+    from unittest import mock
+
+    from repro_torch.models import attention as A
+    batch = {**extra, "tokens": tokens}
+    x, _ = model.apply(params, batch, mode="prefill")
+    with mock.patch.object(A, "bmm_f32", A.bmm_f32_upcast):
+        want, _ = model.apply(params, batch, mode="prefill")
+    x, want = x.float(), want.float()
+    check(bool(torch.isfinite(x).all()), "non-finite prefill hidden state")
+    rel = ((x - want).norm() / want.norm()).item()
+    check(rel <= tol, f"{model.cfg.name}: the prefill on bf16 operands is "
+          f"{rel} (relative L2) from the upcast one, above {tol}")
+    return {"rel_l2": rel, "max_abs": (x - want).abs().max().item(),
+            "tol_rel_l2": tol}
+
+
+def encoder_attention_call(cfg, b: int, t: int) -> dict:
+    """One encoder self-attention call (``attention.flash_attention``,
+    bidirectional, at the prefill's shapes: q [b, t, KH, G, D]) on bf16
+    operands against the same call with the products upcast, both timed
+    by CUDA events, beside ``scaled_dot_product_attention`` on the same
+    inputs (a library call the port does not use)."""
+    from unittest import mock
+
+    from repro_torch.models import attention as A
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    kh, d = cfg.n_kv_heads, cfg.resolved_head_dim
+    g = cfg.n_heads // kh
+    q = torch.randn((b, t, kh, g, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((b, t, kh, d), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+
+    def run():
+        return A.flash_attention(q, k, v, causal=False)
+
+    got = run().float()
+    with mock.patch.object(A, "bmm_f32", A.bmm_f32_upcast):
+        want = run().float()
+        upcast_ms = time_ms(run, 3, warmup=1)
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()), "encoder attention: non-finite")
+    check(bool(torch.allclose(got, want, rtol=WINDOW_TOL, atol=WINDOW_TOL)),
+          f"encoder attention on bf16 operands outside {WINDOW_TOL} of the "
+          f"upcast products (max err {err})")
+    del got, want
+    sdpa_q = q.view(b, t, kh * g, d).transpose(1, 2)
+    sdpa_k, sdpa_v = (a.transpose(1, 2) for a in (k, v))
+    sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        sdpa_q, sdpa_k, sdpa_v), 3, warmup=1) if g == 1 else None
+    flops = 4 * b * t * t * kh * g * d
+    _, (_, bf16, _) = peaks(torch.cuda.get_device_name(0))
+    r = dict(q=[b, t, kh, g, d], max_abs_err=err, tol=WINDOW_TOL,
+             ms=time_ms(run, 3, warmup=1), upcast_ms=upcast_ms,
+             sdpa_ms=sdpa_ms, flops=flops,
+             bf16_ops_bound_ms=flops / bf16 * 1e3)
+    del q, k, v, sdpa_q, sdpa_k, sdpa_v
+    return r
+
+
+def encdec_prefill_parts(eng, tokens, extra) -> dict:
+    """A traced prefill of the encoder-decoder with profiler ranges around
+    the encoder (``encdec.encode``), the blockwise attention
+    (``attention.flash_attention``: in the encoder, or the decoder's self
+    and cross), the encoder's MLPs (``layers.mlp_apply`` inside the
+    encoder) and the cross K/V projections (``encdec._cross_kv``): the
+    device time of the kernels launched under each and its share of the
+    prefill's busy time. ``encoder_other`` is the encoder's q, k, v and o
+    products, norms and residuals; ``decoder`` is the rest of the
+    prefill."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as A
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    inside = {"encoder": False}
+
+    def ranged(fn, label_of):
+        def call(*args, **kw):
+            with record_function(f"encdec.{label_of()}"):
+                return fn(*args, **kw)
+        return call
+
+    def encode(*args, **kw):
+        inside["encoder"] = True
+        try:
+            with record_function("encdec.encoder"):
+                return saved[(ED, "encode")](*args, **kw)
+        finally:
+            inside["encoder"] = False
+
+    saved = {(ED, "encode"): ED.encode, (A, "flash_attention"):
+             A.flash_attention, (L, "mlp_apply"): L.mlp_apply,
+             (ED, "_cross_kv"): ED._cross_kv}
+    patches = {
+        (ED, "encode"): encode,
+        (A, "flash_attention"): ranged(A.flash_attention, lambda: (
+            "encoder_attention" if inside["encoder"]
+            else "decoder_attention")),
+        (L, "mlp_apply"): ranged(L.mlp_apply, lambda: (
+            "encoder_mlp" if inside["encoder"] else "decoder_mlp")),
+        (ED, "_cross_kv"): ranged(ED._cross_kv, lambda: "cross_kv")}
+    try:
+        for (mod, name), fn in patches.items():
+            setattr(mod, name, fn)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.prefill(tokens, extra)
+            torch.cuda.synchronize()
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    ms, busy = ranged_device_ms(prof, "encdec.", (
+        "encoder", "encoder_attention", "encoder_mlp", "cross_kv",
+        "decoder_attention", "decoder_mlp"))
+    if busy is None or not ms["encoder"]:
+        return {"device_trace": "not measured"}
+    ms["encoder_other"] = ms["encoder"] - ms["encoder_attention"] - \
+        ms["encoder_mlp"]
+    ms["decoder"] = busy - ms["encoder"] - ms["cross_kv"]
+    return {"busy_ms": busy, "ms": ms,
+            "share_of_busy": {k: v / busy for k, v in ms.items()}}
+
+
+def logits_vs_full_forward(model, params, tokens, extra, steps: int) -> dict:
+    """Phase 15's float32 check: the Engine's prefill and ``steps`` decode
+    steps, taken step by step as ``Engine.prefill`` and ``Engine.decode``
+    take them (a capacity cache written in place, the greedy token fed
+    back), give logits within ``WHISPER_LOGITS_TOL`` of one full forward
+    (``mode="train"``) over the prompt and the tokens fed, at the same
+    positions; their greedy tokens must be ``Engine.generate``'s."""
+    from repro_torch.launch.serve import Engine
+    b, s = tokens.shape
+    cache = model.init_cache(b, s + steps, tokens.device)
+    x, cache = model.apply(params, {**extra, "tokens": tokens},
+                           mode="prefill", cache=cache)
+    logits = [model.unembed(params, x[:, -1:]).float()]
+    del x
+    cur, fed = logits[0].argmax(dim=-1).to(torch.int32), []
+    lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    for _ in range(steps):
+        fed.append(cur)
+        x, cache = model.apply(params, {"tokens": cur, "lengths": lengths},
+                               mode="decode", cache=cache)
+        step_logits = model.unembed(params, x).float()
+        logits.append(step_logits)
+        cur = step_logits.argmax(dim=-1).to(torch.int32)
+        lengths = lengths + 1
+    del cache
+    got = torch.cat(logits, dim=1)                      # [B, steps + 1, V]
+    out = Engine(model, params, b, s + steps).generate(tokens, steps + 1,
+                                                       extra)
+    check(torch.equal(got.argmax(dim=-1).to(torch.int32), out),
+          "phase 15: the logits' greedy tokens are not the Engine's")
+    full = torch.cat([tokens] + fed, dim=1)
+    hidden, _ = model.apply(params, {**extra, "tokens": full}, mode="train")
+    want = model.unembed(params, hidden[:, s - 1:]).float()
+    del hidden
+    err = (got - want).abs().max().item()
+    check(bool(torch.isfinite(got).all()), "phase 15: non-finite logits")
+    check(bool(torch.allclose(got, want, rtol=WHISPER_LOGITS_TOL,
+                              atol=WHISPER_LOGITS_TOL)),
+          f"{model.cfg.name} (float32): prefill and decode logits outside "
+          f"{WHISPER_LOGITS_TOL} of the full forward (max err {err})")
+    return {"positions": steps + 1, "max_abs_err": err,
+            "prefill_max_abs_err": (got[:, 0] - want[:, 0]).abs().max()
+            .item(), "tol": WHISPER_LOGITS_TOL,
+            "logit_scale": want.abs().max().item()}
 
 
 def rglru_checks(model32, params32, b: int, s: int) -> dict:
@@ -1416,10 +1691,11 @@ def greedy_vs_full_forward(model, params, tokens, extra, out,
     n = full.shape[1]
     fwd_flags = model.flags
     r = {}
-    if GLOBAL_ATTN in cfg.layer_pattern:
+    if GLOBAL_ATTN in cfg.layer_pattern and not cfg.enc_dec:
         # the attention layer takes the kernel only at S % 128 == 0, as the
         # JAX package's takes the Pallas one: the plain path, in
-        # the largest block that divides prompt + steps
+        # the largest block that divides prompt + steps (an
+        # encoder-decoder's prompt + steps fit one block of 512)
         blk = max(d for d in range(1, 513) if n % d == 0)
         fwd_flags = dataclasses.replace(fwd_flags, use_flash_kernel=False,
                                         flash_block=blk)
@@ -2383,6 +2659,10 @@ def main() -> int:
     scout = serve_phase(ops, Runtime, RuntimeConfig, 14)
     scout["ep"] = ep_check(SCOUT_ARCH)
     print(f"serve llama4-scout ({card}): " + json.dumps(scout))
+
+    # -- phase 15: whisper-large-v3 at full width and depth --------------
+    whisper = serve_phase(ops, Runtime, RuntimeConfig, 15)
+    print(f"serve whisper ({card}): " + json.dumps(whisper))
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],

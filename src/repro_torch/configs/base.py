@@ -3,11 +3,10 @@
 
 Every ported architecture has one module in this package exporting
 ``CONFIG`` (the exact published configuration) and ``smoke_config()`` (a
-reduced same-family configuration for CPU tests). The port carries the
-decoder-only configurations its serving path runs (dense attention stacks,
-global or local and global, the vision-embedding backbone, the Mamba-2 SSD
-stack, the RG-LRU + local attention hybrid and the MoE stacks); the
-encoder-decoder one is still to be ported (``ROADMAP.md``).
+reduced same-family configuration for CPU tests). The port carries every
+configuration of the JAX package: dense attention stacks, global or local
+and global, the vision-embedding backbone, the Mamba-2 SSD stack, the
+RG-LRU + local attention hybrid, the MoE stacks and the encoder-decoder.
 """
 from __future__ import annotations
 
@@ -129,6 +128,10 @@ class ModelConfig:
                     and i % self.moe.interleave == self.moe.interleave - 1:
                 blk = blk - mlp + moe_mlp
             total += blk + 2 * d  # norms
+        if self.enc_dec:
+            enc_attn = attn + mlp
+            total += self.n_encoder_layers * (enc_attn + 2 * d)
+            total += self.n_layers * (attn + d)  # decoder cross-attn + norm
         return int(total)
 
     def active_param_count(self) -> int:
@@ -173,20 +176,14 @@ def canon(arch_id: str) -> str:
     return _ALIASES.get(s, s)
 
 
-# the architectures whose every layer kind the port runs
-PORTED_ARCH_IDS = ("recurrentgemma_9b", "gemma3_27b", "phi4_mini_3_8b",
-                   "codeqwen15_7b", "yi_9b", "pixtral_12b", "mamba2_370m",
-                   "llama4_scout_17b_a16e", "olmoe_1b_7b")
+# the architectures whose every layer kind the port runs: all of them
+PORTED_ARCH_IDS = ARCH_IDS
 
 
 def _module(arch_id: str):
     name = canon(arch_id)
     if name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}")
-    if name not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"architecture {arch_id!r} is not ported yet; the port runs "
-            f"{PORTED_ARCH_IDS} (see ROADMAP.md Queue 1 item 6)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -3,8 +3,9 @@
 ``to_torch`` and ``to_numpy`` move numpy arrays (a Jacobi domain, DGEMM
 operands, hetero-object values) into and out of torch tensors with the
 dtype mapped both ways. ``lm_from_jax`` and ``cache_from_jax`` carry the
-JAX package's model weights and caches (KV, or SSD and RG-LRU conv and
-state), handed over as trees of numpy arrays, into the port's layout.
+JAX package's model weights and caches (KV, SSD and RG-LRU conv and state,
+or the encoder-decoder's self and cross KV), handed over as trees of numpy
+arrays, into the port's layout.
 
 bfloat16 has no numpy dtype of its own. Where a numpy bfloat16 exists (it is
 registered by whichever package provides it, e.g. the one JAX ships with), it
@@ -107,6 +108,14 @@ _MOE_KEYS = ({"router", "wi", "wo"}, {"router", "wi", "wo", "wg", "shared"})
 _MLP_KEYS = ({"wi", "wo"}, {"wi", "wo", "wg"})
 # KV caches; SSD and RG-LRU caches (conv inputs, float32 state)
 _CACHE_KEYS = ({"k", "v"}, {"conv", "state"})
+# the encoder-decoder (models.encdec): its top level and its two stacks;
+# the attention subtrees
+_ENCDEC_KEYS = {"embed", "pos_embed", "enc_final_norm", "final_norm",
+                "unembed", "encoder", "decoder"}
+_ENCDEC_STACKS = {"encoder": {"norm1", "attn", "norm2", "mlp"},
+                  "decoder": {"norm1", "self_attn", "norm_x", "cross_attn",
+                              "norm2", "mlp"}}
+_ATTN_KEYS = {"wq", "wk", "wv", "wo"}
 
 
 def _blocks_of(tree: dict, layouts, what: str, cache: bool) -> dict:
@@ -144,6 +153,20 @@ def _conv(node, device):
     return to_torch(np.asarray(node), device)
 
 
+def _encdec_from_jax(tree: dict, device):
+    """The encoder-decoder's tree, checked against its layout; its leaves
+    map one to one (the stacks keep their leading layer axis)."""
+    for stack, keys in _ENCDEC_STACKS.items():
+        block = tree[stack]
+        if set(block) != keys or set(block["mlp"]) not in _MLP_KEYS or any(
+                set(block[k]) != _ATTN_KEYS for k in keys
+                if k.endswith("attn")):
+            raise NotImplementedError(
+                f"{stack} layout {sorted(block)} is not ported; the port "
+                f"runs {sorted(keys)} (see ROADMAP.md)")
+    return _conv(tree, device)
+
+
 def lm_from_jax(tree: dict, device="cpu"):
     """The port's weights (a ``ParamTree``) of a JAX decoder-only LM.
 
@@ -158,10 +181,15 @@ def lm_from_jax(tree: dict, device="cpu"):
     ``b_r``, ``w_i``, ``b_i``, ``lam``, ``out``), ``norm2``, ``mlp`` for
     RG-LRU, ``norm1``, ``attn``, ``norm2``, ``moe`` (``router``, ``wi``,
     ``wo``, optionally ``wg`` and ``shared.{wi,wo[,wg]}``) for attention +
-    MoE. Names and layouts map one to one; values keep their dtype
-    (float32 leaves, the MoE router among them, stay float32 under bf16
+    MoE. An encoder-decoder's tree (``models.encdec``: ``embed``,
+    ``pos_embed``, ``enc_final_norm``, ``final_norm``, ``unembed`` and the
+    layer-stacked ``encoder`` and ``decoder``) crosses as it is. Names and
+    layouts map one to one; values keep their dtype (float32 leaves, the
+    norms and the MoE router among them, stay float32 under bf16
     weights)."""
     from repro_torch.models.transformer import ParamTree, put_path
+    if set(tree) == _ENCDEC_KEYS:
+        return ParamTree(_encdec_from_jax(tree, device))
     extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"}
                    - {k for k in tree if k.startswith("rem_")})
     if extra:
@@ -182,8 +210,15 @@ def cache_from_jax(tree: dict, device="cpu") -> dict:
     B, W-1, C], "state": [L, B, H, P, N]}`` for an SSD cache; for a longer
     one the same blocks under ``periods`` ("0", "1", ...) and ``rem_{i}``,
     an RG-LRU layer's as ``{"conv": [B, K-1, W], "state": [B, W]}`` (with
-    the leading period axis under ``periods``). Values keep their dtype."""
+    the leading period axis under ``periods``). An encoder-decoder's
+    ``{"decoder": {"self": {"k", "v"}, "cross": {"k", "v"}}}`` crosses as it
+    is. Values keep their dtype."""
     from repro_torch.models.transformer import put_path
+    dec = tree.get("decoder")
+    if set(tree) == {"decoder"} and isinstance(dec, dict) \
+            and set(dec) == {"self", "cross"} \
+            and all(set(dec[k]) == {"k", "v"} for k in dec):
+        return _conv(tree, device)
     out: dict = {}
     for path, block in _blocks_of(tree, _CACHE_KEYS, "cache",
                                   cache=True).items():

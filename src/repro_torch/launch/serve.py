@@ -13,15 +13,19 @@
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-large-v3 --smoke --device cpu
 
 Serves the dense attention configurations (global, or gemma3-27b's local
 and global layers), pixtral-12b (its vision frontend a stub: ``main``
 passes zero ``vision_embeds`` for the first ``frontend_tokens``
 positions, as the JAX package's does), mamba2-370m, recurrentgemma-9b
-(RG-LRU and local attention layers) and the MoE configurations
+(RG-LRU and local attention layers), the MoE configurations
 (olmoe-1b-7b, llama4-scout-17b-16e: without a mesh every MoE layer takes
-the dense oracle, as under the JAX Engine's 1x1 mesh). Runs on the CUDA
-card unless ``--device cpu`` is given.
+the dense oracle, as under the JAX Engine's 1x1 mesh) and the
+encoder-decoder whisper-large-v3 (its audio frontend a stub: ``main``
+passes zero ``frames`` of [B, encoder_seq, D], as the JAX package's
+does). Runs on the CUDA card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -45,7 +49,9 @@ class Engine:
     ``position % slots`` (the JAX Engine's ``grow``, which pads a ring no
     longer than the prompt out to ``max_len``, is not copied). An SSD or
     RG-LRU layer's cache (``conv`` and ``state``) does not grow with
-    length: the prefill and every decode step overwrite it in place."""
+    length: the prefill and every decode step overwrite it in place. An
+    encoder-decoder's cross cache (``encoder_seq`` rounded up to 128
+    slots) is written whole by the prefill and only read by decode."""
 
     def __init__(self, model, params, batch: int, max_len: int):
         self.model = model
@@ -59,8 +65,9 @@ class Engine:
                 extra: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens [B,S] → (next token [B,1] int32, cache after the
-        prefill). ``extra`` (e.g. ``{"vision_embeds": [B, n_tok, D]}``)
-        joins the prefill's batch."""
+        prefill). ``extra`` (``{"vision_embeds": [B, n_tok, D]}``, or an
+        encoder-decoder's ``{"frames": [B, T, D]}``) joins the prefill's
+        batch."""
         b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(f"prompt of {s} tokens exceeds max_len "
@@ -118,6 +125,9 @@ def main(argv=None):
                            generator=torch.Generator(device).manual_seed(1),
                            device=device)
     extra = {}
+    if cfg.enc_dec:
+        extra["frames"] = torch.zeros(
+            (args.batch, cfg.encoder_seq, cfg.d_model), device=device)
     if cfg.frontend == "vision":
         extra["vision_embeds"] = torch.zeros(
             (args.batch, cfg.frontend_tokens, cfg.d_model), device=device)

@@ -1,9 +1,11 @@
 """Attention: GQA projections and the execution paths
 (``repro/models/attention.py`` at the same path).
 
-- ``flash_attention``: blockwise online-softmax attention in plain torch
+- ``flash_attention``: blockwise online-softmax attention in plain torch,
+  causal or bidirectional, with an optional padding mask over the keys
   (the JAX package's scan over KV blocks); never materializes the full
-  [S, T] score matrix.
+  [S, T] score matrix. It serves the encoder-decoder's bidirectional
+  encoder and cross-attention too.
 - ``flash_attention_gqa`` (``kernels/flash_attention.py``): the hand-written
   CUDA kernel that replaces the Pallas one, taken for causal global
   self-attention when ``use_kernel`` is set, as ``use_pallas`` routes
@@ -15,12 +17,13 @@
   sequence-sharded variant (``seq_sharded_decode``: logsumexp partials
   combined over a mesh axis of ``distributed.spmd``).
 
-The JAX package computes the last three outside any Pallas kernel, and so
-they are plain torch here, with float32 scores. Their products take the
-operands in their own dtype with a float32 result (``bmm_f32``), as the JAX
-package's ``preferred_element_type`` does. Caches for local-attention
-layers are ring buffers of ``min(window, capacity)`` slots. Cross-attention
-(``kv_override``) is not ported yet (ROADMAP.md Queue 1 item 6).
+The JAX package computes the blockwise, window and decode paths outside
+any Pallas kernel, and so they are plain torch here, with float32 scores. Their products take
+the operands in their own dtype with a float32 result (``bmm_f32``), as
+the JAX package's ``preferred_element_type`` does. Caches for
+local-attention layers are ring buffers of ``min(window, capacity)``
+slots. Cross-attention passes its keys and values in (``kv_override``) and
+keeps no cache of its own here.
 """
 from __future__ import annotations
 
@@ -31,13 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import spmd
-from repro_torch.kernels.flash_attention import (NEG_INF,
-                                                 flash_attention_gqa,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_gqa
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import active_mesh
-
-_NOT_PORTED = "is not ported yet (see ROADMAP.md Queue 1 item 6)"
 
 
 def attn_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
@@ -85,18 +84,65 @@ def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_block: int = 512,
-                    kv_block: int = 512) -> torch.Tensor:
-    """q: [B,S,K,G,D]; k, v: [B,T,K,D]. Returns [B,S,K,G,D]. Positions
-    are ``arange(S)`` / ``arange(T)``, the only ones the JAX package's
-    attention layer passes; its ``kv_valid`` mask serves only the
-    cross-attention, which is not ported. The blocks must divide S and
-    T, as the JAX package asserts."""
-    qb, kb = min(q_block, q.shape[1]), min(kv_block, k.shape[1])
-    if q.shape[1] % qb or k.shape[1] % kb:
-        raise ValueError(f"flash_attention: S={q.shape[1]}, T={k.shape[1]} "
-                         f"must be multiples of the blocks ({qb}, {kb})")
-    return flash_attention_plain(q, k, v, causal=causal, q_block=q_block,
-                                 kv_block=kv_block)
+                    kv_block: int = 512,
+                    kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: [B,S,K,G,D]; k, v: [B,T,K,D]; kv_valid: optional [T] bool
+    (padding mask). Returns [B,S,K,G,D]. Positions are ``arange(S)`` /
+    ``arange(T)``, the only ones the JAX package's callers pass. The
+    blocks must divide S and T, as the JAX package asserts.
+
+    Online softmax over q blocks (outer) and kv blocks (inner): the live
+    score tile is one [B*K, qb*G, kb] float32 tensor. Each tile is
+    ``bmm_f32`` of the operands in their own dtype, scaled and masked to
+    ``NEG_INF`` in place; ``p`` is rounded to v's dtype before ``p·v``;
+    the output ``acc / max(l, 1e-30)`` in q's dtype. Causal kv blocks
+    wholly above a q block's last position are skipped, which changes no
+    bit (they add ``p = 0`` at ``alpha = 1``)."""
+    b, s, kh, g, d = q.shape
+    t = k.shape[1]
+    qb, kb = min(q_block, s), min(kv_block, t)
+    if s % qb or t % kb:
+        raise ValueError(f"flash_attention: S={s}, T={t} must be multiples "
+                         f"of the blocks ({qb}, {kb})")
+    scale = d ** -0.5
+    dev = q.device
+    # heads into the batch: q rows (position, group) in order, so a q block
+    # is qb*g consecutive rows
+    qr = q.permute(0, 2, 1, 3, 4).reshape(b * kh, s * g, d)
+    kr = k.permute(0, 2, 1, 3).reshape(b * kh, t, d)
+    vr = v.permute(0, 2, 1, 3).reshape(b * kh, t, d)
+    out = torch.empty((b * kh, s * g, d), dtype=q.dtype, device=dev)
+    for q0 in range(0, s, qb):
+        qblk = qr[:, q0 * g:(q0 + qb) * g]
+        qpos = torch.arange(q0, q0 + qb, device=dev).repeat_interleave(g)
+        acc = torch.zeros((b * kh, qb * g, d), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b * kh, qb * g), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        for k0 in range(0, min(t, q0 + qb) if causal else t, kb):
+            sc = bmm_f32(qblk, kr[:, k0:k0 + kb].transpose(1, 2))
+            sc.mul_(scale)
+            mask = None
+            if causal:
+                kpos = torch.arange(k0, k0 + kb, device=dev)
+                mask = kpos[None, :] <= qpos[:, None]          # [qb*g,kb]
+            if kv_valid is not None:
+                km = kv_valid[k0:k0 + kb][None, :]
+                mask = km if mask is None else mask & km
+            if mask is not None:
+                sc.masked_fill_(~mask, NEG_INF)
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = sc.sub_(m_new[..., None]).exp_()
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = bmm_f32(p.to(v.dtype), vr[:, k0:k0 + kb])
+            del sc, p
+            acc = acc.mul_(alpha[..., None]).add_(pv)
+            m = m_new
+        out[:, q0 * g:(q0 + qb) * g] = acc.div_(
+            l.clamp_min(1e-30)[..., None])
+    return out.view(b, kh, s, g, d).permute(0, 2, 1, 3, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -273,14 +319,23 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                     window: int = 0,
                     lengths: Optional[torch.Tensor] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
+                    causal: bool = True,
                     seq_shard_axis: Optional[str] = None,
-                    kv_override=None,
+                    use_rope: bool = True,
+                    kv_override: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None,
+                    kv_valid: Optional[torch.Tensor] = None,
                     use_kernel: bool = False, flash_block: int = 512,
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One causal self-attention layer with RoPE (the JAX layer's
-    ``causal`` and ``use_rope`` serve only the encoder-decoder, which is not
-    ported). mode: 'train' | 'prefill' | 'decode'. kind: 'global_attn' |
-    'local_attn' (sliding ``window``, a ring-buffer cache).
+    """One attention layer. mode: 'train' | 'prefill' | 'decode'. kind:
+    'global_attn' | 'local_attn' (sliding ``window``, a ring-buffer cache).
+    ``causal=False`` attends both ways (the encoder's); ``use_rope=False``
+    leaves q and k unrotated. ``kv_override`` = (k, v), each [B,T,KH,D],
+    supplies keys and values computed elsewhere (cross-attention): the
+    layer projects no k or v, rotates neither and keeps no cache, and
+    ``kv_valid`` [T] bool masks their padding. The JAX layer reads
+    ``kv_valid`` in decode only, the one mode its callers pass it in; here
+    it masks the keys in every mode.
 
     Prefill with a ``cache`` writes the layer's k and v into it in place
     and returns it: slots ``[0, S)`` of a global layer's capacity cache;
@@ -290,37 +345,45 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     rolled into ring order. Decode (``lengths`` [B]: the new token goes to
     position ``lengths[b]``) writes slot ``lengths[b]`` (local: ``% t``)
     in place, with tensor indices only (no host sync, so a CUDA graph can
-    capture it), and returns the cache. ``use_kernel`` is the counterpart
-    of ``use_pallas``; ``seq_shard_axis`` sends a global layer's decode
-    through ``seq_sharded_decode``."""
+    capture it), and returns the cache; with ``kv_override`` it reads the
+    given k and v under ``kv_valid`` (all of them without one) and returns
+    no cache. ``use_kernel`` is the counterpart of ``use_pallas``: it
+    takes causal attention with T = S and S % 128 == 0 and no mask; the
+    rest goes the blockwise way. ``seq_shard_axis`` sends a global
+    layer's decode through ``seq_sharded_decode``."""
     if kind not in ("global_attn", "local_attn"):
         raise ValueError(f"attention_layer: {kind!r} is not an attention "
                          f"kind (global_attn, local_attn)")
-    if kv_override is not None:
-        raise NotImplementedError(f"kv_override {_NOT_PORTED}")
     local = kind == "local_attn"
-    if local and window < 1:
+    if local and window < 1 and kv_override is None:
         raise ValueError(f"a local_attn layer needs a window, got {window}")
     b, s, _ = x.shape
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    if kv_override is None:
+        k = _project(x, params["wk"])
+        v = _project(x, params["wv"])
+    else:
+        k, v = kv_override
 
     if mode in ("train", "prefill"):
         positions = torch.arange(s, device=x.device)
-        q = L.apply_rope(q, positions, rope_theta)
-        k = L.apply_rope(k, positions, rope_theta)
+        if use_rope:
+            q = L.apply_rope(q, positions, rope_theta)
+            if kv_override is None:
+                k = L.apply_rope(k, positions, rope_theta)
         qg = _split_gqa(q, n_kv_heads)
-        if local:
+        if local and kv_override is None:
             out = window_attention(qg, k, v, positions=positions,
                                    window=window)
-        elif use_kernel and s % 128 == 0:
+        elif use_kernel and causal and kv_valid is None \
+                and k.shape[1] == s and s % 128 == 0:
             out = flash_attention_gqa(qg, k, v)
         else:
-            out = flash_attention(qg, k, v, q_block=flash_block,
-                                  kv_block=flash_block)
+            out = flash_attention(qg, k, v, causal=causal,
+                                  q_block=flash_block, kv_block=flash_block,
+                                  kv_valid=kv_valid)
         new_cache = None
-        if mode == "prefill":
+        if mode == "prefill" and kv_override is None:
             if local:
                 # ring buffer: slot j holds the position p with p % t == j;
                 # the roll aligns the last w positions to their slots
@@ -337,29 +400,40 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                 cache["v"][:, :w] = v
                 new_cache = cache
     elif mode == "decode":
-        if lengths is None or cache is None:
-            raise ValueError("decode needs lengths and a cache")
+        if lengths is None or (cache is None and kv_override is None):
+            raise ValueError("decode needs lengths and a cache or "
+                             "kv_override")
         pos = lengths.to(torch.int64)                                 # [B]
-        q = L.apply_rope(q, pos[:, None], rope_theta)
-        k = L.apply_rope(k, pos[:, None], rope_theta)
+        if use_rope:
+            q = L.apply_rope(q, pos[:, None], rope_theta)
+            if kv_override is None:
+                k = L.apply_rope(k, pos[:, None], rope_theta)
         qd = _split_gqa(q, n_kv_heads)[:, 0]                          # [B,K,G,D]
-        t = cache["k"].shape[1]
-        slot = pos % t if local else pos
-        rows = torch.arange(b, device=x.device)
-        cache["k"][rows, slot] = k[:, 0]
-        cache["v"][rows, slot] = v[:, 0]
-        iota = torch.arange(t, device=x.device)[None, :]
-        if local:
-            valid = iota < torch.clamp(pos + 1, max=t)[:, None]
+        if kv_override is not None:
+            t = k.shape[1]
+            valid = torch.ones((b, t), dtype=torch.bool, device=x.device) \
+                if kv_valid is None else kv_valid[None, :].expand(b, t)
+            out = decode_attention(qd, k, v, valid=valid)[:, None]
+            new_cache = None
         else:
-            valid = iota <= pos[:, None]
-        if seq_shard_axis is not None and not local:
-            out = seq_sharded_decode(qd, cache["k"], cache["v"], valid=valid,
-                                     axis=seq_shard_axis)[:, None]
-        else:
-            out = decode_attention(qd, cache["k"], cache["v"],
-                                   valid=valid)[:, None]
-        new_cache = cache
+            t = cache["k"].shape[1]
+            slot = pos % t if local else pos
+            rows = torch.arange(b, device=x.device)
+            cache["k"][rows, slot] = k[:, 0]
+            cache["v"][rows, slot] = v[:, 0]
+            iota = torch.arange(t, device=x.device)[None, :]
+            if local:
+                valid = iota < torch.clamp(pos + 1, max=t)[:, None]
+            else:
+                valid = iota <= pos[:, None]
+            if seq_shard_axis is not None and not local:
+                out = seq_sharded_decode(qd, cache["k"], cache["v"],
+                                         valid=valid,
+                                         axis=seq_shard_axis)[:, None]
+            else:
+                out = decode_attention(qd, cache["k"], cache["v"],
+                                       valid=valid)[:, None]
+            new_cache = cache
     else:
         raise ValueError(mode)
 

@@ -1,17 +1,19 @@
-"""Model facade (``repro/models/model_zoo.py`` at the same path), for the
-decoder-only architectures the port runs (dense attention stacks, global
-or local and global, with or without the vision embeddings, with MLP or
-MoE layers, the Mamba-2 SSD stack, and RG-LRU with local attention).
+"""Model facade (``repro/models/model_zoo.py`` at the same path): the
+decoder-only architectures (dense attention stacks, global or local and
+global, with or without the vision embeddings, with MLP or MoE layers, the
+Mamba-2 SSD stack, and RG-LRU with local attention) and the
+encoder-decoder (``models.encdec``), dispatched on ``cfg.enc_dec``.
 
 ``Model`` exposes:
   init(gen, device)               -> ParamTree (the weights, an nn.Module)
   apply(params, batch, mode, cache) -> (hidden, cache)
   init_cache(batch, cache_len, device) -> the cache tree: {"k", "v"} at
                                      capacity (a local layer's ring at
-                                     min(window, cache_len)), or the SSD
-                                     or RG-LRU cache {"conv", "state"},
-                                     whose size does not depend on
-                                     cache_len
+                                     min(window, cache_len)), the SSD or
+                                     RG-LRU cache {"conv", "state"}, whose
+                                     size does not depend on cache_len, or
+                                     the encoder-decoder's {"decoder":
+                                     {"self", "cross"}}
   unembed(params, x)              -> logits
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import DEFAULT_FLAGS, SMOKE_FLAGS, Flags
 
@@ -35,18 +38,28 @@ class Model:
         T._check_supported(self.cfg)
 
     def init(self, gen: torch.Generator, device="cuda") -> T.ParamTree:
+        if self.cfg.enc_dec:
+            return ED.encdec_init(gen, self.cfg, self.flags, device)
         return T.lm_init(gen, self.cfg, self.flags, device)
 
     def apply(self, params: T.ParamTree, batch: Dict[str, torch.Tensor], *,
               mode: str, cache: Optional[Dict[str, torch.Tensor]] = None):
+        if self.cfg.enc_dec:
+            return ED.encdec_apply(params, batch, cfg=self.cfg, mode=mode,
+                                   flags=self.flags, cache=cache)
         return T.lm_apply(params, batch, cfg=self.cfg, mode=mode,
                           flags=self.flags, cache=cache)
 
     def init_cache(self, batch: int, cache_len: int, device="cuda"):
+        if self.cfg.enc_dec:
+            return ED.encdec_init_cache(self.cfg, batch, cache_len,
+                                        self.flags, device)
         return T.lm_init_cache(self.cfg, batch, cache_len, self.flags,
                                device)
 
     def unembed(self, params: T.ParamTree, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.enc_dec:
+            return x @ T._tree(params)["unembed"]
         return T.unembed(params, x, self.cfg)
 
 

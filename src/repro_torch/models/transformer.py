@@ -70,13 +70,26 @@ DEFAULT_FLAGS = Flags()
 SMOKE_FLAGS = Flags(param_dtype=torch.float32, moe_mode="dense",
                     use_flash_kernel=False, use_ssd_kernel=False)
 
-_NOT_PORTED = "not ported yet (see ROADMAP.md Queue 1 item 6)"
+_NOT_PORTED = "not ported (see ROADMAP.md)"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.enc_dec or cfg.frontend not in ("none", "vision"):
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder and audio "
-                                  f"frontend models are {_NOT_PORTED}")
+    """Raise for a configuration whose layers the port does not run. An
+    encoder-decoder (``models.encdec``) takes the audio frontend's frame
+    embeddings; a decoder-only LM (this module) no frontend or the vision
+    one."""
+    if cfg.enc_dec or cfg.frontend == "audio":
+        if not (cfg.enc_dec and cfg.frontend == "audio"
+                and cfg.layer_pattern == (GLOBAL_ATTN,)):
+            raise NotImplementedError(
+                f"{cfg.name}: only an encoder-decoder of global attention "
+                f"layers fed by the audio frontend runs; enc_dec "
+                f"{cfg.enc_dec}, frontend {cfg.frontend!r}, layers "
+                f"{cfg.layer_pattern} are {_NOT_PORTED}")
+        return
+    if cfg.frontend not in ("none", "vision"):
+        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
+                                  f"is {_NOT_PORTED}")
     kinds = set(cfg.layer_pattern)
     if not (kinds <= {GLOBAL_ATTN, LOCAL_ATTN} or kinds == {SSD}
             or kinds <= {RGLRU, LOCAL_ATTN}):

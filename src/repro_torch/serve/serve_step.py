@@ -18,7 +18,9 @@ from repro_torch.models.transformer import ParamTree
 
 def make_prefill_step(model: Model):
     def prefill_step(params, batch: Dict[str, torch.Tensor], cache):
-        """Returns (next_token [B,1] int32, cache after prefill)."""
+        """``batch``: ``tokens`` [B,S] and the model's other prefill
+        inputs (``vision_embeds``, an encoder-decoder's ``frames``).
+        Returns (next_token [B,1] int32, cache after prefill)."""
         x, new_cache = model.apply(params, batch, mode="prefill",
                                    cache=cache)
         logits = model.unembed(params, x[:, -1:])
@@ -77,14 +79,17 @@ def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
     """Run ``n_steps`` of greedy single-token decode as hetero tasks.
 
     The weights, the cache (a tree: ``{"k", "v"}``, ``{"conv", "state"}``,
-    or per stack of a longer layer pattern), ``tokens`` [B,1] and
+    per stack of a longer layer pattern, or an encoder-decoder's
+    ``{"decoder": {"self", "cross"}}``, whose cross leaves decode only
+    reads), ``tokens`` [B,1] and
     ``lengths`` [B] (int32) are tensors on one device; each is adopted in
     place as a hetero object on the runtime device that holds it, so
     nothing round-trips through the host. Each step submits ONE task over
     them (weights read, the rest read-write: the cache is donated and
     written in place, not copied). Returns ``(tokens_obj, lengths_obj,
     cache_objs)`` after the loop's barrier; ``cache_objs`` maps each cache
-    leaf's dotted path (``"k"``, ``"periods.5.v"``) to its object."""
+    leaf's dotted path (``"k"``, ``"periods.5.v"``,
+    ``"decoder.cross.k"``) to its object."""
     decode = make_decode_step(model)
     tree = params.tree() if isinstance(params, ParamTree) else params
     named = flatten(tree)

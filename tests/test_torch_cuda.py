@@ -402,6 +402,57 @@ def test_mamba2_prefill_goes_through_the_ssd_kernel(cuda):
     assert out.shape == (2, 8) and out.device.type == "cuda"
 
 
+def test_whisper_smoke_on_the_card_equals_the_cpu(cuda):
+    """The whisper smoke model on the card against the same weights on the
+    CPU: no kernel launch (the encoder-decoder's attention is the plain
+    blockwise path, as in the JAX package), the prefill's hidden state and
+    both caches, and 8 greedy tokens, with frames shorter than
+    ``encoder_seq``; and the decode loop replayed as CUDA graphs equal to
+    the interpreted one."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    from repro_torch.serve import flatten, tasked_decode_loop
+    cfg = get_smoke_config("whisper-large-v3")
+    model = build_smoke(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    params_cpu = copy.deepcopy(params).cpu()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 16), device=cuda, generator=gen)
+    frames = 0.1 * torch.randn((2, 20, cfg.d_model), device=cuda,
+                               generator=gen)
+    before = dict(LAUNCHES)
+    eng = Engine(model, params, 2, 40)
+    nxt, cache = eng.prefill(toks, {"frames": frames})
+    start = {k: v.clone() for k, v in flatten(cache)}
+    out = torch.cat([nxt, eng.decode(cache, nxt, 16, 7)], dim=1)
+    assert dict(LAUNCHES) == before
+    eng_cpu = Engine(model, params_cpu, 2, 40)
+    nxt_cpu, cache_cpu = eng_cpu.prefill(toks.cpu(), {"frames": frames.cpu()})
+    for key, v in flatten(cache_cpu):
+        torch.testing.assert_close(start[key].cpu(), v, rtol=1e-4, atol=1e-4)
+    out_cpu = torch.cat([nxt_cpu, eng_cpu.decode(cache_cpu, nxt_cpu, 16, 7)],
+                        dim=1)
+    np.testing.assert_array_equal(out.cpu().numpy(), out_cpu.numpy())
+    res = {}
+    for traced in (False, True):
+        c = {"decoder": {kind: {k: start[f"decoder.{kind}.{k}"].clone()
+                                for k in ("k", "v")}
+                         for kind in ("self", "cross")}}
+        with Runtime(RuntimeConfig(trace_graphs=traced)) as rt:
+            tok, _, c_objs = tasked_decode_loop(
+                rt, model, params, c, nxt.clone(),
+                torch.full((2,), 16, dtype=torch.int32, device=cuda), 7)
+            res[traced] = (tok.get(), {k: o.get() for k, o in c_objs.items()})
+            if traced:
+                assert rt.stats()["graph_replays"] == 7 - 3
+    np.testing.assert_array_equal(res[True][0], out[:, -1:].cpu().numpy())
+    np.testing.assert_array_equal(res[False][0], res[True][0])
+    for key, v in flatten(cache):
+        np.testing.assert_array_equal(res[True][1][key], v.cpu().numpy())
+        np.testing.assert_array_equal(res[False][1][key], v.cpu().numpy())
+
+
 def _ssd_inputs(gen, bc, q, h, p, n, a_sign=None):
     """x, dt, A, B, C on the card as the mamba2 block draws dt (softplus
     around log(expm1(0.01)) plus a spread, so |dt·A| reaches past 88 inside

@@ -36,7 +36,9 @@ from repro_torch.serve import tasked_decode_loop
 
 TOL = 1e-4
 ARCHS = ("yi_9b", "phi4_mini_3_8b", "codeqwen15_7b", "mamba2_370m",
-         "recurrentgemma_9b", "pixtral_12b")
+         "recurrentgemma_9b", "pixtral_12b", "whisper_large_v3")
+# the serving tests below run the decoder-only configurations
+LM_ARCHS = ARCHS[:-1]
 
 
 def _jax_model(arch, **flags):
@@ -71,12 +73,20 @@ def test_configs_equal_the_jax_packages(arch):
 
 
 def test_unported_configs_raise():
-    """whisper-large-v3 (encoder-decoder) is the config still to port; the
-    MoE ones are ported (``test_torch_moe.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tconfigs.get_config("whisper-large-v3")
-    with pytest.raises(ValueError):
+    """No configuration of the JAX package is left unported: each loads in
+    the port with the JAX package's parameter count. Only a name the JAX
+    package does not know raises."""
+    from repro.configs.base import ARCH_IDS as JARCH_IDS
+    assert tconfigs.ARCH_IDS == JARCH_IDS
+    for arch in JARCH_IDS:
+        for get_t, get_j in ((tconfigs.get_config, jget_config),
+                             (tconfigs.get_smoke_config, jget_smoke)):
+            assert get_t(arch).param_count() == get_j(arch).param_count(), \
+                arch
+    with pytest.raises(ValueError, match="unknown architecture"):
         tconfigs.get_config("no-such-arch")
+    assert tconfigs.get_config("whisper-large-v3").param_count() == \
+        1_600_988_160
     assert tconfigs.get_config("yi-9b").param_count() == 8_829_403_136
     assert tconfigs.get_config("recurrentgemma-9b").param_count() == \
         9_572_032_512
@@ -194,24 +204,31 @@ def test_attention_layer_decode_matches_jax():
 
 
 def test_unported_attention_paths_raise():
-    """Cross-attention (``kv_override``) is not ported; local attention and
-    seq-sharded decode are (``test_torch_gemma3.py``). A recurrent layer
-    kind is not an attention kind: ``attention_layer`` refuses it (the
-    RG-LRU layer is ``models.rglru``, ``test_torch_rglru.py``)."""
+    """Every attention path of the JAX layer is ported: local attention and
+    seq-sharded decode (``test_torch_gemma3.py``), cross-attention
+    (``kv_override``, ``test_torch_encdec.py``). A recurrent layer kind is
+    not an attention kind: ``attention_layer`` refuses it (the RG-LRU layer
+    is ``models.rglru``, ``test_torch_rglru.py``); so does a decode with
+    neither a cache nor ``kv_override`` to read."""
     p = {k: to_torch(v) for k, v in _attn_params(0).items()}
     x = torch.zeros((1, 8, 48))
-    kw = dict(rope_theta=1e4, n_kv_heads=2, mode="train")
+    kw = dict(rope_theta=1e4, n_kv_heads=2)
     with pytest.raises(ValueError, match="not an attention kind"):
-        TA.attention_layer(p, x, kind="rglru", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TA.attention_layer(p, x, kind="global_attn", kv_override=(x, x), **kw)
+        TA.attention_layer(p, x, kind="rglru", mode="train", **kw)
+    with pytest.raises(ValueError, match="decode needs"):
+        TA.attention_layer(p, x[:, :1], kind="global_attn", mode="decode",
+                           lengths=torch.zeros(1, dtype=torch.int32), **kw)
+    kv = torch.ones((1, 16, 2, 8))
+    y, cache = TA.attention_layer(p, x, kind="global_attn", mode="prefill",
+                                  kv_override=(kv, kv), **kw)
+    assert y.shape == x.shape and cache is None
 
 
 # ---------------------------------------------------------------------------
 # whole model and engine
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_engine_matches_jax_engine(arch):
     """Same greedy tokens as the JAX Engine (no mesh) from the same
     weights, and prefill logits within 1e-4."""

@@ -92,7 +92,18 @@ the port's main path through the tasking runtime:
     forward, the encoder's time, one encoder attention call beside SDPA,
     the prefill's device time by part and the decode step's floor.
     Every serving phase starts with the card nearly empty and must give
-    its memory back. Beside phase 2, ``window_attention`` on bf16
+    its memory back;
+  * training (phases 16-18, no kernel on the path, as in the JAX
+    package): yi-9b at full width with 12 of its 48 layers (bf16, batch
+    4 x 2048 from ``SyntheticLM``, remat "dots"): each gradient leaf
+    against a float32 recomputation, od=4 against od=1, then 6 AdamW
+    steps of ``make_train_step`` on one repeated batch whose loss must
+    fall every step with no kernel launch (ms a step, tokens/s, a traced
+    step's busy share and kernels by kind, peak memory); a checkpoint
+    resume at one layer bit for bit the uninterrupted run under
+    deterministic algorithms; ``compressed_pmean`` over four shards of
+    the card against the stacked form, and ``run_elastic`` 4 -> 2 shards
+    against an uninterrupted 2-shard run. Beside phase 2, ``window_attention`` on bf16
     operands against its products on float32 copies at a gemma3 and a
     recurrentgemma local layer's prefill shapes, both timed; phase 2's
     flash rows also run at olmoe's and llama4-scout's head layouts.
@@ -168,6 +179,37 @@ WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = \
     "whisper-large-v3", 8, 128, 32
 FRAME_SCALE = 0.1
 WHISPER_UPCAST_TOL, WHISPER_LOGITS_TOL = 2e-2, 1e-4
+# phases 16-18: training. Phase 16 (T1) trains yi-9b at full width (d_model
+# 4096, 32 query and 4 KV heads of 128, d_ff 11008, vocab 64000 untied) cut
+# to TRAIN_LAYERS of its 48 layers (its state at 16 B a parameter: 48 layers
+# are 141 GB), bf16 weights from a seed, DEFAULT_FLAGS (remat "dots", loss
+# chunks of 1024) on batches of 4 x 2048 from SyntheticLM: TRAIN_STEPS steps
+# on one repeated batch, whose loss must fall every step. Checks: each bf16
+# gradient leaf's cosine with a float32 recomputation at least
+# TRAIN_COS_MIN (bf16 rounds each product's output and the weights); od=4
+# against od=1 on one batch, ce within 1e-2 (bf16 gradients summed in
+# another grouping), the gradient norm within 1e-3 relative (its magnitude:
+# a missing /od or a dropped microbatch moves it by tens of per cent), the
+# first moments within 2e-2 relative L2 (its direction, a few bf16 ulps),
+# and at most 1e-3 of the updated parameters more than 2 bf16 ulps apart
+# (Adam's first step is about lr x sign(g), so an element whose gradient is
+# within bf16 noise of 0 may step either way; a sign error or a dropped
+# microbatch flips a large share) (od_check). Phase 17 (T2): resume at 1
+# layer, bit for bit under deterministic algorithms. Phase 18 (T3):
+# compressed_pmean over 4 shards of the card against the stacked form
+# (1e-6: both sum the same float32 values, in the same order), run_elastic
+# 4 -> 2 shards against 2 (rtol 1e-4, the JAX test's: the world size
+# changes the order of the float32 sums).
+TRAIN_ARCH = "yi-9b"
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 12, 4, 2048, 6
+TRAIN_OPT = {"lr_peak": 1e-4, "warmup_steps": 2, "total_steps": 100,
+             "weight_decay": 0.01}
+TRAIN_COS_MIN = 0.99
+TRAIN_OD, TRAIN_OD_CE_TOL, TRAIN_OD_M_TOL = 4, 1e-2, 2e-2
+TRAIN_OD_GN_TOL, TRAIN_OD_SHARE_MAX = 1e-3, 1e-3
+RESUME_LAYERS, RESUME_STEPS, RESUME_AT = 1, 6, 3
+COMPRESS_SHARDS, COMPRESS_TOL = 4, 1e-6
+ELASTIC_TRAIN_RTOL = 1e-4
 # the EP check after each: one full-width MoE layer's moe_ep over a (1, 4)
 # mesh of shards sharing the card, on x [4, 2048, D] (seq-sharded, 512
 # positions a shard), at capacity factors E/k (no drops), 1.25 (the
@@ -1607,7 +1649,7 @@ def logits_vs_full_forward(model, params, tokens, extra, steps: int) -> dict:
     check(torch.equal(got.argmax(dim=-1).to(torch.int32), out),
           "phase 15: the logits' greedy tokens are not the Engine's")
     full = torch.cat([tokens] + fed, dim=1)
-    hidden, _ = model.apply(params, {**extra, "tokens": full}, mode="train")
+    hidden, _, _ = model.apply(params, {**extra, "tokens": full}, mode="train")
     want = model.unembed(params, hidden[:, s - 1:]).float()
     del hidden
     err = (got - want).abs().max().item()
@@ -1703,7 +1745,7 @@ def greedy_vs_full_forward(model, params, tokens, extra, out,
     fwd = build_model(cfg, fwd_flags)
 
     def logits_of():
-        hidden, _ = fwd.apply(params, {**extra, "tokens": full},
+        hidden, _, _ = fwd.apply(params, {**extra, "tokens": full},
                               mode="train")
         return fwd.unembed(params, hidden[:, s - 1:]).float()  # [B,steps+1,V]
 
@@ -2452,6 +2494,435 @@ def prefill_vs_plain(model, params, tokens, extra, tol: float,
     return r
 
 
+# ---------------------------------------------------------------------------
+# phases 16-18: training (yi-9b at full width)
+# ---------------------------------------------------------------------------
+
+def train_model(layers: int, dtype=torch.bfloat16):
+    """yi-9b at full width, cut to ``layers`` layers, with ``DEFAULT_FLAGS``
+    in ``dtype`` (remat "dots", loss chunks of 1024)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import DEFAULT_FLAGS, build_model
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers)
+    return build_model(cfg, dataclasses.replace(DEFAULT_FLAGS,
+                                                param_dtype=dtype))
+
+
+def train_batch(cfg, step: int, dev) -> dict:
+    """``SyntheticLM``'s batch ``step`` at [TRAIN_BATCH, TRAIN_SEQ] on the
+    card, as ``launch.train`` feeds it."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.train import batch_on
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=SEED))
+    return batch_on(data, step, cfg, dev)
+
+
+def train_opt():
+    from repro_torch.train import AdamWConfig
+    return AdamWConfig(**TRAIN_OPT)
+
+
+def fresh_state(model, dev):
+    from repro_torch.train import init_train_state
+    return init_train_state(model, torch.Generator(device=dev)
+                            .manual_seed(SEED), dev)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.train.optimizer import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def train_memory_model(n_params: int, layers: int) -> dict:
+    """My arithmetic (GB) of phase 16's state and activations, from the
+    shapes: 16 B a parameter (bf16 weight and gradient, float32 master, m
+    and v), 4 more for the float32 accumulator at od > 1; under remat
+    "dots" a layer keeps its input and its products' outputs without batch
+    dims (q, k, v, the output projection, the MLP's three), bf16 over
+    B x S tokens; one layer's blockwise attention recomputed in the
+    backward (10 causal 512 x 512 tiles of [B*KH, 512*G, 512] float32, ~3
+    tensors a tile); one loss chunk's float32 logits, ~4 copies."""
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    d, f, hd = 4096, 11008, 32 * 128
+    kv = 4 * 128
+    saved = tok * 2 * (d + hd + 2 * kv + d + 2 * f + d)
+    tiles = 10 * 3 * (TRAIN_BATCH * 4) * (512 * 8) * 512 * 4
+    logits = 4 * TRAIN_BATCH * 1024 * 64000 * 4
+    return {"state_with_grads_gb": 16 * n_params / 1e9,
+            "accumulator_gb": 4 * n_params / 1e9,
+            "saved_activations_gb": layers * saved / 1e9,
+            "recompute_attention_gb": tiles / 1e9,
+            "loss_chunk_gb": logits / 1e9}
+
+
+def grad_cosines(model, params, batch) -> dict:
+    """Phase 16's gradients at step 0: each gradient leaf of the bf16
+    model against a float32 recomputation on the card (the same weights
+    upcast, the same batch): the cosine of the two, flattened, which
+    ``train_phase`` holds to ``TRAIN_COS_MIN``."""
+    from repro_torch.train import make_grad_fn
+    from repro_torch.train.optimizer import tree_flatten, tree_map
+    g16, m16 = make_grad_fn(model)(params, batch)
+    torch.cuda.synchronize()
+    model32 = train_model(model.cfg.n_layers, torch.float32)
+    p32 = tree_map(lambda p: p.float(), params)
+    g32, m32 = make_grad_fn(model32)(p32, batch)
+    del p32
+    cos = {}
+    for (k, a), (_, b) in zip(tree_flatten(g16), tree_flatten(g32)):
+        a = a.float().flatten()
+        b = b.flatten()
+        cos["/".join(k)] = float(torch.dot(a, b) / (a.norm() * b.norm())
+                                 .clamp_min(1e-30))
+        del a
+    out = {"ce_bf16": float(m16["ce"]), "ce_f32": float(m32["ce"]),
+           "min_cosine": min(cos.values()), "cosine": cos,
+           "f32_layers": model.cfg.n_layers}
+    del g16, g32
+    return out
+
+
+def od_check(model, batch, dev) -> dict:
+    """Phase 16's over-decomposition numbers: one step at od=1 and one at
+    od=4 from the same fresh state on one batch; ``train_phase`` holds
+    ce within ``TRAIN_OD_CE_TOL``, the gradient norm within
+    ``TRAIN_OD_GN_TOL`` relative, the first moments after the step (0.1
+    x the clipped gradient, float32) within ``TRAIN_OD_M_TOL`` relative
+    L2, and the share of updated parameters more than 2 bf16 ulps apart
+    to ``TRAIN_OD_SHARE_MAX``."""
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    out = {}
+    state = fresh_state(model, dev)
+    state, m1 = make_train_step(model, TrainConfig(
+        opt=train_opt(), over_decompose=1))(state, batch)
+    p1 = state.params
+    mom1 = tree_map(lambda m: m.to(torch.bfloat16), state.opt.m)
+    del state
+    gc.collect()
+    state = fresh_state(model, dev)
+    torch.cuda.reset_peak_memory_stats()
+    state, m4 = make_train_step(model, TrainConfig(
+        opt=train_opt(), over_decompose=TRAIN_OD))(state, batch)
+    out["od4_step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    num = den = 0.0
+    beyond, total = 0, 0
+    for a, b, ma, mb in zip(tree_leaves(p1), tree_leaves(state.params),
+                            tree_leaves(mom1), tree_leaves(state.opt.m)):
+        num += float((ma.float() - mb).square().sum())
+        den += float(mb.square().sum())
+        a32, b32 = a.float(), b.float()
+        ulp = torch.maximum(a32.abs(), b32.abs()) * 2.0 ** -7
+        diff = (a32 - b32).abs()
+        beyond += int((diff > 2 * ulp).sum())
+        total += diff.numel()
+        del a32, b32, ulp, diff
+    m_rel = (num / max(den, 1e-30)) ** 0.5
+    out.update({"ce_od1": float(m1["ce"]), "ce_od4": float(m4["ce"]),
+                "share_beyond_2_ulps": beyond / total,
+                "first_moment_rel_l2": m_rel,
+                "grad_norm_od1": float(m1["grad_norm"]),
+                "grad_norm_od4": float(m4["grad_norm"])})
+    del state, p1, mom1
+    return out
+
+
+def _kernel_kind(name: str) -> str:
+    """A CUDA kernel's kind by its name: the products (cuBLAS's ``nvjet``,
+    CUTLASS and gemm kernels), elementwise, reductions, copies."""
+    low = name.lower()
+    if any(k in low for k in ("nvjet", "gemm", "cutlass", "xmma")):
+        return "gemm"
+    if "elementwise" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduce"
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "other"
+
+
+def train_phase(ops, card: str) -> dict:
+    """Phase 16 (T1): yi-9b at full width with ``TRAIN_LAYERS`` layers,
+    bf16 weights from a seed, trained by ``make_train_step`` on batches of
+    [4, 2048] from ``SyntheticLM``: the gradient check against float32,
+    od=4 against od=1, then ``TRAIN_STEPS`` steps on one repeated batch
+    (every loss finite, step 0's within 0.5 of ln V, falling every step,
+    no hand-written kernel launched) with their times, and one more step
+    traced, its two halves (gradients, update) timed and its kernels
+    summed by kind."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.train import (TrainConfig, adamw_update, make_grad_fn,
+                                   make_train_step)
+    from repro_torch.train.optimizer import tree_leaves
+    dev = torch.device("cuda")
+    gc.collect()
+    mem0 = allocated_without_workspaces()
+    check(mem0 < MEMORY_BEFORE_SERVE, f"phase 16: {mem0} B still "
+          f"allocated on the card before the weights load")
+    model = train_model(TRAIN_LAYERS)
+    cfg = model.cfg
+    batch = train_batch(cfg, 0, dev)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    r = {"arch": cfg.name, "layers": cfg.n_layers,
+         "config_layers": get_config(TRAIN_ARCH).n_layers,
+         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": model.flags.remat,
+         "loss_chunk": model.flags.loss_chunk, "opt": TRAIN_OPT}
+    state = fresh_state(model, dev)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    r["params"] = n_params
+    r["memory_model"] = train_memory_model(n_params, cfg.n_layers)
+    r["state_gb"] = (_tree_bytes(state.params) + _tree_bytes(state.opt.m)
+                     + _tree_bytes(state.opt.v)
+                     + _tree_bytes(state.opt.master)) / 1e9
+    params = state.params
+    del state
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r["gradients"] = grad_cosines(model, params, batch)
+    r["gradients"]["s"] = time.perf_counter() - t0
+    r["gradients"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    gc.collect()
+    t0 = time.perf_counter()
+    r["over_decompose"] = od_check(model, batch, dev)
+    r["over_decompose"]["s"] = time.perf_counter() - t0
+    gc.collect()
+
+    # -- the timed steps: one repeated batch --
+    state = fresh_state(model, dev)
+    step = make_train_step(model, TrainConfig(opt=train_opt()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))          # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    r["launches"] = dict(ops.LAUNCHES)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["losses"] = losses
+    r["grad_norm"] = float(met["grad_norm"])
+    r["step_ms"] = ms
+    r["ms_per_step"] = float(np.median(ms[1:]))
+    r["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / r["ms_per_step"] * 1e3
+    # one more step traced, as its two halves (what make_train_step runs
+    # at od=1), each timed to a synchronize: the gradients, the update
+    grad_fn = make_grad_fn(model)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grads, _ = grad_fn(state.params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = adamw_update(train_opt(), state, grads)
+        del grads
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    summary = _trace_summary(prof)
+    if "device_busy_ms" in summary:
+        summary["step_ms"] = (t2 - t0) * 1e3
+        summary["gradients_ms"] = (t1 - t0) * 1e3
+        summary["adamw_ms"] = (t2 - t1) * 1e3
+        summary["busy_share_of_step"] = summary["device_busy_ms"] / (
+            summary["step_ms"])
+        names: dict = {}
+        kinds = dict.fromkeys(("gemm", "elementwise", "reduce", "copy",
+                               "other"), 0.0)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms_ = (e.time_range.end - e.time_range.start) / 1e3
+                n = e.name[:60]
+                names[n] = names.get(n, 0.0) + ms_
+                kinds[_kernel_kind(e.name)] += ms_
+        summary["by_name_ms"] = {k: round(v, 3) for k, v in sorted(
+            names.items(), key=lambda kv: -kv[1])[:10]}
+        summary["by_kind_ms"] = kinds
+    r["trace"] = summary
+    del state, step, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train ({card}): " + json.dumps(r))
+    cos, od = r["gradients"], r["over_decompose"]
+    check(cos["min_cosine"] >= TRAIN_COS_MIN,
+          f"phase 16: a bf16 gradient leaf's cosine with the float32 "
+          f"recomputation is {cos['min_cosine']} < {TRAIN_COS_MIN}: "
+          f"{sorted(cos['cosine'].items(), key=lambda kv: kv[1])[:3]}")
+    check(abs(od["ce_od1"] - od["ce_od4"]) <= TRAIN_OD_CE_TOL,
+          f"phase 16: ce at od=4 {od['ce_od4']} vs od=1 {od['ce_od1']}")
+    check(od["first_moment_rel_l2"] <= TRAIN_OD_M_TOL,
+          f"phase 16: first moments at od=4 vs od=1 differ by "
+          f"{od['first_moment_rel_l2']} relative L2 > {TRAIN_OD_M_TOL}")
+    check(abs(od["grad_norm_od4"] - od["grad_norm_od1"])
+          <= TRAIN_OD_GN_TOL * od["grad_norm_od1"],
+          f"phase 16: the gradient norm at od=4 {od['grad_norm_od4']} vs "
+          f"od=1 {od['grad_norm_od1']}, relative tolerance "
+          f"{TRAIN_OD_GN_TOL}")
+    check(od["share_beyond_2_ulps"] <= TRAIN_OD_SHARE_MAX,
+          f"phase 16: {od['share_beyond_2_ulps']} of the parameters differ "
+          f"between od=4 and od=1 by more than 2 bf16 ulps > "
+          f"{TRAIN_OD_SHARE_MAX}")
+    check(all(math.isfinite(x) for x in losses),
+          f"phase 16: non-finite loss {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab)) <= 0.5,
+          f"phase 16: step 0's loss {losses[0]} is not within 0.5 of "
+          f"ln {cfg.vocab} = {math.log(cfg.vocab)}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"phase 16: the loss on a repeated batch does not fall every "
+          f"step: {losses}")
+    check(not any(r["launches"].values()),
+          f"phase 16: the train steps launched hand-written kernels "
+          f"{r['launches']}")
+    return r
+
+
+def resume_phase(card: str) -> dict:
+    """Phase 17 (T2): yi-9b at full width with ``RESUME_LAYERS`` layers under
+    ``torch.use_deterministic_algorithms(True)``: ``RESUME_STEPS`` steps
+    uninterrupted, against a run saved by the ``Checkpointer`` at step
+    ``RESUME_AT``, restored into a fresh state (``abstract_train_state`` on
+    the meta device, placed on the card) and continued: every loss and
+    every parameter bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.train import (TrainConfig, abstract_train_state,
+                                   make_train_step)
+    from repro_torch.train.optimizer import tree_flatten
+    dev = torch.device("cuda")
+    model = train_model(RESUME_LAYERS)
+    step = make_train_step(model, TrainConfig(opt=train_opt()))
+    batches = [train_batch(model.cfg, i, dev) for i in range(RESUME_STEPS)]
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    r = {"layers": RESUME_LAYERS, "steps": RESUME_STEPS,
+         "saved_at": RESUME_AT, "deterministic": True}
+    try:
+        state = fresh_state(model, dev)
+        straight = []
+        for b in batches:
+            state, met = step(state, b)
+            straight.append(float(met["loss"]))
+        want = [(k, v.clone()) for k, v in tree_flatten(state.params)]
+        del state
+        gc.collect()
+        state = fresh_state(model, dev)
+        resumed = []
+        for b in batches[:RESUME_AT]:
+            state, met = step(state, b)
+            resumed.append(float(met["loss"]))
+        ck = Checkpointer(ckdir, keep=1, async_save=False)
+        t0 = time.perf_counter()
+        ck.save(RESUME_AT, state, block=True)
+        r["save_s"] = time.perf_counter() - t0
+        r["checkpoint_gb"] = sum(
+            os.path.getsize(os.path.join(ckdir, f"step_{RESUME_AT}", f))
+            for f in os.listdir(os.path.join(ckdir, f"step_{RESUME_AT}"))
+        ) / 1e9
+        del state
+        gc.collect()
+        t0 = time.perf_counter()
+        state = ck.restore_latest(abstract_train_state(model), dev)
+        r["restore_s"] = time.perf_counter() - t0
+        for b in batches[RESUME_AT:]:
+            state, met = step(state, b)
+            resumed.append(float(met["loss"]))
+        same = all(torch.equal(a, v) for (_, a), (_, v) in
+                   zip(tree_flatten(state.params), want))
+        del state, want
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    r.update({"losses_uninterrupted": straight, "losses_resumed": resumed,
+              "params_equal": same})
+    print(f"train resume ({card}): " + json.dumps(r))
+    check(straight == resumed, f"phase 17: the resumed run's losses "
+          f"{resumed} are not the uninterrupted run's {straight}")
+    check(same, "phase 17: the resumed run's parameters differ from the "
+          "uninterrupted run's")
+    return r
+
+
+def compression_elastic_phase(card: str) -> dict:
+    """Phase 18 (T3): ``compressed_pmean`` over ``COMPRESS_SHARDS`` mesh
+    shards of the card on gradients of one yi-9b layer's shapes against
+    ``compressed_mean_stacked`` on the same values (means and residuals
+    within ``COMPRESS_TOL``), timed; then ``run_elastic`` on the yi-9b
+    smoke config over shards of the card, 4 → 2 at step 4 of 8, against an
+    uninterrupted 2-shard run: losses within ``ELASTIC_TRAIN_RTOL``."""
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.elastic_train import run_elastic
+    from repro_torch.train import compression as C
+    dev = torch.device("cuda")
+    n = COMPRESS_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    shapes = {"wq": (4096, 32, 128), "wi": (4096, 11008), "norm": (4096,)}
+    xs = {k: 1e-3 * torch.randn((n,) + s, generator=gen, device=dev)
+          for k, s in shapes.items()}
+    res = {k: 1e-5 * torch.randn((n,) + s, generator=gen, device=dev)
+           for k, s in shapes.items()}
+    mesh = spmd.Mesh([dev] * n, (n,), ("pod",))
+
+    def body(*args):
+        half = len(args) // 2
+        outs = [C.compressed_pmean(x[0], "pod", r[0])
+                for x, r in zip(args[:half], args[half:])]
+        return tuple(m[None] for m, _ in outs) + \
+            tuple(nr[None] for _, nr in outs)
+
+    names = sorted(shapes)
+    run = spmd.shard_map(body, mesh, in_specs=(spmd.P("pod"),) * 6,
+                         out_specs=(spmd.P("pod"),) * 6)
+    args = [xs[k] for k in names] + [res[k] for k in names]
+    out = run(*args)
+    r = {"shards": n, "shapes": {k: list(shapes[k]) for k in names}}
+    worst = 0.0
+    for i, k in enumerate(names):
+        wm, wr = C.compressed_mean_stacked(xs[k], res[k])
+        for s in out[i].shards:
+            worst = max(worst, float((s[0] - wm).abs().max()))
+        worst = max(worst, float((out[3 + i].full() - wr).abs().max()))
+    r["max_abs_err"] = worst
+    r["mesh_ms"] = time_ms(lambda: [o.full() for o in run(*args)], 3, 1)
+    r["stacked_ms"] = time_ms(lambda: [C.compressed_mean_stacked(
+        xs[k], res[k]) for k in names], 3, 1)
+    del xs, res, out, args, run, mesh
+    gc.collect()
+    t0 = time.perf_counter()
+    el, worlds = run_elastic(steps=8, fail_at=4, devices=[dev] * 4)
+    r["elastic_s"] = time.perf_counter() - t0
+    ref, ref_worlds = run_elastic(steps=8, fail_at=8, devices=[dev] * 2)
+    err = float(np.max(np.abs(np.array(el) - np.array(ref))
+                       / np.abs(np.array(ref))))
+    r.update({"elastic_losses": el, "elastic_worlds": worlds,
+              "uninterrupted_losses": ref, "max_rel_err": err,
+              "rtol": ELASTIC_TRAIN_RTOL})
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train compression and elastic ({card}): " + json.dumps(r))
+    check(worst <= COMPRESS_TOL, f"phase 18: compressed_pmean over {n} "
+          f"shards vs compressed_mean_stacked: {worst} > {COMPRESS_TOL}")
+    check(worlds == [4] * 4 + [2] * 4 and ref_worlds == [2] * 8,
+          f"phase 18: worlds {worlds}, {ref_worlds}")
+    check(err <= ELASTIC_TRAIN_RTOL, f"phase 18: elastic losses {el} vs "
+          f"uninterrupted {ref}: relative {err} > {ELASTIC_TRAIN_RTOL}")
+    return r
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2663,6 +3134,13 @@ def main() -> int:
     # -- phase 15: whisper-large-v3 at full width and depth --------------
     whisper = serve_phase(ops, Runtime, RuntimeConfig, 15)
     print(f"serve whisper ({card}): " + json.dumps(whisper))
+
+    # -- phases 16-18: training yi-9b at full width; resume; compression
+    # and the elastic driver over shards of the card --------------------
+    # (each prints its line before its checks)
+    train_phase(ops, card)
+    resume_phase(card)
+    compression_elastic_phase(card)
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],

@@ -13,7 +13,11 @@ restores in the other.
 
 Restore is device-agnostic: leaves are loaded on host and placed on the
 *current* device (``restore(..., device=)``), so a checkpoint restores onto
-a shrunk or grown world (elastic rescale path).
+a shrunk or grown world (elastic rescale path). A state may be nested
+dicts, sequences and dataclasses (``train.TrainState``: leaves
+``params__...``, ``opt__step``, ``opt__m__...``); its reference for a
+restore may be a state of ``meta``-device tensors
+(``train.abstract_train_state``), which gives each leaf's dtype.
 
 Integrity: each leaf's fold64 content digest is computed at save time
 (once, from the already-host-gathered array) and recorded in the
@@ -35,6 +39,7 @@ caller that believes a checkpoint exists must find out it does not.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -62,9 +67,14 @@ def _key_of(path) -> str:
 def _flatten(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     """``[(path, leaf)]`` in the order and with the path entries of
     ``jax.tree_util.tree_flatten_with_path``: dict keys sorted, list and
-    tuple indices, namedtuple field names; ``None`` holds no leaf."""
+    tuple indices, namedtuple and dataclass field names (a ``TrainState``
+    as ``jax.tree_util.register_dataclass`` flattens it); ``None`` holds
+    no leaf."""
     if tree is None:
         return []
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [kv for f in dataclasses.fields(tree)
+                for kv in _flatten(getattr(tree, f.name), path + (f.name,))]
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)
                 for kv in _flatten(tree[k], path + (k,))]
@@ -81,6 +91,11 @@ def _unflatten(tree: Any, leaf_fn, path: Tuple = ()) -> Any:
     """``tree`` with every leaf replaced by ``leaf_fn(path, leaf)``."""
     if tree is None:
         return None
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _unflatten(getattr(tree, f.name), leaf_fn,
+                               path + (f.name,))
+            for f in dataclasses.fields(tree)})
     if isinstance(tree, dict):
         return {k: _unflatten(v, leaf_fn, path + (k,))
                 for k, v in tree.items()}

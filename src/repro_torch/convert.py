@@ -5,7 +5,9 @@ operands, hetero-object values) into and out of torch tensors with the
 dtype mapped both ways. ``lm_from_jax`` and ``cache_from_jax`` carry the
 JAX package's model weights and caches (KV, SSD and RG-LRU conv and state,
 or the encoder-decoder's self and cross KV), handed over as trees of numpy
-arrays, into the port's layout.
+arrays, into the port's layout; ``train_state_from_jax`` a JAX
+``TrainState`` (weights, AdamW moments and master, step, error-feedback
+residuals), and ``train_state_to_numpy`` the port's back to numpy.
 
 bfloat16 has no numpy dtype of its own. Where a numpy bfloat16 exists (it is
 registered by whichever package provides it, e.g. the one JAX ships with), it
@@ -73,9 +75,11 @@ def numpy_dtype(dtype) -> np.dtype:
 
 
 def to_torch(arr: np.ndarray, device="cpu") -> torch.Tensor:
-    """A tensor on ``device`` holding ``arr``'s values. On the CPU the result
-    may alias ``arr``; on any other device it is a copy."""
-    arr = np.ascontiguousarray(arr)
+    """A tensor on ``device`` holding ``arr``'s values, of its shape (a 0-d
+    array gives a 0-d tensor). On the CPU the result may alias ``arr``; on
+    any other device it is a copy."""
+    # ascontiguousarray returns at least one dimension: reshape back
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if not arr.flags.writeable:      # torch tensors are always writable
         arr = arr.copy()
     if _is_bf16(arr.dtype):
@@ -224,3 +228,44 @@ def cache_from_jax(tree: dict, device="cpu") -> dict:
                                   cache=True).items():
         put_path(out, path, _conv(block, device))
     return out
+
+
+def _plain(tree: dict, device) -> dict:
+    """A JAX parameter-shaped tree of numpy leaves as the port's nested
+    dict of plain tensors (``lm_from_jax``'s layout)."""
+    from repro_torch.train.optimizer import tree_map
+    return tree_map(lambda p: p.detach(), lm_from_jax(tree, device).tree())
+
+
+def train_state_from_jax(state, device="cpu"):
+    """The port's ``train.TrainState`` of a JAX ``TrainState`` whose leaves
+    are numpy arrays (``jax.tree.map(np.asarray, state)``): ``params``,
+    ``opt.m``, ``opt.v`` and ``opt.master`` each through ``lm_from_jax``'s
+    layout, ``opt.step`` an int32 scalar tensor, and ``ef`` (the
+    error-feedback residuals, a leading pod axis on every leaf) likewise
+    where it is not None. Values keep their dtype."""
+    from repro_torch.train.optimizer import AdamWState, TrainState
+    opt = state.opt
+    return TrainState(
+        params=_plain(state.params, device),
+        opt=AdamWState(
+            step=to_torch(np.asarray(opt.step, dtype=np.int32), device),
+            m=_plain(opt.m, device), v=_plain(opt.v, device),
+            master=_plain(opt.master, device)),
+        ef=None if state.ef is None else _plain(state.ef, device))
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` with every tensor leaf as a numpy array
+    (``to_numpy``; bfloat16 leaves need a numpy bfloat16), in the port's
+    layout."""
+    from repro_torch.train.optimizer import AdamWState, TrainState, tree_map
+
+    def conv(tree):
+        return None if tree is None else tree_map(to_numpy, tree)
+    opt = state.opt
+    return TrainState(
+        params=conv(state.params),
+        opt=AdamWState(step=to_numpy(opt.step), m=conv(opt.m),
+                       v=conv(opt.v), master=conv(opt.master)),
+        ef=conv(state.ef))

@@ -1,6 +1,7 @@
 """Single-controller SPMD: the port's stand-in for ``jax.sharding.Mesh``,
 ``jax.shard_map`` and the ``jax.lax`` collectives (``ppermute``, ``psum``,
-``pmax``, ``pmean``, ``all_to_all``, ``axis_index``, ``axis_size``).
+``pmax``, ``pmean``, ``all_to_all``, ``all_gather``, ``axis_index``,
+``axis_size``).
 
 A ``Mesh`` names the device of each shard; a device may repeat, so one card
 can hold several shards, as the JAX tests hold forced host devices.
@@ -424,6 +425,23 @@ def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
         src = posted[_peer(axis_name, c)]
         _copy(src, src.t.narrow(split_axis, me * size, size),
               out.narrow(concat_axis, c * width, width))
+    return out
+
+
+def all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Every shard's ``x`` along ``axis_name``, stacked on a new leading
+    axis in coordinate order (``jax.lax.all_gather`` untiled): the same
+    bits on every shard."""
+    n = axis_size(axis_name)
+    me = axis_index(axis_name)
+    posted = _exchange(x)
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    for c in range(n):
+        if c == me:
+            out[c].copy_(x)
+        else:
+            src = posted[_peer(axis_name, c)]
+            _copy(src, src.t, out[c])
     return out
 
 

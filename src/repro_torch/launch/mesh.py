@@ -1,7 +1,8 @@
 """Mesh construction (``repro/launch/mesh.py`` at the same path): the
 smoke mesh over the port's single-controller ``Mesh``. The production
-mesh (16 x 16 TPU chips) and the parameter and optimizer specs wait for the
-training and dry-run slices (ROADMAP.md Queue 1 item 6).
+mesh (16 x 16 TPU chips) and the parameter, optimizer, batch and cache
+specs wait for mesh placement (ROADMAP.md Queue 1 item 6c'); training
+under a mesh splits the batch explicitly (``train.train_step``).
 """
 from __future__ import annotations
 

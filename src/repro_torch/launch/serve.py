@@ -51,7 +51,8 @@ class Engine:
     RG-LRU layer's cache (``conv`` and ``state``) does not grow with
     length: the prefill and every decode step overwrite it in place. An
     encoder-decoder's cross cache (``encoder_seq`` rounded up to 128
-    slots) is written whole by the prefill and only read by decode."""
+    slots) is written whole by the prefill and only read by decode.
+    Serving runs without autograd (``torch.no_grad``)."""
 
     def __init__(self, model, params, batch: int, max_len: int):
         self.model = model
@@ -61,6 +62,7 @@ class Engine:
         self._prefill = make_prefill_step(model)
         self._decode = make_decode_step(model)
 
+    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 extra: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -76,6 +78,7 @@ class Engine:
         return self._prefill(self.params, {**(extra or {}), "tokens": tokens},
                              cache)
 
+    @torch.no_grad()
     def decode(self, cache: Dict[str, torch.Tensor], cur: torch.Tensor,
                length: int, steps: int) -> torch.Tensor:
         """``steps`` greedy steps from token ``cur`` [B,1] at position
@@ -92,6 +95,7 @@ class Engine:
             out.append(cur)
         return torch.cat(out, dim=1) if out else cur[:, :0]
 
+    @torch.no_grad()
     def generate(self, tokens: torch.Tensor, gen: int,
                  extra: Optional[Dict[str, torch.Tensor]] = None
                  ) -> torch.Tensor:

@@ -1,0 +1,117 @@
+"""Training driver (``repro/launch/train.py`` at the same path).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \
+        --device cpu --steps 100 --over-decompose 4 --checkpoint-dir /tmp/ck
+
+Runs on the CUDA card unless ``--device cpu`` is given; it never falls
+back to the CPU on its own. ``--smoke`` takes the reduced config and
+``SMOKE_FLAGS`` (float32 weights); without it the full config with
+``DEFAULT_FLAGS`` (bf16 weights, ``remat="dots"``). One device holds the
+whole state: the JAX driver's production mesh and its optimizer-state
+placement are not ported (ROADMAP.md Queue 1 item 6c'). Fault tolerance:
+checkpoints every ``--ckpt-every`` steps (async, rotated), automatic
+resume from the latest committed step, stateless data pipeline keyed by
+(seed, step).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import canon, get_config, get_smoke_config
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.models import build_model, build_smoke
+from repro_torch.train import (AdamWConfig, TrainConfig, abstract_train_state,
+                               init_train_state, make_train_step)
+
+
+def batch_on(data: SyntheticLM, step: int, cfg, device) -> dict:
+    """Step ``step``'s batch on ``device``: tokens and labels, and the zero
+    ``vision_embeds`` or ``frames`` the JAX driver feeds a model with that
+    frontend."""
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch(step).items()}
+    b = batch["tokens"].shape[0]
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.zeros(
+            (b, cfg.frontend_tokens, cfg.d_model), device=device)
+    if cfg.enc_dec:
+        batch["frames"] = torch.zeros((b, cfg.encoder_seq, cfg.d_model),
+                                      device=device)
+    return batch
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config and SMOKE_FLAGS")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--over-decompose", type=int, default=1,
+                    help="microbatches per step (paper over-decomposition)")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--production-mesh", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    if args.production_mesh or args.multi_pod:
+        raise SystemExit("the production mesh is not ported (ROADMAP.md "
+                         "Queue 1 item 6c')")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA card: pass --device cpu to run on the host")
+    device = torch.device(args.device)
+    arch = canon(args.arch)
+    cfg = get_smoke_config(arch) if args.smoke else get_config(arch)
+    model = build_smoke(cfg) if args.smoke else build_model(cfg)
+
+    tcfg = TrainConfig(
+        opt=AdamWConfig(lr_peak=args.lr, warmup_steps=max(args.steps // 20, 5),
+                        total_steps=args.steps, weight_decay=0.01),
+        over_decompose=args.over_decompose)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
+                                  global_batch=args.global_batch))
+
+    step_fn = make_train_step(model, tcfg)
+    state = init_train_state(model, torch.Generator(device).manual_seed(0),
+                             device)
+    start = 0
+    ck = None
+    if args.checkpoint_dir:
+        ck = Checkpointer(args.checkpoint_dir, keep=3)
+        latest = ck.latest_step()
+        if latest is not None:
+            state = ck.restore(latest, abstract_train_state(model), device)
+            start = latest
+            print(f"resumed from step {latest}")
+
+    t0 = time.perf_counter()
+    for i in range(start, args.steps):
+        state, metrics = step_fn(state, batch_on(data, i, cfg, device))
+        if (i + 1) % args.log_every == 0:
+            loss = float(metrics["loss"])          # waits for the step
+            dt = (time.perf_counter() - t0) / args.log_every
+            tok_s = args.global_batch * args.seq_len / dt
+            print(f"step {i+1:5d} loss={loss:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"lr={float(metrics['lr']):.2e} "
+                  f"{dt*1e3:.0f} ms/step {tok_s:.0f} tok/s", flush=True)
+            t0 = time.perf_counter()
+        if ck and (i + 1) % args.ckpt_every == 0:
+            ck.save(i + 1, state)
+    if ck:
+        ck.save(args.steps, state, block=True)
+    print("done")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -18,7 +18,10 @@
   combined over a mesh axis of ``distributed.spmd``).
 
 The JAX package computes the blockwise, window and decode paths outside
-any Pallas kernel, and so they are plain torch here, with float32 scores. Their products take
+any Pallas kernel, and so they are plain torch here, with float32 scores.
+Where autograd records (training), the blockwise and window paths run
+their tiles out of place, and global attention never takes the kernel,
+which has no backward (``transformer.Flags``). Their products take
 the operands in their own dtype with a float32 result (``bmm_f32``), as
 the JAX package's ``preferred_element_type`` does. Caches for
 local-attention layers are ring buffers of ``min(window, capacity)``
@@ -61,10 +64,40 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float32 (``aten::bmm.dtype``); the CPU has no kernel for that, and
     there ``bmm_f32_upcast`` casts them first. A product of two bf16
     values is exact in float32, so both compute one function, up to the
-    order of the float32 sums."""
+    order of the float32 sums. ``aten::bmm.dtype`` has no derivative in
+    torch, so where autograd records, the card's product goes through
+    ``_BmmF32``, whose backward multiplies on the operands' dtype too."""
     if a.is_cuda:
+        if L.records(a, b):
+            return _BmmF32.apply(a, b)
         return torch.bmm(a, b, out_dtype=torch.float32)
     return bmm_f32_upcast(a, b)
+
+
+class _BmmF32(torch.autograd.Function):
+    """``torch.bmm(a, b, out_dtype=float32)`` with its backward: the
+    float32 cotangent is rounded to the operands' dtype, each gradient is
+    a product of operands in that dtype with a float32 result, rounded to
+    its operand's dtype. Nothing is upcast: the backward's products run
+    where the forward's do."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.transpose(1, 2),
+                           out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.transpose(1, 2), g,
+                           out_dtype=torch.float32).to(b.dtype)
+        return ga, gb
 
 
 def bmm_f32_upcast(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -97,7 +130,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``NEG_INF`` in place; ``p`` is rounded to v's dtype before ``p·v``;
     the output ``acc / max(l, 1e-30)`` in q's dtype. Causal kv blocks
     wholly above a q block's last position are skipped, which changes no
-    bit (they add ``p = 0`` at ``alpha = 1``)."""
+    bit (they add ``p = 0`` at ``alpha = 1``). Where autograd records
+    (q, k or v requires grad), the same arithmetic runs out of place,
+    which autograd differentiates as it does the JAX package's scan;
+    serving keeps the in-place tiles."""
+    # the same operations in the same order either way: the same bits
+    in_place = not L.records(q, k, v)
     b, s, kh, g, d = q.shape
     t = k.shape[1]
     qb, kb = min(q_block, s), min(kv_block, t)
@@ -111,7 +149,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qr = q.permute(0, 2, 1, 3, 4).reshape(b * kh, s * g, d)
     kr = k.permute(0, 2, 1, 3).reshape(b * kh, t, d)
     vr = v.permute(0, 2, 1, 3).reshape(b * kh, t, d)
-    out = torch.empty((b * kh, s * g, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b * kh, s * g, d), dtype=q.dtype, device=dev) \
+        if in_place else None
+    outs = []
     for q0 in range(0, s, qb):
         qblk = qr[:, q0 * g:(q0 + qb) * g]
         qpos = torch.arange(q0, q0 + qb, device=dev).repeat_interleave(g)
@@ -122,7 +162,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = torch.zeros_like(m)
         for k0 in range(0, min(t, q0 + qb) if causal else t, kb):
             sc = bmm_f32(qblk, kr[:, k0:k0 + kb].transpose(1, 2))
-            sc.mul_(scale)
+            sc = sc.mul_(scale) if in_place else sc * scale
             mask = None
             if causal:
                 kpos = torch.arange(k0, k0 + kb, device=dev)
@@ -131,17 +171,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 km = kv_valid[k0:k0 + kb][None, :]
                 mask = km if mask is None else mask & km
             if mask is not None:
-                sc.masked_fill_(~mask, NEG_INF)
+                sc = sc.masked_fill_(~mask, NEG_INF) if in_place \
+                    else sc.masked_fill(~mask, NEG_INF)
             m_new = torch.maximum(m, sc.amax(dim=-1))
-            p = sc.sub_(m_new[..., None]).exp_()
+            if in_place:
+                p = sc.sub_(m_new[..., None]).exp_()
+            else:
+                p = torch.exp(sc - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1)
             pv = bmm_f32(p.to(v.dtype), vr[:, k0:k0 + kb])
             del sc, p
-            acc = acc.mul_(alpha[..., None]).add_(pv)
+            acc = acc.mul_(alpha[..., None]).add_(pv) if in_place \
+                else acc * alpha[..., None] + pv
             m = m_new
-        out[:, q0 * g:(q0 + qb) * g] = acc.div_(
-            l.clamp_min(1e-30)[..., None])
+        denom = l.clamp_min(1e-30)[..., None]
+        if in_place:
+            out[:, q0 * g:(q0 + qb) * g] = acc.div_(denom)
+        else:
+            outs.append((acc / denom).to(q.dtype))
+    if not in_place:
+        out = torch.cat(outs, dim=1)
     return out.view(b, kh, s, g, d).permute(0, 2, 1, 3, 4)
 
 
@@ -154,7 +204,9 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal attention restricted to the last ``window`` positions.
     q: [B,S,K,G,D], k/v: [B,S,K,D]. Each query block of size W attends to
     (block-1, block) — exact for window size W. Ragged S is padded
-    internally (padded keys get +inf positions and are never attended)."""
+    internally (padded keys get +inf positions and are never attended).
+    The score tile is scaled and masked in place, or out of place where
+    autograd records."""
     b, s, kh, g, d = q.shape
     w = min(window, s)
     pad = (-s) % w
@@ -192,8 +244,13 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sc = bmm_f32(qb, band(k).transpose(1, 2))
     del qb
     sc6 = sc.view(b, nb, kh, w, g, 2 * w)
-    sc6.mul_(d ** -0.5)
-    sc6.masked_fill_(~valid[None, :, None, :, None, :], NEG_INF)
+    invalid = ~valid[None, :, None, :, None, :]
+    if L.records(sc):
+        # autograd records: the same scale and mask out of place
+        sc = (sc6 * d ** -0.5).masked_fill(invalid, NEG_INF).view(sc.shape)
+    else:
+        sc6.mul_(d ** -0.5)
+        sc6.masked_fill_(invalid, NEG_INF)
     p = torch.softmax(sc, dim=-1)
     del sc, sc6
     p = p.to(v.dtype)
@@ -348,8 +405,10 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     capture it), and returns the cache; with ``kv_override`` it reads the
     given k and v under ``kv_valid`` (all of them without one) and returns
     no cache. ``use_kernel`` is the counterpart of ``use_pallas``: it
-    takes causal attention with T = S and S % 128 == 0 and no mask; the
-    rest goes the blockwise way. ``seq_shard_axis`` sends a global
+    takes a prefill's causal attention with T = S and S % 128 == 0 and no
+    mask; the rest goes the blockwise way, and so does train mode, which
+    never takes the forward-only kernel (the JAX model trains with
+    ``use_pallas`` off). ``seq_shard_axis`` sends a global
     layer's decode through ``seq_sharded_decode``."""
     if kind not in ("global_attn", "local_attn"):
         raise ValueError(f"attention_layer: {kind!r} is not an attention "
@@ -375,8 +434,8 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         if local and kv_override is None:
             out = window_attention(qg, k, v, positions=positions,
                                    window=window)
-        elif use_kernel and causal and kv_valid is None \
-                and k.shape[1] == s and s % 128 == 0:
+        elif use_kernel and mode == "prefill" and causal \
+                and kv_valid is None and k.shape[1] == s and s % 128 == 0:
             out = flash_attention_gqa(qg, k, v)
         else:
             out = flash_attention(qg, k, v, causal=causal,

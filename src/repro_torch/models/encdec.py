@@ -30,7 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import (DEFAULT_FLAGS, Flags, ParamTree,
-                                            _at, _tree)
+                                            _at, _tree, remat_call)
 
 # the encoder's frames are padded to a multiple of this (the blockwise
 # attention's block), the padding masked in cross-attention
@@ -104,17 +104,17 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig,
-           flags: Flags = DEFAULT_FLAGS) -> torch.Tensor:
+           flags: Flags = DEFAULT_FLAGS, remat: str = "none") -> torch.Tensor:
     """frames: [B, T, D] (precomputed frame embeddings, cast to the weight
     dtype) -> encoder output [B, T, D]. Bidirectional, unmasked (the JAX
-    package's encoder attends to the padding frames too)."""
+    package's encoder attends to the padding frames too). Each layer runs
+    under ``remat`` (``transformer.remat_call``)."""
     p = _tree(params)
     dtype = p["embed"].dtype
     x = frames.to(dtype) + _sinusoids(frames.shape[1], cfg.d_model,
                                       frames.device).to(dtype)
-    enc = p["encoder"]
-    for i in range(cfg.n_encoder_layers):
-        lp = _at(enc, i)
+
+    def layer(lp, x):
         h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
         mix, _ = A.attention_layer(
             lp["attn"], h, kind="global_attn", rope_theta=0.0,
@@ -122,7 +122,11 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
             use_rope=False, flash_block=flags.flash_block)
         x = x + mix
         h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + L.mlp_apply(lp["mlp"], h, cfg.gated_mlp)
+        return x + L.mlp_apply(lp["mlp"], h, cfg.gated_mlp)
+
+    enc = p["encoder"]
+    for i in range(cfg.n_encoder_layers):
+        x = remat_call(remat, layer, _at(enc, i), x)
     return L.rms_norm(x, p["enc_final_norm"], cfg.norm_eps)
 
 
@@ -193,26 +197,32 @@ def _dec_block(p, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
 
 def encdec_apply(params, batch: Dict[str, torch.Tensor], *,
                  cfg: ModelConfig, mode: str, flags: Flags = DEFAULT_FLAGS,
-                 cache: Optional[Dict[str, Any]] = None
-                 ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (decoder hidden [B,S,D], cache). ``batch`` holds ``tokens``
+                 cache: Optional[Dict[str, Any]] = None):
+    """Returns (decoder hidden [B,S,D], cache) in prefill and decode, and
+    (decoder hidden, None, aux_loss = 0) in train, as the JAX function
+    returns in every mode. ``batch`` holds ``tokens``
     [B,S], ``frames`` [B,T,D] in train and prefill, ``lengths`` [B] in
     decode, which reads the cached cross K/V. The frames are padded to a
     multiple of 128 and the padding masked in cross-attention. A prefill
     or decode with ``cache`` writes into it in place and returns it; a
     prefill without one returns a new cache (self of length S, cross of
-    the padded T)."""
+    the padded T). In train mode with ``flags.remat`` other than "none"
+    every encoder and decoder layer is recomputed in the backward, as the
+    JAX package's ``jax.checkpoint`` of both scans' bodies."""
     p = _tree(params)
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
     b, s = tokens.shape
+    train = mode == "train"
+    remat = "full" if train and flags.remat != "none" else "none"
     enc_out = enc_valid = None
     if mode in ("train", "prefill"):
         frames = batch["frames"]
         t = frames.shape[1]
         tpad = (-t) % FRAME_BLOCK
         enc_valid = torch.arange(t + tpad, device=frames.device) < t
-        enc_out = encode(p, F.pad(frames, (0, 0, 0, tpad)), cfg, flags)
+        enc_out = encode(p, F.pad(frames, (0, 0, 0, tpad)), cfg, flags,
+                         remat)
     if mode == "decode":
         # the cross cache's slots past encoder_seq are masked, whatever
         # length the prefill's frames had; from constants only, so that a
@@ -228,6 +238,13 @@ def encdec_apply(params, batch: Dict[str, torch.Tensor], *,
     dec = p["decoder"]
     outs = []
     for i in range(cfg.n_layers):
+        if train:
+            x, _ = remat_call(
+                remat, lambda lp, x_: _dec_block(
+                    lp, x_, cfg=cfg, mode=mode, flags=flags, cache=None,
+                    lengths=None, enc_out=enc_out, enc_valid=enc_valid),
+                _at(dec, i), x)
+            continue
         c_in = None
         if cache is not None:
             c_in = {kind: {k: v[i] for k, v in c.items()}
@@ -237,8 +254,9 @@ def encdec_apply(params, batch: Dict[str, torch.Tensor], *,
                               enc_out=enc_out, enc_valid=enc_valid)
         outs.append(c_out)
     x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
-    if mode == "train":
-        return x, None
+    if train:
+        return x, None, torch.zeros((), dtype=torch.float32,
+                                    device=x.device)
     if cache is not None:
         return x, cache
     return x, {"decoder": {kind: {k: torch.stack([c[kind][k] for c in outs])

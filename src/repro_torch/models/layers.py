@@ -115,3 +115,37 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+def records(*trees) -> bool:
+    """Whether autograd records an op on a tensor of ``trees`` (tensors or
+    nested dicts and sequences of them): grad mode is on and one of them
+    requires grad. Where it does, the train-mode paths run out of place."""
+    def any_grad(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.requires_grad
+        if isinstance(tree, dict):
+            tree = tree.values()
+        elif not isinstance(tree, (list, tuple)):
+            return False
+        return any(any_grad(v) for v in tree)
+    return torch.is_grad_enabled() and any_grad(trees)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean token cross-entropy of ``logits`` [..., V] (taken in float32)
+    against integer ``labels`` [...]; with ``mask`` [...], the mean over
+    the masked-in tokens (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

@@ -6,7 +6,9 @@ encoder-decoder (``models.encdec``), dispatched on ``cfg.enc_dec``.
 
 ``Model`` exposes:
   init(gen, device)               -> ParamTree (the weights, an nn.Module)
-  apply(params, batch, mode, cache) -> (hidden, cache)
+  apply(params, batch, mode, cache) -> (hidden, cache) in prefill and
+                                     decode; (hidden, None, aux_loss) in
+                                     train
   init_cache(batch, cache_len, device) -> the cache tree: {"k", "v"} at
                                      capacity (a local layer's ring at
                                      min(window, cache_len)), the SSD or
@@ -15,6 +17,7 @@ encoder-decoder (``models.encdec``), dispatched on ``cfg.enc_dec``.
                                      the encoder-decoder's {"decoder":
                                      {"self", "cross"}}
   unembed(params, x)              -> logits
+  loss(params, x, labels)         -> mean token cross-entropy (float32)
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import DEFAULT_FLAGS, SMOKE_FLAGS, Flags
 
@@ -61,6 +65,18 @@ class Model:
         if self.cfg.enc_dec:
             return x @ T._tree(params)["unembed"]
         return T.unembed(params, x, self.cfg)
+
+    def loss(self, params, x: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        """Cross-entropy of the final hidden states x [B,S,D] against
+        ``labels`` [B,S]: a decoder-only LM's through ``chunked_ce_loss``
+        (its tied or untied unembedding), the encoder-decoder's through
+        its untied ``unembed`` and ``softmax_cross_entropy`` over the
+        whole [B,S,V], as the JAX package computes them."""
+        if self.cfg.enc_dec:
+            logits = (x @ T._tree(params)["unembed"]).float()
+            return L.softmax_cross_entropy(logits, labels)
+        return T.chunked_ce_loss(params, x, labels, self.cfg, self.flags)
 
 
 def build_model(cfg: ModelConfig, flags: Flags = DEFAULT_FLAGS) -> Model:

@@ -9,8 +9,9 @@ branch), merged multiplicatively, projected back. The RG-LRU recurrence
 
 is a linear recurrence in h. Train and prefill evaluate it with a log-depth
 scan (``linear_scan``: Hillis–Steele doubling, where the JAX package calls
-``jax.lax.associative_scan``), decode with a single-step update written into
-the cache in place. The recurrence and input gates use block-diagonal
+``jax.lax.associative_scan``; ``linear_scan_autograd``, the same passes out
+of place, where autograd records), decode with a single-step update written
+into the cache in place. The recurrence and input gates use block-diagonal
 projections (``n_blocks`` heads) as in the paper. The JAX package computes
 all of it outside any Pallas kernel, and so it is plain torch here.
 """
@@ -103,6 +104,22 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def linear_scan_autograd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``linear_scan`` for autograd, which refuses ``out=``: the same
+    passes, each combining into new tensors, so the same bits. Leaves
+    ``a`` and ``b`` as they are; returns h."""
+    s = a.shape[1]
+    off = 1
+    while off < s:
+        b = torch.cat([b[:, :off],
+                       torch.addcmul(b[:, off:], a[:, off:], b[:, :-off])],
+                      dim=1)
+        if 2 * off < s:
+            a = torch.cat([a[:, :off], a[:, off:] * a[:, :-off]], dim=1)
+        off *= 2
+    return b
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -142,7 +159,8 @@ def rglru_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
     if mode in ("train", "prefill"):
         if cache is not None:
             b_term[:, 0] += a[:, 0] * cache["state"].float()
-        h = linear_scan(a, b_term)
+        h = (linear_scan_autograd if L.records(a, b_term)
+             else linear_scan)(a, b_term)
     elif mode == "decode":
         if cache is None:
             raise ValueError("rglru_layer: decode needs a cache")

@@ -157,7 +157,10 @@ def ssd_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
     """Full Mamba-2 block. u: [B,S,D]. mode: train|prefill|decode.
     cache: {"conv": [B,W-1,C], "state": [B,H,P,N]}; a prefill reads its
     conv state (the scan starts from zero), a decode both. Returns
-    (out, new_cache) with new tensors in ``new_cache``."""
+    (out, new_cache) with new tensors in ``new_cache``. ``use_kernel``
+    takes the intra-chunk form from the kernel in prefill; train mode
+    takes the einsum path, which autograd differentiates (the kernel has
+    no backward)."""
     b, s, d = u.shape
     di = scfg.expand * d
     nh = di // scfg.headdim
@@ -177,7 +180,9 @@ def ssd_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
 
     if mode in ("train", "prefill"):
         y, final_state = _ssd_chunked(x.float(), dt, A, B, C,
-                                      scfg.chunk_size, use_kernel=use_kernel)
+                                      scfg.chunk_size,
+                                      use_kernel=use_kernel
+                                      and mode == "prefill")
         new_cache = None
         if mode == "prefill":
             new_cache = {"conv": new_conv, "state": final_state}

@@ -19,8 +19,12 @@ cache alike; a local layer's cache has ``min(window, capacity)`` slots, an
 RG-LRU layer's is ``{"conv": [B, K-1, W], "state": [B, W]}`` (the state in
 float32).
 The stack runs as a Python loop over layer views, where the JAX package
-scans. The weights live in a ``ParamTree`` module; the apply functions are
-plain functions over it, like their JAX counterparts.
+scans. The weights live in a ``ParamTree`` module (or a nested dict of
+tensors, as training passes them); the apply functions are plain
+functions over it, like their JAX counterparts. Train mode returns the
+MoE aux loss beside the hidden states, runs each layer under
+``Flags.remat`` and takes no forward-only kernel; ``chunked_ce_loss`` is
+the training loss.
 """
 from __future__ import annotations
 
@@ -46,29 +50,51 @@ class Flags:
     ``use_flash_kernel`` is the counterpart of the JAX package's
     ``use_pallas_flash``: causal global self-attention with S a multiple
     of 128 goes through the hand-written CUDA kernel (its plain version on
-    a CPU tensor). It is on in ``DEFAULT_FLAGS``, the serving path on the
-    card. ``flash_block`` is the block of the plain blockwise path; the JAX
-    package declares the same field and its attention uses 512, the
-    default here. ``use_ssd_kernel`` takes the SSD block's intra-chunk
-    form (one group) from the hand-written CUDA kernel (its plain version
-    on a CPU tensor) instead of the einsum path; the JAX model never calls
-    its Pallas kernel, whose function is the same. ``seq_shard_kv`` names
-    the mesh axis over which global layers decode with the KV cache
+    a CPU tensor) in prefill. It is on in ``DEFAULT_FLAGS``, the serving
+    path on the card. Train mode never takes a forward-only kernel: the
+    Pallas kernel has no backward, and the JAX model's defaults
+    (``use_pallas_flash`` False) train on the blockwise path, so global
+    attention in train mode takes the plain blockwise path whatever this
+    flag says, and an SSD layer the einsum path: the JAX semantics, not a
+    fallback. ``flash_block`` is the block of the plain blockwise path;
+    the JAX package declares the same field and its attention uses 512,
+    the default here. ``use_ssd_kernel`` takes the SSD block's
+    intra-chunk form (one group) from the hand-written CUDA kernel (its
+    plain version on a CPU tensor) instead of the einsum path in prefill;
+    the JAX model never calls its Pallas kernel, whose function is the
+    same. ``seq_shard_kv`` names the mesh axis over which global layers
+    decode with the KV cache
     sequence-sharded (``attention.seq_sharded_decode`` over the mesh of
     ``models.sharding.use_sharding``). ``moe_mode`` takes an MoE layer
     through ``moe.moe_ep`` ("ep": expert-parallel over the active mesh,
-    the dense oracle without one) or ``moe.moe_dense`` ("dense")."""
+    the dense oracle without one) or ``moe.moe_dense`` ("dense").
+
+    Training reads two more, with the JAX package's defaults.
+    ``loss_chunk`` is the sequence chunk of ``chunked_ce_loss``.
+    ``remat`` is what a train-mode forward keeps for the backward, each
+    layer under ``torch.utils.checkpoint`` where the JAX package wraps
+    each period of its scan in ``jax.checkpoint``: "none" keeps every
+    activation; "full" keeps only each layer's input and recomputes the
+    layer in the backward; "dots" (``checkpoint_dots_with_no_batch_dims``)
+    keeps the outputs of the products without batch dims, that is every
+    ``aten.mm`` / ``aten.addmm`` (the projections and MLP products), and
+    recomputes the rest (norms, rope, the attention's batched score and
+    value products and softmax), by selective checkpointing. Under either
+    the loss recomputes each chunk's logits in the backward."""
     param_dtype: Any = torch.bfloat16
     moe_mode: str = "ep"
     use_flash_kernel: bool = True
     flash_block: int = 512
     use_ssd_kernel: bool = True
     seq_shard_kv: Optional[str] = None
+    remat: str = "dots"
+    loss_chunk: int = 1024
 
 
 DEFAULT_FLAGS = Flags()
 SMOKE_FLAGS = Flags(param_dtype=torch.float32, moe_mode="dense",
-                    use_flash_kernel=False, use_ssd_kernel=False)
+                    use_flash_kernel=False, use_ssd_kernel=False,
+                    remat="none", loss_chunk=64)
 
 _NOT_PORTED = "not ported (see ROADMAP.md)"
 
@@ -100,7 +126,12 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors held as parameters without gradients."""
+    """A nested dict of tensors held as parameters, registered without
+    gradients (serving records nothing). ``tree()`` hands out the
+    parameters themselves, so that autograd reaches them once
+    ``requires_grad_()`` asks for it; the train step differentiates
+    detached copies of its state's leaves instead
+    (``train.train_step.make_grad_fn``)."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -112,8 +143,8 @@ class ParamTree(nn.Module):
                     key, nn.Parameter(val, requires_grad=False))
 
     def tree(self) -> Dict[str, Any]:
-        """The nested dict of tensors."""
-        out: Dict[str, Any] = {k: p.data for k, p in self._parameters.items()}
+        """The nested dict of parameters."""
+        out: Dict[str, Any] = dict(self._parameters)
         for key, m in self._modules.items():
             out[key] = m.tree()
         return out
@@ -171,15 +202,17 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                 kind: str, mode: str, flags: Flags,
                 cache: Optional[Dict] = None,
                 lengths: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Returns (x, new_cache). An MoE layer's load-balance loss is dropped
-    here (the JAX package returns it for training)."""
+                ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (x, new_cache, aux_loss): aux is an MoE layer's
+    load-balance loss, a float32 zero for any other layer. Train mode
+    takes no forward-only kernel (``Flags``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == SSD:
         mix, new_cache = S.ssd_layer(p["ssd"], h, scfg=cfg.ssm, mode=mode,
                                      cache=cache,
                                      use_kernel=flags.use_ssd_kernel)
-        return x + mix, new_cache
+        return x + mix, new_cache, aux
     if kind == RGLRU:
         mix, new_cache = R.rglru_layer(p["rglru"], h, rcfg=cfg.rglru,
                                        mode=mode, cache=cache)
@@ -188,15 +221,45 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
             p["attn"], h, kind=kind, window=cfg.window,
             rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads, mode=mode,
             lengths=lengths, cache=cache, seq_shard_axis=flags.seq_shard_kv,
-            use_kernel=flags.use_flash_kernel, flash_block=flags.flash_block)
+            use_kernel=flags.use_flash_kernel,
+            flash_block=flags.flash_block)
     x = x + mix
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     if "moe" in p:
         moe = M.moe_ep if flags.moe_mode == "ep" else M.moe_dense
-        y, _ = moe(p["moe"], h, cfg.moe, cfg.gated_mlp)
+        y, aux = moe(p["moe"], h, cfg.moe, cfg.gated_mlp)
     else:
         y = L.mlp_apply(p["mlp"], h, cfg.gated_mlp)
-    return x + y, new_cache
+    return x + y, new_cache, aux
+
+
+# the products without batch dims, whose outputs ``remat="dots"`` keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the activation checkpointing ``remat`` names
+    (``Flags``): as it is for "none" or where autograd records nothing
+    (grad mode off, or no tensor of ``args`` requires grad), else through
+    ``torch.utils.checkpoint`` (non-reentrant), with the "dots" policy
+    selecting what the forward keeps."""
+    if remat == "none" or not L.records(args):
+        return fn(*args)
+    from torch.utils import checkpoint as C
+    if remat == "full":
+        return C.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return C.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: C.create_selective_checkpoint_contexts(
+                _keep_dots))
+    raise ValueError(f"remat {remat!r}: none, full or dots")
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
@@ -343,31 +406,41 @@ def _embed_inputs(p: Dict[str, Any], cfg: ModelConfig,
 
 def lm_apply(params, batch: Dict[str, torch.Tensor], *,
              cfg: ModelConfig, mode: str, flags: Flags = DEFAULT_FLAGS,
-             cache: Optional[Dict[str, Any]] = None
-             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
-    """Returns (final hidden [B,S,D], cache). The unembedding is applied by
-    the caller. A prefill or decode with ``cache`` writes the new entries
+             cache: Optional[Dict[str, Any]] = None):
+    """Returns (final hidden [B,S,D], cache) in prefill and decode, and
+    (final hidden, None, aux_loss) in train, as the JAX function returns
+    in every mode: aux is the sum of the MoE layers' load-balance losses
+    (a float32 zero without MoE). The unembedding is applied by the
+    caller. A prefill or decode with ``cache`` writes the new entries
     into it in place (KV slots, or each layer's conv and state) and returns
     it; a prefill without one returns a new cache (KV of length S, a local
     layer's last window). ``batch`` holds ``tokens`` [B,S], ``lengths`` [B]
-    in decode, and may hold ``vision_embeds`` (``_embed_inputs``).
-    ``params`` is a ``ParamTree`` or its ``tree()``."""
+    in decode, and may hold ``vision_embeds`` (``_embed_inputs``). In
+    train mode each layer runs under ``flags.remat`` (``remat_call``).
+    ``params`` is a ``ParamTree`` or a nested dict of tensors."""
     p = _tree(params)
     lengths = batch.get("lengths")
     x = _embed_inputs(p, cfg, batch)
+    train = mode == "train"
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_layers: Dict[Path, List[Dict[str, torch.Tensor]]] = {}
     for ppath, cpath, kind, i in _layers(cfg):
         bp = _get(p, ppath)
+        bp = bp if i is None else _at(bp, i)
+        if train:
+            x, _, a = remat_call(
+                flags.remat, lambda bp_, x_, kind_=kind: block_apply(
+                    bp_, x_, cfg=cfg, kind=kind_, mode=mode, flags=flags),
+                bp, x)
+            aux = aux + a
+            continue
         c_in = None
         if cache is not None:
             c_in = _get(cache, cpath)
             if i is not None:
                 c_in = {k: v[i] for k, v in c_in.items()}
-        x, c_out = block_apply(bp if i is None else _at(bp, i), x, cfg=cfg,
-                               kind=kind, mode=mode, flags=flags, cache=c_in,
-                               lengths=lengths)
-        if mode == "train":
-            continue
+        x, c_out, _ = block_apply(bp, x, cfg=cfg, kind=kind, mode=mode,
+                                  flags=flags, cache=c_in, lengths=lengths)
         if cache is None:
             new_layers.setdefault(cpath, []).append(c_out)
         else:
@@ -375,8 +448,8 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
                 if v.data_ptr() != c_in[k].data_ptr():
                     c_in[k].copy_(v)
     x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
-    if mode == "train":
-        return x, None
+    if train:
+        return x, None, aux
     if cache is None:
         cache = {}
         for _, cpath, _, depth in _stacks(cfg):
@@ -392,3 +465,34 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return x @ p["embed"].T
     return x @ p["unembed"]
+
+
+def chunked_ce_loss(params, x: torch.Tensor, labels: torch.Tensor,
+                    cfg: ModelConfig, flags: Flags) -> torch.Tensor:
+    """Mean token cross-entropy of the hidden states x [B,S,D] against
+    ``labels`` [B,S] without materialising [B,S,V]: a loop over
+    ``flags.loss_chunk`` positions, each chunk's logits [B,chunk,V] in
+    float32 (the product in the weights' dtype, then cast), ``logsumexp``
+    minus the label's logit, summed. Under ``flags.remat`` other than
+    "none" each chunk runs under ``torch.utils.checkpoint``, so the
+    backward too holds one chunk's logits at a time."""
+    p = _tree(params)
+    b, s, _ = x.shape
+    chunk = min(flags.loss_chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunked_ce_loss: S={s} is not a multiple of "
+                         f"loss_chunk {chunk}")
+    w = p["embed"].T if cfg.tie_embeddings else p["unembed"]
+    remat = "none" if flags.remat == "none" else "full"
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        total = total + remat_call(remat, _ce_sum, x[:, c0:c0 + chunk], w,
+                                   labels[:, c0:c0 + chunk])
+    return total / (b * s)
+
+
+def _ce_sum(x: torch.Tensor, w: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: x [B,T,D], w [D,V], labels
+    [B,T]."""
+    return L.softmax_cross_entropy(x @ w, labels) * labels.numel()

@@ -1,8 +1,9 @@
 """Serving steps: batched prefill and single-token greedy decode
 (``repro/serve/serve_step.py`` at the same path).
 
-``tasked_decode_loop`` drives the same decode step through the port's task
-runtime: every step is one hetero task over the model state (weights read,
+Both steps run without autograd (``torch.no_grad``), whatever the
+weights' ``requires_grad``. ``tasked_decode_loop`` drives the same decode
+step through the port's task runtime: every step is one hetero task over the model state (weights read,
 cache, tokens and lengths read and written), followed by
 ``Runtime.step_boundary()``.
 """
@@ -17,6 +18,7 @@ from repro_torch.models.transformer import ParamTree
 
 
 def make_prefill_step(model: Model):
+    @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor], cache):
         """``batch``: ``tokens`` [B,S] and the model's other prefill
         inputs (``vision_embeds``, an encoder-decoder's ``frames``).
@@ -29,6 +31,7 @@ def make_prefill_step(model: Model):
 
 
 def make_decode_step(model: Model):
+    @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor,
                     lengths: torch.Tensor):
         """tokens: [B,1] current token; lengths: [B] tokens so far.

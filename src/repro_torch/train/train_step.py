@@ -1,0 +1,275 @@
+"""Train-step factory with over-decomposition (microbatch) support
+(``repro/train/train_step.py`` at the same path).
+
+The paper's over-decomposition insight — split the domain into more chunks
+than processing elements so transfers pipeline behind compute — maps to
+microbatched gradient accumulation: the batch is split into
+``over_decompose`` microbatches whose gradients accumulate in float32, and
+activation memory drops by that factor. ``over_decompose=1`` is the
+paper-faithful "no over-decomposition" baseline (one monolithic batch).
+
+Under an active mesh (``models.sharding.use_sharding``) whose data axes
+(``pod``, ``data``) span more than one shard, the gradients are computed
+data-parallel: each shard takes its slice of the batch inside
+``spmd.shard_map`` and the gradients and metrics are averaged with
+``spmd.pmean``, the explicit form of what GSPMD does for the JAX step.
+``compress_pod_grads`` replaces the reduction over ``pod`` with the int8
+error-feedback one of ``train.compression``.
+
+Gradients come from ``torch.autograd.grad`` on detached copies of the
+parameter leaves that require grad, so the state's tensors never carry
+autograd history, and the optimizer (``train.optimizer.adamw_update``)
+updates them in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.convert import to_numpy, to_torch
+from repro_torch.distributed import spmd
+from repro_torch.models.model_zoo import Model
+from repro_torch.models.sharding import active_mesh
+from repro_torch.train.optimizer import (AdamWConfig, TrainState,
+                                         adamw_update, init_opt_state,
+                                         tree_flatten, tree_leaves, tree_map,
+                                         tree_unflatten)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    opt: AdamWConfig = AdamWConfig()
+    over_decompose: int = 1      # microbatches per step (paper: OD level)
+    z_loss: float = 0.0
+    # int8 + error-feedback compression of the cross-pod gradient reduction
+    # (meshes with a pod axis only; see train/compression.py)
+    compress_pod_grads: bool = False
+
+
+def make_loss_fn(model: Model):
+    """``loss_fn(params, batch) -> (ce + aux, {"ce", "aux"})`` from a
+    train-mode forward and ``Model.loss``."""
+    def loss_fn(params, batch):
+        x, _, aux = model.apply(params, batch, mode="train")
+        ce = model.loss(params, x, batch["labels"])
+        return ce + aux, {"ce": ce, "aux": aux}
+    return loss_fn
+
+
+def make_grad_fn(model: Model):
+    """``grad_fn(params, batch) -> (grads, {"ce", "aux"})``: the gradient
+    of ``make_loss_fn``'s loss with respect to every parameter leaf, each
+    in its parameter's dtype (zeros for a leaf the loss does not reach)."""
+    loss_fn = make_loss_fn(model)
+
+    def grad_fn(params, batch):
+        flat = tree_flatten(params)
+        live = [leaf.detach().requires_grad_() for _, leaf in flat]
+        loss, metrics = loss_fn(tree_unflatten([p for p, _ in flat], live),
+                                batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(live, grads)]
+        return (tree_unflatten([p for p, _ in flat], grads),
+                {k: v.detach() for k, v in metrics.items()})
+    return grad_fn
+
+
+def _batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh's data axes that span more than one shard."""
+    return tuple(a for a in ("pod", "data")
+                 if a in mesh.shape and mesh.shape[a] > 1)
+
+
+def _over_mesh(body, mesh, params, batch, batch_spec, extra=(),
+               extra_spec=None, n_out_sharded: int = 0):
+    """``body(params, batch, *extra)`` once per shard of ``mesh``: the
+    parameters replicated, each batch leaf split along its first dim by
+    ``batch_spec``, each ``extra`` leaf by ``extra_spec``. ``body``
+    returns (grads tree, metrics dict, sharded leaves); the first two
+    are replicated. Returns them on the parameters' device, the sharded
+    leaves joined."""
+    pflat, bflat = tree_flatten(params), tree_flatten(batch)
+    npar, nbat = len(pflat), len(bflat)
+    device = pflat[0][1].device
+    shapes = {}
+
+    def run(*args):
+        p = tree_unflatten([k for k, _ in pflat], args[:npar])
+        b = tree_unflatten([k for k, _ in bflat], args[npar:npar + nbat])
+        g, m, sharded = body(p, b, *args[npar + nbat:])
+        gflat, mflat = tree_flatten(g), sorted(m.items())
+        shapes["g"], shapes["m"] = [k for k, _ in gflat], [k for k, _ in mflat]
+        return (*[v for _, v in gflat], *[v for _, v in mflat], *sharded)
+
+    out = spmd.shard_map(
+        run, mesh,
+        in_specs=(spmd.P(),) * npar + (batch_spec,) * nbat
+        + (extra_spec,) * len(extra),
+        out_specs=(spmd.P(),) * (npar + 2) + (extra_spec,) * n_out_sharded,
+    )(*[v for _, v in pflat], *[v for _, v in bflat], *extra)
+    full = [o.full(device) for o in out]
+    grads = tree_unflatten(shapes["g"], full[:npar])
+    metrics = dict(zip(shapes["m"], full[npar:npar + 2]))
+    return grads, metrics, full[npar + 2:]
+
+
+def make_train_step(model: Model, tcfg: TrainConfig
+                    ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
+                                  Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """``train_step(state, batch) -> (state, metrics)``: the gradients of
+    the batch (``over_decompose`` microbatches accumulated in float32 and
+    divided by their count; data-parallel or compressed over an active
+    mesh, module docstring), then ``adamw_update``, which consumes the
+    state. ``metrics``: ce, aux, loss = ce + aux, grad_norm, lr. Runs
+    where the state's tensors are; nothing moves to another device."""
+    grad_fn = make_grad_fn(model)
+    od = tcfg.over_decompose
+
+    def grads_of(params, batch):
+        """One batch's gradients, data-parallel over an active mesh."""
+        mesh = active_mesh()
+        axes = _batch_axes(mesh) if mesh is not None else ()
+        if not axes:
+            return grad_fn(params, batch)
+        spec_axes = axes if len(axes) > 1 else axes[0]
+
+        def body(p, b):
+            g, m = grad_fn(p, b)
+            g = tree_map(lambda x: spmd.pmean(x, spec_axes), g)
+            return g, {k: spmd.pmean(v, spec_axes) for k, v in m.items()}, ()
+        g, m, _ = _over_mesh(body, mesh, params, batch, spmd.P(spec_axes))
+        return g, m
+
+    def compressed_grads(state, batch):
+        """Gradients with the cross-pod reduction compressed (int8 + EF):
+        each pod's shards take the pod's slice of the batch, the gradients
+        are averaged by ``compressed_pmean_tree`` over ``pod`` and the new
+        error-feedback residuals returned per pod."""
+        from repro_torch.train.compression import compressed_pmean_tree
+        mesh = active_mesh()
+        if mesh is None or "pod" not in mesh.shape:
+            raise ValueError("compress_pod_grads needs an active mesh with "
+                             "a pod axis (models.sharding.use_sharding)")
+        if state.ef is None:
+            raise ValueError("compress_pod_grads needs EF residuals: "
+                             "init_train_state(..., ef_pods=mesh.shape"
+                             "['pod'])")
+        eflat = tree_flatten(state.ef)
+
+        def body(p, b, *res):
+            g, m = grad_fn(p, b)
+            res_in = tree_unflatten([k for k, _ in eflat],
+                                    [r[0] for r in res])
+            g, new_res = compressed_pmean_tree(g, "pod", res_in)
+            m = {k: spmd.pmean(v, "pod") for k, v in m.items()}
+            return g, m, [r[None] for r in tree_leaves(new_res)]
+
+        g, m, res = _over_mesh(body, mesh, state.params, batch,
+                               spmd.P("pod"), [v for _, v in eflat],
+                               spmd.P("pod"), len(eflat))
+        return g, m, tree_unflatten([k for k, _ in eflat], res)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        new_ef = state.ef
+        if tcfg.compress_pod_grads and od == 1:
+            grads, metrics, new_ef = compressed_grads(state, batch)
+        elif od == 1:
+            grads, metrics = grads_of(state.params, batch)
+        else:
+            n = next(iter(batch.values())).shape[0]
+            if n % od:
+                raise ValueError(f"batch of {n} does not split into "
+                                 f"{od} microbatches")
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), state.params)
+            metrics = None
+            for i in range(od):
+                mb = {k: v[i * (n // od):(i + 1) * (n // od)]
+                      for k, v in batch.items()}
+                g, m = grads_of(state.params, mb)
+                tree_map(lambda a, b: a.add_(b), grads, g)
+                del g
+                metrics = m if metrics is None else \
+                    {k: metrics[k] + m[k] for k in metrics}
+            grads = tree_map(lambda g: g.div_(od), grads)
+            metrics = {k: v / od for k, v in metrics.items()}
+        state, opt_metrics = adamw_update(tcfg.opt, state, grads)
+        del grads
+        state.ef = new_ef
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        metrics["loss"] = metrics["ce"] + metrics["aux"]
+        return state, metrics
+
+    return train_step
+
+
+def runtime_allreduce(group, grad_trees, average: bool = True):
+    """Gradient sync over the message-driven runtime (``CollectiveGroup``
+    of ``distributed.collectives_rt``).
+
+    ``grad_trees`` is one gradient tree per group member (identical
+    structure and leaf shapes; numpy arrays or tensors, each member's
+    local gradients). Leaves are flattened and concatenated into one
+    vector per member so a single collective moves the whole gradient set
+    — large trees take the pipelined chunked ring, small ones the eager
+    binomial tree — then the summed (or averaged) vector is split back
+    into the tree. Bit-deterministic: every member unflattens the *same*
+    reduced vector, so replicas agree exactly.
+
+    Returns one reduced tree per member, in group-member order: numpy
+    leaves, or tensors on the device of the member's leaf where its leaf
+    was a tensor."""
+    if len(grad_trees) != len(group.members):
+        raise ValueError(
+            f"expected {len(group.members)} gradient trees, "
+            f"got {len(grad_trees)}")
+    flat0 = tree_flatten(grad_trees[0])
+    paths = [p for p, _ in flat0]
+    shapes = [tuple(leaf.shape) for _, leaf in flat0]
+    sizes = [int(np.prod(s)) if s else 1 for s in shapes]
+    packed = []
+    for tree in grad_trees:
+        leaves = tree_leaves(tree)
+        if len(leaves) != len(paths):
+            raise ValueError("gradient trees disagree on structure")
+        packed.append(np.concatenate(
+            [(to_numpy(leaf) if isinstance(leaf, torch.Tensor)
+              else np.asarray(leaf)).reshape(-1) for leaf in leaves]))
+    reduced = group.allreduce(packed, average=average)
+    outs = []
+    for tree, vec in zip(grad_trees, reduced):
+        leaves, off = [], 0
+        for like, shape, size in zip(tree_leaves(tree), shapes, sizes):
+            arr = vec[off:off + size].reshape(shape)
+            leaves.append(to_torch(arr, like.device)
+                          if isinstance(like, torch.Tensor) else arr)
+            off += size
+        outs.append(tree_unflatten(paths, leaves))
+    return outs
+
+
+def init_train_state(model: Model, gen: Optional[torch.Generator],
+                     device="cuda", ef_pods: int = 0) -> TrainState:
+    """Parameters from ``model.init(gen, device)`` (plain tensors: the
+    ``ParamTree``'s leaves detached), the AdamW state, and with
+    ``ef_pods`` zero float32 error-feedback residuals [ef_pods, ...] per
+    leaf."""
+    params = tree_map(lambda p: p.detach(), model.init(gen, device).tree())
+    ef = None
+    if ef_pods:
+        ef = tree_map(lambda p: torch.zeros((ef_pods,) + tuple(p.shape),
+                                            dtype=torch.float32,
+                                            device=p.device), params)
+    return TrainState(params=params, opt=init_opt_state(params), ef=ef)
+
+
+def abstract_train_state(model: Model) -> TrainState:
+    """The ``TrainState`` of ``model`` on the ``meta`` device: every leaf's
+    shape and dtype, no storage. ``Checkpointer.restore`` takes it as the
+    structure and dtypes to restore into (with ``device=`` for where)."""
+    return init_train_state(model, None, "meta")

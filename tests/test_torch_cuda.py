@@ -1093,3 +1093,94 @@ def test_moe_ep_on_four_shards_of_the_card(cuda, arch):
         low_cpu = M.moe_ep(p_cpu, x.cpu(), mcfg, cfg.gated_mlp)
     for a, b in zip(low, low_cpu):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_bmm_f32_backward_on_the_card(cuda, dtype, tol):
+    """``attention.bmm_f32`` where autograd records: ``aten::bmm.dtype``
+    has no derivative, so the card's product goes through ``_BmmF32``,
+    whose gradients (products on the operands' dtype, float32 results)
+    agree with the upcast product's within the dtype's bound, in the
+    operands' dtype."""
+    from repro_torch.models import attention as A
+    g = torch.Generator(device=cuda).manual_seed(5)
+    a = torch.randn((8, 96, 64), generator=g, device=cuda).to(dtype)
+    b = torch.randn((8, 64, 80), generator=g, device=cuda).to(dtype)
+    cot = torch.randn((8, 96, 80), generator=g, device=cuda)
+    la, lb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    out = A.bmm_f32(la, lb)
+    assert out.dtype == torch.float32
+    ga, gb = torch.autograd.grad((out * cot).sum(), (la, lb))
+    assert ga.dtype == gb.dtype == dtype
+    ua, ub = a.float().requires_grad_(), b.float().requires_grad_()
+    wa, wb = torch.autograd.grad((torch.bmm(ua, ub) * cot).sum(), (ua, ub))
+    for got, want in ((ga, wa), (gb, wb)):
+        err = (got.float() - want).norm() / want.norm()
+        assert err <= tol, err
+
+
+def test_train_step_on_the_card_launches_no_kernel(cuda):
+    """The yi-9b smoke model trained on the card with the kernel flags on
+    (float32 weights): no hand-written kernel launches, and after two
+    steps the loss and parameters within 1e-4 of the same steps on the
+    CPU."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_smoke
+    from repro_torch.train import (AdamWConfig, TrainConfig,
+                                   init_train_state, make_train_step)
+    from repro_torch.train.optimizer import tree_flatten, tree_map
+    cfg = get_smoke_config("yi-9b")
+    model = build_smoke(cfg, use_flash_kernel=True, remat="dots")
+    state = init_train_state(model, torch.Generator().manual_seed(0), "cpu")
+    on_card = dataclasses.replace(
+        state, params=tree_map(lambda t: t.to(cuda), state.params),
+        opt=dataclasses.replace(
+            state.opt, step=state.opt.step.to(cuda),
+            m=tree_map(lambda t: t.to(cuda), state.opt.m),
+            v=tree_map(lambda t: t.to(cuda), state.opt.v),
+            master=tree_map(lambda t: t.to(cuda), state.opt.master)))
+    step = make_train_step(model, TrainConfig(opt=AdamWConfig(
+        lr_peak=1e-3, warmup_steps=1)))
+    toks = torch.randint(0, cfg.vocab, (2, 129),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = dict(LAUNCHES)
+    for _ in range(2):
+        on_card, m_card = step(on_card, {k: v.to(cuda)
+                                         for k, v in batch.items()})
+        state, m_cpu = step(state, batch)
+    assert dict(LAUNCHES) == before
+    assert abs(float(m_card["loss"]) - float(m_cpu["loss"])) <= 1e-4
+    for (k, a), (_, b) in zip(tree_flatten(on_card.params),
+                              tree_flatten(state.params)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+def test_blockwise_attention_gradients_on_bf16_operands(cuda):
+    """``flash_attention`` where autograd records, on bf16 operands on the
+    card: gradients within 2e-2 (relative L2) of the same path with its
+    products upcast."""
+    from repro_torch.models import attention as A
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((2, 256, 2, 4, 64), generator=g, device=cuda)
+    k, v = (torch.randn((2, 256, 2, 64), generator=g, device=cuda)
+            for _ in range(2))
+    cot = torch.randn(q.shape, generator=g, device=cuda)
+
+    def grads(args):
+        leaves = [x.detach().requires_grad_() for x in args]
+        out = A.flash_attention(*leaves, causal=True, q_block=64,
+                                kv_block=64)
+        return torch.autograd.grad((out.float() * cot).sum(), leaves)
+    got = grads([x.bfloat16() for x in (q, k, v)])
+    want = grads([x.bfloat16().float() for x in (q, k, v)])
+    for a, b in zip(got, want):
+        err = (a.float() - b).norm() / b.norm()
+        assert err <= 2e-2, err

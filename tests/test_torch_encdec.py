@@ -226,7 +226,7 @@ def test_train_forward_matches_jax():
     cfg, jm, jp, tm, tp = _models()
     toks, frames = _inputs(2, 2, 16)
     jx = _japply("train")(jp, _jbatch(toks, frames))[0]
-    tx, tc = tm.apply(tp, _tbatch(toks, frames), mode="train")
+    tx, tc, _ = tm.apply(tp, _tbatch(toks, frames), mode="train")
     assert tc is None
     _close(tx, jx)
     _close(tm.unembed(tp, tx), jm.unembed(jp, jx))

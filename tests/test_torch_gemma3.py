@@ -249,7 +249,7 @@ def test_greedy_decode_past_the_window_matches_jax(models):
     got = TEngine(tm, tp, 2, 44).generate(torch.from_numpy(toks), 25)
     np.testing.assert_array_equal(got.numpy(), want)
     full = torch.cat([torch.from_numpy(toks), got[:, :-1]], dim=1)
-    hidden, _ = tm.apply(tp, {"tokens": full}, mode="train")
+    hidden, _, _ = tm.apply(tp, {"tokens": full}, mode="train")
     fwd = tm.unembed(tp, hidden)[:, 19:].argmax(dim=-1)
     assert torch.equal(fwd.to(torch.int32), got)
 

@@ -45,6 +45,8 @@ def test_importing_the_port_and_chip_smoke_loads_no_jax():
         "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
         "import repro_torch.models.ssm, repro_torch.kernels.ssd\n"
         "import repro_torch.models.encdec, repro_torch.data.pipeline\n"
+        "import repro_torch.train, repro_torch.train.compression\n"
+        "import repro_torch.launch.train, repro_torch.launch.elastic_train\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

@@ -281,7 +281,7 @@ def test_full_forward_matches_jax(arch):
     cfg, jm, jp, japply, tm, tp = _models(arch)
     toks = _tokens(0, (2, 24))
     jx = japply["train"](jp, {"tokens": jnp.asarray(toks)})[0]
-    tx, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="train")
+    tx, _, _ = tm.apply(tp, {"tokens": torch.from_numpy(toks)}, mode="train")
     np.testing.assert_allclose(to_numpy(tx), np.asarray(jx), rtol=1e-4,
                                atol=1e-4)
     np.testing.assert_allclose(to_numpy(tm.unembed(tp, tx)),

@@ -321,7 +321,7 @@ def test_greedy_decode_matches_full_forward():
     toks = torch.from_numpy(_tokens(4, (4, prompt), cfg.vocab))
     out = TEngine(tm, tp, 4, prompt + gen).generate(toks, gen)
     full = torch.cat([toks, out[:, :-1]], dim=1)
-    hidden, _ = tm.apply(tp, {"tokens": full}, mode="train")
+    hidden, _, _ = tm.apply(tp, {"tokens": full}, mode="train")
     want = tm.unembed(tp, hidden)[:, prompt - 1:].argmax(dim=-1)
     assert torch.equal(want.to(torch.int32), out)
 

@@ -81,6 +81,21 @@ the port's main path through the tasking runtime:
     one full-width MoE layer through ``moe_ep`` over four shards sharing
     the card against the dense oracle, without and with dropped
     assignments, in bf16 and float32;
+  * phase 19, run inside phase 14 on its weights and prompts: the same
+    llama4-scout (8 layers, bf16) served by the Engine under
+    ``use_sharding`` of a (1, 4) mesh of four shards of the card, tensor-
+    and expert-parallel: the weights moved onto it leaf by leaf (the card
+    never holds two copies), each shard holding its spec's share (4
+    experts, 10 query heads, 2 kv heads, 50,512 vocabulary rows), 32
+    ``flash_attention`` launches a prefill (8 layers x 4 shards, at the
+    shard's heads q [4, 2048, 2, 5, 128]) and none in decode; the
+    prefill's last logits within 5e-2 relative L2 of phase 14's, where
+    phase 14 drops the assignments ``moe_ep``'s capacity drops and the
+    mesh takes its routes (the routes that differ unpinned printed by
+    layer); greedy tokens against a full forward on the
+    weights moved back to one device (the same pins and drops); prefill
+    ms, decode ms a step, rendezvous a step, each shard's bytes and the
+    card's peak; the allocation back after;
   * whisper-large-v3 (encoder-decoder) at full width and depth (32
     encoder and 32 decoder layers, 3.29 GB bf16): 8 requests of 1500
     seeded frames (the audio frontend a stub, as in the JAX package) and
@@ -106,7 +121,8 @@ the port's main path through the tasking runtime:
     against an uninterrupted 2-shard run. Beside phase 2, ``window_attention`` on bf16
     operands against its products on float32 copies at a gemma3 and a
     recurrentgemma local layer's prefill shapes, both timed; phase 2's
-    flash rows also run at olmoe's and llama4-scout's head layouts.
+    flash rows also run at olmoe's and llama4-scout's head layouts, the
+    latter whole and at one shard of phase 19's mesh.
 
 Launch counters are zeroed just before each main-path run and read just
 after. The second-to-last line is a JSON object with one entry per kernel of
@@ -164,6 +180,14 @@ VISION_SCALE = 0.02
 # does.
 MOE_ARCH, SCOUT_ARCH = "olmoe-1b-7b", "llama4-scout-17b-16e"
 SCOUT_LAYERS, SCOUT_F32_LAYERS = 8, 4
+# phase 19: phase 14's model over a (1, MESH_SHARDS) mesh of shards of the
+# card; its prefill logits against phase 14's, relative L2 (bf16: the
+# row-parallel products sum four partial products where one card sums one,
+# PREFILL_REL_TOL's reason), the shares each shard must hold
+MESH_SHARDS = 4
+MESH_LOGITS_TOL = 5e-2
+MESH_SHARES = {"experts": 4, "q_heads": 10, "kv_heads": 2,
+               "vocab_rows": 50512}
 # phase 15: whisper-large-v3 at full width and depth (32 encoder and 32
 # decoder layers; 3.29 GB bf16, 6.57 GB float32 with the learned positions),
 # 8 requests of 1500 seeded frames at the scale tests/test_arch_smoke.py
@@ -668,7 +692,8 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
     one-pass dispatch off), and the bf16 entry at gemma3-27b's global
     layers, q [2, 4096, 16, 2, 128], and pixtral-12b's, q [4, 2048, 8, 4,
     128], olmoe-1b-7b's, q [4, 2048, 16, 1, 128], and llama4-scout's, q
-    [4, 2048, 8, 5, 128]; each arm also through the GQA entry at
+    [4, 2048, 8, 5, 128], whole and at one shard of phase 19's (1, 4)
+    mesh, q [4, 2048, 2, 5, 128]; each arm also through the GQA entry at
     FLASH_SHAPES, one launch a call. The library yardstick is
     scaled_dot_product_attention on the same, broadcast, heads."""
     F = torch.nn.functional
@@ -714,7 +739,8 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
             (GEMMA_BATCH, GEMMA_PROMPT, 16, 2, 128, "_gemma3"),
             (PIX_BATCH, PIX_PROMPT, 8, 4, 128, "_pixtral"),
             (SERVE_BATCH, SERVE_PROMPT, 16, 1, 128, "_olmoe"),
-            (SERVE_BATCH, SERVE_PROMPT, 8, 5, 128, "_llama4")):
+            (SERVE_BATCH, SERVE_PROMPT, 8, 5, 128, "_llama4"),
+            (SERVE_BATCH, SERVE_PROMPT, 2, 5, 128, "_llama4_shard")):
         bh = b * kh * g
         q = torch.randn((b, s, kh, g, d), generator=gen, device=dev)
         k = torch.randn((b, s, kh, d), generator=gen, device=dev)
@@ -725,7 +751,8 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
             ("flash_attention" + sfx, torch.bfloat16, bf16, FLASH_TOL["bf16"],
              (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain,
              flops))
-        if sfx in ("_gemma3", "_pixtral", "_olmoe", "_llama4"):
+        if sfx in ("_gemma3", "_pixtral", "_olmoe", "_llama4",
+                   "_llama4_shard"):
             continue
         if kh == 1:
             f32_case = ((q, k, v), ops.flash_attention_gqa,
@@ -1398,6 +1425,10 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     if cfg.moe is not None:
         r["trace"]["prefill_moe_parts"] = moe_prefill_parts(eng, tokens,
                                                             extra)
+    if arch == SCOUT_ARCH:
+        # phase 19 takes these weights over (and frees them)
+        r["mesh"] = mesh_phase(ops, model, eng, params, tokens, extra,
+                               steps)
     if trace_name is not None:
         share = r["trace"]["prefill"].get(f"{trace_name}_share_of_busy",
                                           0.0)
@@ -1714,7 +1745,8 @@ def rglru_checks(model32, params32, b: int, s: int) -> dict:
 
 
 def greedy_vs_full_forward(model, params, tokens, extra, out,
-                           routes: Optional[list] = None) -> dict:
+                           routes: Optional[list] = None,
+                           keep_of=None) -> dict:
     """The Engine's greedy tokens ``out`` [B, steps + 1] after ``tokens``
     [B, S] (with the prefill's ``extra`` inputs) against the logits of one
     forward over prompt + tokens (with the same ``extra``): at
@@ -1724,7 +1756,8 @@ def greedy_vs_full_forward(model, params, tokens, extra, out,
     prefill and ``steps`` decode steps that gave ``out`` (``routed``):
     the checked forward takes them (``full_forward_pins``), and the
     forward on its own routing is reported beside it with the positions
-    whose top-k set differs."""
+    whose top-k set differs. ``keep_of`` (``routed``'s) drops, in both
+    forwards, the assignments a mesh's ``moe_ep`` drops (phase 19)."""
     import dataclasses
     from repro_torch.configs import GLOBAL_ATTN
     from repro_torch.models import build_model
@@ -1750,10 +1783,11 @@ def greedy_vs_full_forward(model, params, tokens, extra, out,
         return fwd.unembed(params, hidden[:, s - 1:]).float()  # [B,steps+1,V]
 
     if routes is not None:
-        r["own_routing"] = agreement(logits_of(), out)
+        with routed(keep_of=keep_of):
+            r["own_routing"] = agreement(logits_of(), out)
         pins = full_forward_pins(routes, cfg.n_layers, full.shape[0], s,
                                  n - s)
-        with routed(pins) as rec:
+        with routed(pins, keep_of) as rec:
             logits = logits_of()
         r["routing"] = {"rows_differing_in_top_k": rec["flips"],
                         "rows": rec["rows"],
@@ -1798,7 +1832,7 @@ def agreement(logits: torch.Tensor, out: torch.Tensor) -> dict:
 
 
 @contextlib.contextmanager
-def routed(pins: Optional[list] = None):
+def routed(pins: Optional[list] = None, keep_of=None):
     """While open, every MoE routing call (``models.moe._route``) is
     recorded in call order: the dict yielded lists each call's expert
     indices under ``idx``. With ``pins`` (index tensors in the same call
@@ -1809,7 +1843,10 @@ def routed(pins: Optional[list] = None):
     differs between two paths moves a router logit by about 1e-3, enough
     to reorder two near-tied experts; a check between the paths pins one
     to the other's experts so that it measures the paths, not the
-    flip."""
+    flip. ``keep_of(idx)`` (a bool mask of a call's experts, pinned or
+    its own) zeroes the weight of each assignment it marks False: the
+    ones a mesh's ``moe_ep`` drops, so that the dense path computes
+    ``dense_with_drops``."""
     from repro_torch.models import moe as M
     route = M._route
     rec = {"idx": [], "flips": 0, "rows": 0, "flips_by_call": []}
@@ -1824,6 +1861,8 @@ def routed(pins: Optional[list] = None):
             rec["rows"] += idx.shape[0]
             w = torch.softmax(x.float() @ router_w, dim=-1).gather(-1, pin)
             w, idx = w / w.sum(-1, keepdim=True).clamp_min(1e-9), pin
+        if keep_of is not None:
+            w = w * keep_of(idx)
         rec["idx"].append(idx)
         return w, idx, aux
 
@@ -1832,6 +1871,302 @@ def routed(pins: Optional[list] = None):
         yield rec
     finally:
         M._route = route
+
+
+def capacity_keep(idx: torch.Tensor, gid: torch.Tensor, mcfg,
+                  cf: float = 1.25) -> torch.Tensor:
+    """Which assignments ``idx`` [T, k] ``moe_ep``'s capacity rule keeps
+    when the tokens of each group ``gid`` [T] (one shard's routing call)
+    are routed together: those whose slot (earlier assignments in the
+    group, in token then k order, to the same expert) lies below the
+    capacity of the group's size (``dense_with_drops``'s rule)."""
+    from repro_torch.models import moe as M
+    keep = torch.empty(idx.shape, dtype=torch.bool, device=idx.device)
+    for g in gid.unique().tolist():
+        rows = (gid == g).nonzero()[:, 0]
+        flat = idx[rows].reshape(-1)
+        slot = (torch.nn.functional.one_hot(flat, mcfg.num_experts)
+                .cumsum(0) - 1).gather(1, flat[:, None]).view(len(rows), -1)
+        keep[rows] = slot < M.capacity(len(rows), mcfg, cf)
+    return keep
+
+
+def routing_groups(b: int, s: int, tp: int, steps: int, device
+                   ) -> torch.Tensor:
+    """The routing call each row of a [B, S + steps] forward (b-major)
+    belongs to in a prefill of S and ``steps`` decode steps over ``tp``
+    model shards: slice ``t // (S / tp)`` of the prompt, then one call a
+    step (every shard routes all B tokens of a step)."""
+    t = torch.arange(s + steps, device=device)
+    g = torch.where(t < s, t // (s // tp), tp + t - s)
+    return g.repeat(b)
+
+
+@contextlib.contextmanager
+def mesh_routes(b: int, s: int, tp: int, pins: Optional[list] = None):
+    """``routed`` for a model served over a mesh of ``tp`` model shards:
+    each shard's routing calls (in its own thread) recorded in its own
+    list, and with ``pins`` (a one-device prefill's calls, [B*S, k] each)
+    each shard's prefill call takes its slice of S of them. ``flips``
+    counts, per shard and call, the rows whose own top-k set differs from
+    the pinned one."""
+    from repro_torch.distributed import spmd
+    from repro_torch.models import moe as M
+    route = M._route
+    rec = {"by_shard": [[] for _ in range(tp)],
+           "flips": [[] for _ in range(tp)]}
+
+    def call(router_w, x, mcfg):
+        w, idx, aux = route(router_w, x, mcfg)
+        m = spmd.axis_index("model")
+        mine = rec["by_shard"][m]
+        if pins is not None:
+            sl = s // tp
+            pin = pins[len(mine)].view(b, s, -1)[:, m * sl:(m + 1) * sl] \
+                .reshape(idx.shape).to(idx.device)
+            rec["flips"][m].append(int((idx.sort(-1).values
+                                        != pin.sort(-1).values).any(-1)
+                                       .sum()))
+            w = torch.softmax(x.float() @ router_w, dim=-1).gather(-1, pin)
+            w, idx = w / w.sum(-1, keepdim=True).clamp_min(1e-9), pin
+        mine.append(idx)
+        return w, idx, aux
+
+    M._route = call
+    try:
+        yield rec
+    finally:
+        M._route = route
+
+
+def mesh_call_routes(rec: dict, n_layers: int, b: int, s: int,
+                     steps: int) -> list:
+    """``mesh_routes``' record of a prefill and ``steps`` decode steps as
+    one device's calls (``routed``'s ``idx``): each prefill call the
+    shards' slices joined along S, each decode call shard 0's (every
+    shard routes all tokens of a step, the same way)."""
+    shards = rec["by_shard"]
+    tp = len(shards)
+    check(all(len(x) == n_layers * (1 + steps) for x in shards),
+          f"mesh routing calls {[len(x) for x in shards]}, not "
+          f"{n_layers} x {1 + steps} a shard")
+    dev = shards[0][0].device
+    out = [torch.cat([shards[m][i].view(b, s // tp, -1).to(dev)
+                      for m in range(tp)], dim=1).reshape(b * s, -1)
+           for i in range(n_layers)]
+    for i in range(n_layers, n_layers * (1 + steps)):
+        check(all(torch.equal(shards[m][i].to(dev), shards[0][i])
+                  for m in range(tp)), "decode routing differs by shard")
+        out.append(shards[0][i])
+    return out
+
+
+def take_tree(module) -> dict:
+    """A ``ParamTree``'s weights as a nested dict, taken out of it: the
+    module holds none of them afterwards."""
+    out = {}
+    for k in list(module._parameters):
+        out[k] = module._parameters.pop(k).detach()
+    for k, m in list(module._modules.items()):
+        out[k] = take_tree(m)
+    return out
+
+
+def gather_tree(tree: dict) -> dict:
+    """A nested dict of ``Sharded`` gathered onto one device leaf by
+    leaf, each placed leaf dropped from ``tree`` as it goes."""
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        out[k] = gather_tree(v) if isinstance(v, dict) else v.full()
+        del v
+    return out
+
+
+def mesh_phase(ops, model, eng, params, tokens, extra, steps: int) -> dict:
+    """Phase 19: phase 14's llama4-scout (8 layers, bf16; ``eng`` its
+    one-device Engine on ``params``) served over a (1, MESH_SHARDS) mesh
+    of shards of the card, tensor- and expert-parallel.
+
+    The reference first: phase 14's prefill with the assignments
+    ``moe_ep`` drops on the mesh (capacity 1.25 over each shard's slice of
+    the prompt) zeroed layer by layer, as its own routes give them, and
+    those routes recorded; then again pinned to them: its last logits.
+    Both sides then route hidden states with the same drops, so a route
+    that differs (counted per layer) comes from rounding alone. The weights then move onto the mesh leaf by leaf
+    (``spmd.place``, consuming the one-device tree) and each shard's share
+    is checked. The main path: the mesh Engine's prefill and 32 decode
+    steps, the counters zeroed before and read after (``flash_attention``
+    once a layer and shard in the prefill, nothing in decode). The
+    prefill's logits, pinned to the reference's routes, within
+    MESH_LOGITS_TOL of the reference's. The main run's tokens again with
+    the mesh's routes recorded; the weights gathered back to one device
+    and the greedy tokens held to a full forward with those routes and
+    drops. The allocation must come back to what it was less the weights
+    the phase took over."""
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import make_smoke_mesh, param_specs
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models.sharding import use_sharding
+    cfg, mcfg = model.cfg, model.cfg.moe
+    b, s = tokens.shape
+    tp, dev = MESH_SHARDS, tokens.device
+    gc.collect()
+    mem0 = allocated_without_workspaces()
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    r = {"mesh": {"data": 1, "model": tp}, "devices": f"{tp} shards of "
+         f"{dev}", "layers": cfg.n_layers, "batch": b, "prompt": s,
+         "decode_steps": steps}
+
+    # -- the reference: phase 14's prefill with the mesh's drops, pinned --
+    keep = functools.partial(capacity_keep,
+                             gid=routing_groups(b, s, tp, 0, dev), mcfg=mcfg)
+    with routed(keep_of=keep) as rec:
+        eng.prefill(tokens, extra)
+    pins = rec["idx"]
+    r["dropped_in_prefill"] = sum(int((~keep(p)).sum()) for p in pins)
+    with routed(pins, keep):
+        want = eng.prefill(tokens, extra, logits=True)[2]
+    want = want.float()
+    del rec
+
+    # -- the weights onto the mesh, leaf by leaf --
+    mesh = make_smoke_mesh(1, tp, devices=[dev] * tp)
+    tree = take_tree(params)
+    t0 = time.perf_counter()
+    placed = spmd.place(tree, param_specs(tree, model.axes(), mesh),
+                        consume=True)
+    torch.cuda.synchronize()
+    r["place_s"] = time.perf_counter() - t0
+    del tree
+    r.update(shard_shares(placed, tp))
+    check(r["shard_shares"] == MESH_SHARES, f"phase 19: a shard holds "
+          f"{r['shard_shares']}, not {MESH_SHARES}")
+    r["weights_gb"] = weights / 1e9
+    r["allocated_after_place_gb"] = torch.cuda.memory_allocated() / 1e9
+
+    with use_sharding(mesh):
+        meng = Engine(model, placed, b, s + steps)
+        check(meng.params is placed or all(
+            a is c for (_, a), (_, c) in zip(_sharded_leaves(meng.params),
+                                             _sharded_leaves(placed))),
+              "phase 19: the Engine placed the placed weights again")
+        with counted_rendezvous() as count:          # warm-up, not counted
+            nxt, cache = meng.prefill(tokens, extra)
+        r["rendezvous_per_prefill"] = count[0]
+        with counted_rendezvous() as count:
+            meng.decode(cache, nxt, s, 2)
+        r["rendezvous_per_decode_step"] = count[0] / 2
+        del nxt, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # -- the main path: prefill + decode, counters around it --
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        nxt, cache = meng.prefill(tokens, extra)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r["launches_in_prefill"] = dict(ops.LAUNCHES)
+        rest = meng.decode(cache, nxt, s, steps)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        r["launches"] = dict(ops.LAUNCHES)
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["cache_gb_per_shard"] = sum(
+            t.shards[0].numel() * t.shards[0].element_size()
+            for _, t in _sharded_leaves(cache)) / 1e9
+        r["prefill_ms"] = (t1 - t0) * 1e3
+        r["prefill_tok_s"] = b * s / (t1 - t0)
+        r["decode_ms_per_step"] = (t2 - t1) * 1e3 / steps
+        r["decode_tok_s"] = b * steps / (t2 - t1)
+        out = torch.cat([nxt, rest], dim=1)
+        del cache, rest
+        n_flash = cfg.n_layers * tp
+        check(r["launches_in_prefill"]["flash_attention"] == n_flash
+              == r["launches"]["flash_attention"]
+              and sum(r["launches"].values()) == n_flash,
+              f"phase 19 launched {r['launches']} ({r['launches_in_prefill']}"
+              f" in the prefill), not flash_attention {n_flash} times, all "
+              f"in the prefill")
+        check(out.shape == (b, steps + 1) and bool(
+            ((out >= 0) & (out < cfg.vocab)).all()), "phase 19: tokens out "
+              "of range")
+
+        # -- the prefill's logits against phase 14's --
+        with mesh_routes(b, s, tp, pins) as mrec:
+            got = meng.prefill(tokens, extra, logits=True)[2]
+        got = got.float()
+        rel = ((got - want).norm() / want.norm()).item()
+        flips = [sum(mrec["flips"][m][i] for m in range(tp))
+                 for i in range(cfg.n_layers)]
+        r["prefill_logits_vs_phase14"] = {
+            "rel_l2": rel, "tol": MESH_LOGITS_TOL,
+            "rows_whose_own_top_k_differs_from_the_pins": sum(flips),
+            "of_rows": b * s * cfg.n_layers,
+            "differing_rows_by_layer": flips,
+            "argmax_equal": (got.argmax(-1) == want.argmax(-1)).float()
+            .mean().item()}
+        check(bool(torch.isfinite(got).all()), "phase 19: non-finite logits")
+        check(rel <= MESH_LOGITS_TOL, f"phase 19: prefill logits {rel} "
+              f"(relative L2) from phase 14's, above {MESH_LOGITS_TOL}")
+        own = meng.prefill(tokens, extra, logits=True)[2]
+        r["prefill_logits_vs_phase14"]["rel_l2_unpinned"] = (
+            (own.float() - want).norm() / want.norm()).item()
+        del got, own, want, mrec
+
+        # -- the main run's tokens again, the mesh's routes recorded --
+        with mesh_routes(b, s, tp) as mrec:
+            again = meng.generate(tokens, steps + 1, extra)
+        check(torch.equal(again, out), "phase 19: a second greedy run gave "
+              "other tokens")
+        routes = mesh_call_routes(mrec, cfg.n_layers, b, s, steps)
+        del meng, mrec, again
+
+    # -- greedy against a full forward, the weights back on one device --
+    back = gather_tree(placed)
+    del placed, mesh
+    keep = functools.partial(
+        capacity_keep, gid=routing_groups(b, s, tp, steps, dev), mcfg=mcfg)
+    pins_full = full_forward_pins(routes, cfg.n_layers, b, s, steps)
+    r["dropped_in_served_run"] = sum(int((~keep(p)).sum())
+                                     for p in pins_full)
+    r["greedy_vs_full_forward"] = greedy_vs_full_forward(
+        model, back, tokens, extra, out, routes, keep)
+    del back, routes, pins_full, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = allocated_without_workspaces()
+    r.update(allocated_at_start_mb=mem0 / 2**20,
+             allocated_at_end_mb=mem1 / 2**20,
+             weights_taken_over_mb=weights / 2**20)
+    check(abs(mem1 - (mem0 - weights)) <= MEMORY_SLACK,
+          f"phase 19: {mem1} B allocated after, {mem0} B before with "
+          f"{weights} B of weights taken over")
+    return r
+
+
+def shard_shares(placed: dict, tp: int) -> dict:
+    """What shard 0 of a placed llama4-scout holds (experts, query and kv
+    heads, vocabulary rows) and each shard's bytes of weights."""
+    lay = placed["layers"]
+    return {"shard_shares": {
+        "experts": lay["moe"]["wi"].shards[0].shape[1],
+        "q_heads": lay["attn"]["wq"].shards[0].shape[-2],
+        "kv_heads": lay["attn"]["wk"].shards[0].shape[-2],
+        "vocab_rows": placed["embed"].shards[0].shape[0]},
+        "shard_weights_gb": [sum(
+            t.shards[i].numel() * t.shards[i].element_size()
+            for _, t in _sharded_leaves(placed)) / 1e9 for i in range(tp)]}
+
+
+def _sharded_leaves(tree: dict, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _sharded_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
 
 
 def full_forward_pins(routes: list, n_layers: int, b: int, s: int,
@@ -3129,7 +3464,12 @@ def main() -> int:
     # -- phase 14: llama4-scout-17b-16e at full width, 8 of 48 layers ----
     scout = serve_phase(ops, Runtime, RuntimeConfig, 14)
     scout["ep"] = ep_check(SCOUT_ARCH)
+    # -- phase 19 (run inside phase 14, on its weights): the same model
+    # served over a (1, 4) mesh of shards of the card --------------------
+    mesh_scout = scout.pop("mesh")
     print(f"serve llama4-scout ({card}): " + json.dumps(scout))
+    print(f"serve llama4-scout on a (1, {MESH_SHARDS}) mesh, phase 19 "
+          f"({card}): " + json.dumps(mesh_scout))
 
     # -- phase 15: whisper-large-v3 at full width and depth --------------
     whisper = serve_phase(ops, Runtime, RuntimeConfig, 15)

@@ -5,7 +5,11 @@ operands, hetero-object values) into and out of torch tensors with the
 dtype mapped both ways. ``lm_from_jax`` and ``cache_from_jax`` carry the
 JAX package's model weights and caches (KV, SSD and RG-LRU conv and state,
 or the encoder-decoder's self and cross KV), handed over as trees of numpy
-arrays, into the port's layout; ``train_state_from_jax`` a JAX
+arrays, into the port's layout (``lm_tree_from_jax`` and
+``cache_tree_from_jax`` map any leaves so: logical axes, shardings), and
+``lm_placed_from_jax`` places such weights onto a mesh
+(``distributed.spmd.place`` by ``launch.mesh.param_specs``);
+``train_state_from_jax`` a JAX
 ``TrainState`` (weights, AdamW moments and master, step, error-feedback
 residuals), and ``train_state_to_numpy`` the port's back to numpy.
 
@@ -151,13 +155,13 @@ def _moe_ported(moe) -> bool:
         "shared" not in moe or set(moe["shared"]) in _MLP_KEYS)
 
 
-def _conv(node, device):
+def _map(node, fn):
     if isinstance(node, dict):
-        return {k: _conv(v, device) for k, v in node.items()}
-    return to_torch(np.asarray(node), device)
+        return {k: _map(v, fn) for k, v in node.items()}
+    return fn(node)
 
 
-def _encdec_from_jax(tree: dict, device):
+def _encdec_from_jax(tree: dict, fn):
     """The encoder-decoder's tree, checked against its layout; its leaves
     map one to one (the stacks keep their leading layer axis)."""
     for stack, keys in _ENCDEC_STACKS.items():
@@ -168,7 +172,47 @@ def _encdec_from_jax(tree: dict, device):
             raise NotImplementedError(
                 f"{stack} layout {sorted(block)} is not ported; the port "
                 f"runs {sorted(keys)} (see ROADMAP.md)")
-    return _conv(tree, device)
+    return _map(tree, fn)
+
+
+def lm_tree_from_jax(tree: dict, fn=lambda leaf: leaf) -> dict:
+    """A JAX parameter-shaped tree (weights, logical axes, shardings) in
+    the port's layout (``lm_from_jax``'s mapping), each leaf ``fn(leaf)``:
+    a nested dict."""
+    from repro_torch.models.transformer import put_path
+    if set(tree) == _ENCDEC_KEYS:
+        return _encdec_from_jax(tree, fn)
+    extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"}
+                   - {k for k in tree if k.startswith("rem_")})
+    if extra:
+        raise NotImplementedError(
+            f"parameters {extra} are not ported (see ROADMAP.md)")
+    params = {k: _map(tree[k], fn)
+              for k in ("embed", "final_norm", "unembed") if k in tree}
+    for path, block in _blocks_of(tree, _BLOCK_KEYS, "block",
+                                  cache=False).items():
+        put_path(params, path, _map(block, fn))
+    return params
+
+
+def cache_tree_from_jax(tree: dict, fn=lambda leaf: leaf) -> dict:
+    """A JAX cache-shaped tree in the port's layout (``cache_from_jax``'s
+    mapping), each leaf ``fn(leaf)``."""
+    from repro_torch.models.transformer import put_path
+    dec = tree.get("decoder")
+    if set(tree) == {"decoder"} and isinstance(dec, dict) \
+            and set(dec) == {"self", "cross"} \
+            and all(set(dec[k]) == {"k", "v"} for k in dec):
+        return _map(tree, fn)
+    out: dict = {}
+    for path, block in _blocks_of(tree, _CACHE_KEYS, "cache",
+                                  cache=True).items():
+        put_path(out, path, _map(block, fn))
+    return out
+
+
+def _tensor(device):
+    return lambda leaf: to_torch(np.asarray(leaf), device)
 
 
 def lm_from_jax(tree: dict, device="cpu"):
@@ -191,20 +235,20 @@ def lm_from_jax(tree: dict, device="cpu"):
     layouts map one to one; values keep their dtype (float32 leaves, the
     norms and the MoE router among them, stay float32 under bf16
     weights)."""
-    from repro_torch.models.transformer import ParamTree, put_path
-    if set(tree) == _ENCDEC_KEYS:
-        return ParamTree(_encdec_from_jax(tree, device))
-    extra = sorted(set(tree) - {"embed", "final_norm", "unembed", "periods"}
-                   - {k for k in tree if k.startswith("rem_")})
-    if extra:
-        raise NotImplementedError(
-            f"parameters {extra} are not ported (see ROADMAP.md)")
-    params = {k: _conv(tree[k], device)
-              for k in ("embed", "final_norm", "unembed") if k in tree}
-    for path, block in _blocks_of(tree, _BLOCK_KEYS, "block",
-                                  cache=False).items():
-        put_path(params, path, _conv(block, device))
-    return ParamTree(params)
+    from repro_torch.models.transformer import ParamTree
+    return ParamTree(lm_tree_from_jax(tree, _tensor(device)))
+
+
+def lm_placed_from_jax(tree: dict, model, mesh):
+    """The JAX package's weights (``lm_from_jax``'s input) placed on
+    ``mesh`` by ``launch.mesh.param_specs`` of ``model.axes()``: a nested
+    dict of ``spmd.Sharded``, each leaf moved onto the shards' devices
+    from the host one at a time."""
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import param_specs
+    params = lm_tree_from_jax(tree, _tensor("cpu"))
+    return spmd.place(params, param_specs(params, model.axes(), mesh),
+                      consume=True)
 
 
 def cache_from_jax(tree: dict, device="cpu") -> dict:
@@ -217,17 +261,7 @@ def cache_from_jax(tree: dict, device="cpu") -> dict:
     the leading period axis under ``periods``). An encoder-decoder's
     ``{"decoder": {"self": {"k", "v"}, "cross": {"k", "v"}}}`` crosses as it
     is. Values keep their dtype."""
-    from repro_torch.models.transformer import put_path
-    dec = tree.get("decoder")
-    if set(tree) == {"decoder"} and isinstance(dec, dict) \
-            and set(dec) == {"self", "cross"} \
-            and all(set(dec[k]) == {"k", "v"} for k in dec):
-        return _conv(tree, device)
-    out: dict = {}
-    for path, block in _blocks_of(tree, _CACHE_KEYS, "cache",
-                                  cache=True).items():
-        put_path(out, path, _conv(block, device))
-    return out
+    return cache_tree_from_jax(tree, _tensor(device))
 
 
 def _plain(tree: dict, device) -> dict:

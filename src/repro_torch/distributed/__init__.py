@@ -22,5 +22,6 @@ from repro_torch.distributed.mobile_object import (MobileObject,  # noqa: F401
 from repro_torch.distributed.overdecomp import (Chunk,  # noqa: F401
                                                 DecompPlan, microbatch_plan,
                                                 plan_decomposition)
-from repro_torch.distributed.spmd import (P, Mesh, Sharded,  # noqa: F401
-                                          device_put, shard_map)
+from repro_torch.distributed.spmd import (P, Mesh,  # noqa: F401
+                                          NamedSharding, Sharded,
+                                          device_put, place, shard_map)

@@ -35,6 +35,7 @@ lineage record still references the object.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -391,6 +392,29 @@ class ElasticRuntime:
                 # ones carry the new epoch for forensics
                 r.runtime.lineage.bump_epoch()
 
+    @contextlib.contextmanager
+    def _world_change(self, dead: Sequence[int] = ()):
+        """A world change commits whole or not at all. Where it raises, the
+        owner map and the workers' health go back to what they were
+        (``dead``, the workers a failed recovery declared dead, count as
+        alive again, so that the next poll retries), and the epoch stays.
+        The monitor thread swallows a poll's exception: without this, a
+        recovery that found no copy of a lost chunk (a worker declared dead
+        before its first replica or checkpoint) left the owner map pointing
+        at a rank that never received the chunk under an unchanged epoch,
+        and the caller's next phase looked for the chunk there."""
+        owners = self.owner.snapshot()
+        health = dict(self.controller.health)
+        alive = {w: h.alive for w, h in health.items()}
+        try:
+            yield
+        except BaseException:
+            self.owner.restore(owners)
+            self.controller.health = health
+            for w, h in health.items():
+                h.alive = alive[w] or w in dead
+            raise
+
     def _alive_ranks(self, exclude: Sequence[int] = ()) -> List[Any]:
         alive = set(self.controller.alive_workers()) - set(exclude)
         return [r for r in self.cluster.ranks if r.rank in alive]
@@ -412,26 +436,26 @@ class ElasticRuntime:
         (another rank already registered the key), else from
         ``restore_fn`` (checkpoint) — streamed to its new owner. The
         monitor rank's ``recovery_stall_s`` records the full detect-side
-        stall; ``epoch`` bumps once everything landed."""
-        with self._lock:
+        stall; ``epoch`` bumps once everything landed. Every lost chunk's
+        source is found before anything moves; where one has none, the
+        world stays as it was (``_world_change``) and this raises."""
+        with self._lock, self._world_change(dead):
             t0 = self.clock()
             for d in dead:
                 if d in self.controller.health:
                     self.controller.health[d].alive = False
             survivors = self._alive_ranks()
-            for d in dead:
-                for r in survivors:
-                    r.remove_peer(d)
             plan = self.controller.shrink_plan(self.owner, dead)
             mon = self.cluster.ranks[self.monitor]
+            moves = []      # (src rank, new owner, key, object, oid, drop)
             for oid, old, new in plan:
                 key = self.key_fn(oid)
                 replica = next((r for r in survivors if key in r.objects),
                                None)
                 if replica is not None:
                     if replica.rank != new:
-                        self._migrate(replica, new, key,
-                                      replica.objects[key], oid)
+                        moves.append((replica, new, key,
+                                      replica.objects[key], oid, True))
                     continue
                 # no surviving replica: checkpoint first, then lineage
                 # recompute (the checkpoint itself may be corrupted or
@@ -453,8 +477,13 @@ class ElasticRuntime:
                         "replica, no restorable checkpoint "
                         f"({restore_err!r}), and no recompute_fn "
                         "configured") from restore_err
-                obj = mon.runtime.hetero_object(arr)
-                self._migrate(mon, new, key, obj, oid, drop_src=False)
+                moves.append((mon, new, key, mon.runtime.hetero_object(arr),
+                              oid, False))
+            for d in dead:
+                for r in survivors:
+                    r.remove_peer(d)
+            for src, new, key, obj, oid, drop in moves:
+                self._migrate(src, new, key, obj, oid, drop_src=drop)
             self.quiesce()
             stall = self.clock() - t0
             mon.stats["recovery_stall_s"] += stall
@@ -471,7 +500,7 @@ class ElasticRuntime:
         chunk streams from the straggler to its new owner as a rendezvous
         stream WHILE the straggler keeps computing its remaining chunks —
         the paper's over-decomposition argument made operational."""
-        with self._lock:
+        with self._lock, self._world_change():
             if max_moves is None:
                 owned = len(self.owner.owned_by(straggler))
                 max_moves = max(1, owned // 2)
@@ -508,7 +537,7 @@ class ElasticRuntime:
         """A rank (re)joined: sweep its stale protocol state, fold it back
         into the health set, and rebalance chunks onto it with live
         migrations from their current owners."""
-        with self._lock:
+        with self._lock, self._world_change():
             for w in new_workers:
                 r = self.cluster.ranks[w]
                 r.reset_peer_state()

@@ -72,6 +72,15 @@ class OwnerMap:
             self._hints[oid] = device_hint
         self.version += 1
 
+    def snapshot(self) -> Tuple[Dict[int, int], Dict[int, int]]:
+        """The owners and device hints, for ``restore``."""
+        return dict(self._owner), dict(self._hints)
+
+    def restore(self, snap: Tuple[Dict[int, int], Dict[int, int]]) -> None:
+        """Put back the owners and hints of a ``snapshot``."""
+        self._owner, self._hints = dict(snap[0]), dict(snap[1])
+        self.version += 1
+
     def owned_by(self, rank: int) -> List[int]:
         return [o for o, r in self._owner.items() if r == rank]
 

@@ -12,6 +12,12 @@ joins). Each shard's ``fn`` runs in its own thread, with its mesh
 coordinates bound thread-locally, so the body calls the collectives with
 JAX's signatures (``ppermute(x, axis_name, perm)``). The threads are the
 mesh's own, started at its first ``shard_map`` and kept for its life.
+They take turns (``_Group``): one issues work at a time, from one
+collective to the next, in shard order, so that they never contend for
+the interpreter. On CUDA shards the work runs on the devices' streams,
+concurrently all the same; CPU shards compute as they issue, so a CPU
+mesh runs its shards' work one after another (each op still spread over
+the host's cores by torch's own threads).
 
 Ordering on a card. Each shard has one CUDA stream of its own, made with
 the mesh, and runs its body on it. A collective is a rendezvous of the
@@ -30,6 +36,13 @@ Specs. ``P`` stands for ``PartitionSpec``: one entry per leading dim, each
 ``in_specs`` is one ``P`` (one argument) or a tuple of them, and likewise
 ``out_specs`` for the body's results. An output replicated along an axis
 is taken from the shard at coordinate 0 of it.
+
+Placement. ``NamedSharding`` pairs a mesh with a spec; ``place`` puts a
+whole tree of tensors onto a mesh by a matching tree of them, leaf by leaf
+(``launch.mesh.param_specs`` / ``cache_specs`` build the trees), ``zeros``
+makes a laid-out zero value (a cache), and ``reshard`` lays a ``Sharded``
+value out anew (``models.sharding.constrain``). ``shard_map`` takes a
+placed leaf as it is. ``current_mesh`` tells a body it runs in one.
 """
 from __future__ import annotations
 
@@ -191,13 +204,9 @@ class Sharded:
         return out
 
 
-def device_put(x: torch.Tensor, mesh: Mesh, spec: P) -> Sharded:
-    """``x`` split over ``mesh`` under ``spec``, each block on its shard's
-    device (a view where ``x`` already lies there)."""
-    _check_spec(mesh, spec, x.dim())
-    shards = []
-    for i, dev in enumerate(mesh.devices):
-        shards.append(x[_blocks(mesh, spec, i, x.shape)].to(dev))
+def _recorded(mesh: Mesh, spec: P, shards: List[torch.Tensor]) -> Sharded:
+    """``shards``, written on their devices' current streams, as a
+    ``Sharded`` whose events follow those writes."""
     events = []
     for dev, stream, t in zip(mesh.devices, mesh.streams, shards):
         if stream is None:
@@ -208,6 +217,125 @@ def device_put(x: torch.Tensor, mesh: Mesh, spec: P) -> Sharded:
         t.record_stream(stream)
         events.append(ev)
     return Sharded(mesh, spec, shards, events)
+
+
+def device_put(x: torch.Tensor, mesh: Mesh, spec: P) -> Sharded:
+    """``x`` split over ``mesh`` under ``spec``, each block on its shard's
+    device (a view where ``x`` already lies there)."""
+    _check_spec(mesh, spec, x.dim())
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        shards.append(x[_blocks(mesh, spec, i, x.shape)].to(dev))
+    return _recorded(mesh, spec, shards)
+
+
+class NamedSharding:
+    """A mesh and a spec (``jax.sharding.NamedSharding``): how a global
+    value of some shape lies over the mesh's shards."""
+
+    def __init__(self, mesh: Mesh, spec: P):
+        self.mesh, self.spec = mesh, spec
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of each shard's block of a value of ``shape``."""
+        region = _blocks(self.mesh, self.spec, 0, shape)
+        return tuple(r.stop - r.start for r in region) + tuple(
+            shape[len(region):])
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, NamedSharding) and \
+            other.mesh is self.mesh and tuple(other.spec) == tuple(self.spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def _block_of(x: torch.Tensor, region: Tuple[slice, ...], device,
+              share: bool) -> torch.Tensor:
+    """Shard's block ``x[region]`` on ``device``: ``x`` itself where the
+    region is all of it, it lies there and ``share`` allows; else a
+    contiguous copy of its own, a stacked block (three dims or more)
+    copied one leading slice at a time, so that no temporary is larger
+    than one slice."""
+    device = torch.device(device)
+    whole = all(r.start == 0 and r.stop == n
+                for r, n in zip(region, x.shape))
+    if whole and share and x.device == device:
+        return x
+    src = x[region]
+    out = torch.empty(src.shape, dtype=x.dtype, device=device)
+    for dst, part in ((out, src),) if src.dim() < 3 else zip(out, src):
+        dst.copy_(part)
+    return out
+
+
+def place(tree, shardings, *, consume: bool = False):
+    """A nested dict of tensors put on a mesh leaf by leaf, by the
+    matching tree of ``NamedSharding`` (``launch.mesh.param_specs``): a
+    nested dict of ``Sharded``. A leaf the spec splits gives each shard a
+    contiguous copy of its block; a replicated one is shared by the shards
+    on its own device and copied to the others. A stacked leaf is copied
+    one leading slice at a time (``_block_of``). With ``consume`` each
+    leaf is dropped from ``tree`` as soon as it is placed, so that the
+    source and the placed tree are never both whole on a device. A leaf
+    that is already ``Sharded`` with its sharding stays as it is."""
+    out = {}
+    for key in list(tree):
+        leaf, sh = tree[key], shardings[key]
+        if isinstance(leaf, dict):
+            out[key] = place(leaf, sh, consume=consume)
+        elif isinstance(leaf, Sharded) and leaf.mesh is sh.mesh \
+                and tuple(leaf.spec) == tuple(sh.spec):
+            out[key] = leaf
+        else:
+            if isinstance(leaf, Sharded):
+                leaf = leaf.full()
+            leaf = leaf.detach()
+            _check_spec(sh.mesh, sh.spec, leaf.dim())
+            out[key] = _recorded(sh.mesh, sh.spec, [
+                _block_of(leaf, _blocks(sh.mesh, sh.spec, i, leaf.shape),
+                          dev, share=True)
+                for i, dev in enumerate(sh.mesh.devices)])
+        if consume:
+            del tree[key]
+        del leaf
+    return out
+
+
+def zeros(shape: Sequence[int], dtype: torch.dtype,
+          sharding: NamedSharding) -> Sharded:
+    """A zero value of ``shape`` laid out by ``sharding``, every shard's
+    block a tensor of its own (replicas too: each shard writes its own)."""
+    mesh, spec = sharding.mesh, sharding.spec
+    _check_spec(mesh, spec, len(shape))
+    local = sharding.shard_shape(shape)
+    return _recorded(mesh, spec, [torch.zeros(local, dtype=dtype, device=d)
+                                  for d in mesh.devices])
+
+
+def reshard(x: Sharded, spec: P) -> Sharded:
+    """``x`` laid out by ``spec`` over its mesh, its value unchanged. Where
+    each shard's new block lies inside its old one (the spec adds an axis,
+    or keeps them) the shard slices what it holds; otherwise (the spec
+    drops or moves an axis) the value is gathered and split again."""
+    mesh = x.mesh
+    _check_spec(mesh, spec, len(x.shape))
+    if tuple(spec) == tuple(x.spec):
+        return x
+    shards = []
+    for i, t in enumerate(x.shards):
+        old = _blocks(mesh, x.spec, i, x.shape)
+        new = _blocks(mesh, spec, i, x.shape)
+        old = old + tuple(slice(0, n) for n in x.shape[len(old):])
+        new = new + tuple(slice(0, n) for n in x.shape[len(new):])
+        if any(n.start < o.start or n.stop > o.stop
+               for o, n in zip(old, new)):
+            return device_put(x.full(), mesh, spec)
+        if x.events[i] is not None:
+            torch.cuda.current_stream(t.device).wait_event(x.events[i])
+        shards.append(t[tuple(slice(n.start - o.start, n.stop - o.start)
+                              for o, n in zip(old, new))])
+    return _recorded(mesh, spec, shards)
 
 
 # ---------------------------------------------------------------------------
@@ -261,16 +389,62 @@ class _Workers:
 
 
 class _Group:
-    """The rendezvous of one ``shard_map`` call's shards. Collective ``k``
-    posts into ``slots[k % 2]``: a shard can post collective ``k + 2`` only
-    after every shard has passed collective ``k + 1``'s barrier, hence
-    after every shard has read what ``k`` posted."""
+    """The rendezvous of one ``shard_map`` call's shards, which take turns:
+    one shard's thread runs at a time, from one collective to the next,
+    then hands the turn to the next shard in index order (``step``). So the
+    shards never contend for the interpreter (each torch call releases and
+    retakes it; four threads doing so at once cost several times the
+    call), while CUDA shards' streams still run concurrently (CPU shards,
+    which compute as they issue, run one after another). When a shard has
+    the turn back after posting collective ``k``, every shard
+    has posted ``k``. Collective ``k`` posts into ``slots[k % 2]``: a shard
+    can post ``k + 2`` only after the others have passed ``k + 1``, hence
+    read ``k``."""
 
     def __init__(self, n: int):
-        # a body that skips a collective its peers make leaves them
-        # waiting: they fail after the timeout instead of hanging
-        self.barrier = threading.Barrier(n, timeout=COLLECTIVE_TIMEOUT_S)
+        self.n = n
         self.slots = [[None] * n, [None] * n]
+        self.calls = [0] * n          # collectives each shard has posted
+        self.done = [False] * n
+        self.broken = False
+        # only the shard holding the turn changes the state below
+        self._go = [threading.Semaphore(0) for _ in range(n)]
+        self._go[0].release()
+
+    def wait_turn(self, i: int) -> None:
+        # a peer that never hands the turn on fails the others after the
+        # timeout instead of hanging them
+        if not self._go[i].acquire(timeout=COLLECTIVE_TIMEOUT_S) \
+                or self.broken:
+            raise threading.BrokenBarrierError
+
+    def _pass(self, i: int) -> None:
+        j = (i + 1) % self.n
+        while self.done[j] and j != i:
+            j = (j + 1) % self.n
+        if not self.done[j]:
+            self._go[j].release()
+
+    def step(self, i: int) -> None:
+        """Shard ``i`` posted a collective: hand the turn on and wait for
+        it to come back, when every shard has posted it too."""
+        self.calls[i] += 1
+        self._pass(i)
+        self.wait_turn(i)
+        if any(c < self.calls[i] for c in self.calls):
+            # a shard returned without making this collective
+            raise RuntimeError("a shard_map body skipped a collective its "
+                               "peers made")
+
+    def finish(self, i: int) -> None:
+        self.done[i] = True
+        self._pass(i)
+
+    def abort(self) -> None:
+        """Wake every shard waiting for its turn, to fail."""
+        self.broken = True
+        for go in self._go:
+            go.release()
 
 
 class _Shard(threading.local):
@@ -278,6 +452,12 @@ class _Shard(threading.local):
 
 
 _CTX = _Shard()
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh whose ``shard_map`` body runs in this thread (None outside
+    a body)."""
+    return _CTX.mesh
 
 
 def _ctx():
@@ -306,7 +486,7 @@ def _exchange(t: torch.Tensor) -> List[_Posted]:
     slots = ctx.group.slots[ctx.count % 2]
     ctx.count += 1
     slots[ctx.index] = _Posted(t)
-    ctx.group.barrier.wait()
+    ctx.group.step(ctx.index)
     return list(slots)
 
 
@@ -501,6 +681,7 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
             _CTX.mesh, _CTX.index, _CTX.coords = mesh, i, mesh.coords(i)
             _CTX.group, _CTX.count = group, 0
             try:
+                group.wait_turn(i)
                 with contextlib.ExitStack() as stack:
                     if stream is not None:
                         stack.enter_context(torch.cuda.device(dev))
@@ -518,9 +699,10 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
                         ev = torch.cuda.Event()
                         ev.record(stream)
                     results[i] = (out, ev)
+                group.finish(i)
             except BaseException as e:   # re-raised by the caller below
                 errors.append(e)
-                group.barrier.abort()    # wake peers held at a collective
+                group.abort()            # wake peers held at a collective
             finally:
                 # the group holds the last collectives' posted tensors
                 _CTX.mesh = _CTX.group = None

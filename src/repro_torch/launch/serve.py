@@ -1,5 +1,6 @@
 """Serving entry point: batched prefill + greedy decode engine
-(``repro/launch/serve.py`` at the same path), without a mesh.
+(``repro/launch/serve.py`` at the same path), on one device or, under
+``models.sharding.use_sharding(mesh)``, over the mesh (``Engine``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
         --device cpu --batch 4 --prompt-len 32 --gen 16
@@ -26,6 +27,10 @@ the dense oracle, as under the JAX Engine's 1x1 mesh) and the
 encoder-decoder whisper-large-v3 (its audio frontend a stub: ``main``
 passes zero ``frames`` of [B, encoder_seq, D], as the JAX package's
 does). Runs on the CUDA card unless ``--device cpu`` is given.
+``--production-mesh`` serves over ``launch.mesh.make_production_mesh``
+(``("data", "model") = (1, n)`` over the node's cards, or with ``--device
+cpu`` over two CPU shards): the decoder-only attention, MoE and SSD
+models; RG-LRU and the encoder-decoder raise there (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -36,8 +41,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import canon, get_config, get_smoke_config
+from repro_torch.distributed import spmd
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model, build_smoke
+from repro_torch.models.sharding import use_sharding
 from repro_torch.serve import make_decode_step, make_prefill_step
+from repro_torch.serve.serve_step import (init_mesh_cache, place_params,
+                                          serving_mesh)
 
 
 class Engine:
@@ -52,31 +62,50 @@ class Engine:
     length: the prefill and every decode step overwrite it in place. An
     encoder-decoder's cross cache (``encoder_seq`` rounded up to 128
     slots) is written whole by the prefill and only read by decode.
-    Serving runs without autograd (``torch.no_grad``)."""
+    Serving runs without autograd (``torch.no_grad``).
+
+    Built under ``use_sharding(mesh)`` (the JAX Engine runs inside it
+    too) the Engine serves over that mesh (``serve_step.serving_mesh``):
+    it places the weights once by ``launch.mesh.param_specs`` (weights
+    already placed stay where they are), each prefill makes its cache by
+    ``cache_specs``, and every step is one ``shard_map`` over them. The
+    tokens it returns are whole tensors on the first shard's device.
+    Under ``Flags.seq_shard_kv`` it keeps the one-device weights and only
+    the global layers' decode runs over the mesh, as before."""
 
     def __init__(self, model, params, batch: int, max_len: int):
         self.model = model
+        self.mesh = serving_mesh(model)
+        if self.mesh is not None:
+            params = place_params(model, params, self.mesh)
         self.params = params
         self.max_len = max_len
         self.batch = batch
-        self._prefill = make_prefill_step(model)
-        self._decode = make_decode_step(model)
+        self._prefill = make_prefill_step(model, self.mesh, logits=True)
+        self._decode = make_decode_step(model, self.mesh)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
-                extra: Optional[Dict[str, torch.Tensor]] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                extra: Optional[Dict[str, torch.Tensor]] = None,
+                logits: bool = False) -> Tuple:
         """tokens [B,S] → (next token [B,1] int32, cache after the
-        prefill). ``extra`` (``{"vision_embeds": [B, n_tok, D]}``, or an
+        prefill), and with ``logits`` the last position's logits [B,1,V].
+        ``extra`` (``{"vision_embeds": [B, n_tok, D]}``, or an
         encoder-decoder's ``{"frames": [B, T, D]}``) joins the prefill's
-        batch."""
+        batch. On a mesh the cache's leaves are ``spmd.Sharded``."""
         b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(f"prompt of {s} tokens exceeds max_len "
                              f"{self.max_len}")
-        cache = self.model.init_cache(b, self.max_len, tokens.device)
-        return self._prefill(self.params, {**(extra or {}), "tokens": tokens},
-                             cache)
+        if self.mesh is not None:
+            cache = init_mesh_cache(self.model, b, self.max_len, self.mesh)
+        else:
+            cache = self.model.init_cache(b, self.max_len, tokens.device)
+        nxt, cache, last = self._prefill(
+            self.params, {**(extra or {}), "tokens": tokens}, cache)
+        if logits:
+            return _whole(nxt), cache, _whole(last)
+        return _whole(nxt), cache
 
     @torch.no_grad()
     def decode(self, cache: Dict[str, torch.Tensor], cur: torch.Tensor,
@@ -86,6 +115,7 @@ class Engine:
         if length + steps > self.max_len:
             raise ValueError(f"{length} + {steps} decode steps exceed "
                              f"max_len {self.max_len}")
+        cur = _whole(cur)
         lengths = torch.full((cur.shape[0],), length, dtype=torch.int32,
                              device=cur.device)
         out = []
@@ -93,7 +123,8 @@ class Engine:
             cur, cache = self._decode(self.params, cache, cur, lengths)
             lengths = lengths + 1
             out.append(cur)
-        return torch.cat(out, dim=1) if out else cur[:, :0]
+        return torch.cat([_whole(t) for t in out], dim=1) if out \
+            else cur[:, :0]
 
     @torch.no_grad()
     def generate(self, tokens: torch.Tensor, gen: int,
@@ -107,6 +138,12 @@ class Engine:
         return torch.cat([nxt, rest], dim=1)
 
 
+def _whole(t):
+    """A ``spmd.Sharded`` value as one tensor (on its first shard's
+    device); a tensor as it is."""
+    return t.full() if isinstance(t, spmd.Sharded) else t
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -115,6 +152,7 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--production-mesh", action="store_true")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -123,7 +161,18 @@ def main(argv=None):
     arch = canon(args.arch)
     cfg = get_smoke_config(arch) if args.smoke else get_config(arch)
     model = build_smoke(cfg) if args.smoke else build_model(cfg)
-    params = model.init(torch.Generator(device).manual_seed(0), device)
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh(
+            devices=[device] * 2 if device.type == "cpu" else None)
+    with use_sharding(mesh):
+        return _serve(args, cfg, model, device)
+
+
+def _serve(args, cfg, model, device):
+    # on a mesh the weights are drawn straight onto it
+    params = model.init(torch.Generator(device).manual_seed(0), device,
+                        mesh=serving_mesh(model))
     eng = Engine(model, params, args.batch, args.prompt_len + args.gen)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator(device).manual_seed(1),

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import spmd
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_gqa
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import active_mesh
+from repro_torch.models.sharding import active_mesh, constrain, is_split
 
 
 def attn_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
@@ -56,6 +56,14 @@ def attn_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
         "wo": L.normal(gen, lead + (n_heads, head_dim, d_model), s_out,
                        dtype, device),
     }
+
+
+def attn_axes(lead: L.Axes = ()) -> Dict[str, L.Axes]:
+    """``attn_init``'s logical axes."""
+    return {"wq": lead + ("embed", "heads", "head_dim"),
+            "wk": lead + ("embed", "kv_heads", "head_dim"),
+            "wv": lead + ("embed", "kv_heads", "head_dim"),
+            "wo": lead + ("heads", "head_dim", "embed")}
 
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -371,6 +379,28 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
 
 
+def local_kv_heads(n_kv_heads: int, h_loc: int) -> Tuple[int, int]:
+    """Which kv heads serve a shard's ``h_loc`` query heads inside a
+    ``shard_map`` body whose weights split ``heads``: (first, count) among
+    the kv heads it holds. Where they split ``kv_heads`` too it holds just
+    those: all of them. Where ``n_kv_heads`` does not divide the model
+    axis, ``param_specs`` replicates ``wk`` and ``wv``, and the shard takes
+    the kv heads of its own query groups (query head h reads kv head
+    h // G)."""
+    tp = spmd.axis_size(L.TP_AXIS)
+    if is_split("kv_heads"):
+        return 0, n_kv_heads // tp
+    g = h_loc * tp // n_kv_heads
+    first = spmd.axis_index(L.TP_AXIS) * h_loc
+    if h_loc % g == 0:
+        return first // g, h_loc // g
+    if g % h_loc == 0:
+        return first // g, 1
+    raise NotImplementedError(
+        f"{h_loc} query heads a shard neither cover whole groups of {g} "
+        f"nor lie in one: not ported (see ROADMAP.md)")
+
+
 def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                     kind: str, rope_theta: float, n_kv_heads: int, mode: str,
                     window: int = 0,
@@ -409,7 +439,14 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     mask; the rest goes the blockwise way, and so does train mode, which
     never takes the forward-only kernel (the JAX model trains with
     ``use_pallas`` off). ``seq_shard_axis`` sends a global
-    layer's decode through ``seq_sharded_decode``."""
+    layer's decode through ``seq_sharded_decode``.
+
+    Inside a ``shard_map`` body whose weights split ``heads``
+    (``sharding.is_split``) the layer runs on its shard's blocks: the
+    query heads ``wq`` holds, the kv heads ``local_kv_heads`` picks for
+    them (a cache of replicated kv heads is written whole, as every
+    replica holds it), and the row-parallel ``wo`` followed by a ``psum``
+    over the model axis (``layers.tp_sum``)."""
     if kind not in ("global_attn", "local_attn"):
         raise ValueError(f"attention_layer: {kind!r} is not an attention "
                          f"kind (global_attn, local_attn)")
@@ -418,11 +455,19 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         raise ValueError(f"a local_attn layer needs a window, got {window}")
     b, s, _ = x.shape
     q = _project(x, params["wq"])
+    q = constrain(q, "act_batch", None, "act_heads", None)
     if kv_override is None:
         k = _project(x, params["wk"])
         v = _project(x, params["wv"])
     else:
         k, v = kv_override
+    kv0, n_kv_heads = local_kv_heads(n_kv_heads, q.shape[2]) \
+        if is_split("heads") else (0, n_kv_heads)
+
+    def own(t: torch.Tensor) -> torch.Tensor:
+        """The kv heads this shard's query heads read."""
+        return t if n_kv_heads == t.shape[2] else \
+            t[:, :, kv0:kv0 + n_kv_heads]
 
     if mode in ("train", "prefill"):
         positions = torch.arange(s, device=x.device)
@@ -431,16 +476,18 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
             if kv_override is None:
                 k = L.apply_rope(k, positions, rope_theta)
         qg = _split_gqa(q, n_kv_heads)
+        ko, vo = own(k), own(v)
         if local and kv_override is None:
-            out = window_attention(qg, k, v, positions=positions,
+            out = window_attention(qg, ko, vo, positions=positions,
                                    window=window)
         elif use_kernel and mode == "prefill" and causal \
                 and kv_valid is None and k.shape[1] == s and s % 128 == 0:
-            out = flash_attention_gqa(qg, k, v)
+            out = flash_attention_gqa(qg, ko.contiguous(), vo.contiguous())
         else:
-            out = flash_attention(qg, k, v, causal=causal,
+            out = flash_attention(qg, ko, vo, causal=causal,
                                   q_block=flash_block, kv_block=flash_block,
                                   kv_valid=kv_valid)
+        del ko, vo
         new_cache = None
         if mode == "prefill" and kv_override is None:
             if local:
@@ -490,7 +537,7 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                                          valid=valid,
                                          axis=seq_shard_axis)[:, None]
             else:
-                out = decode_attention(qd, cache["k"], cache["v"],
+                out = decode_attention(qd, own(cache["k"]), own(cache["v"]),
                                        valid=valid)[:, None]
             new_cache = cache
     else:
@@ -498,4 +545,6 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
 
     wo = params["wo"]                                                 # [H,D,M]
     y = out.to(x.dtype).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+    y = L.tp_sum(y, "heads")
+    y = constrain(y, "act_batch", "act_seq", "act_embed")
     return y, new_cache

@@ -103,6 +103,23 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig,
     return ParamTree(params)
 
 
+def encdec_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """``encdec_init``'s logical axes (the stacks lead with ``layers``)."""
+    lead = ("layers",)
+    mlp = L.mlp_axes(cfg.gated_mlp, lead)
+    return {"embed": L.EMBED_AXES, "pos_embed": (None, "embed"),
+            "enc_final_norm": L.SCALE_AXES, "final_norm": L.SCALE_AXES,
+            "unembed": ("embed", "vocab"),
+            "encoder": {"norm1": lead + L.SCALE_AXES,
+                        "attn": A.attn_axes(lead),
+                        "norm2": lead + L.SCALE_AXES, "mlp": mlp},
+            "decoder": {"norm1": lead + L.SCALE_AXES,
+                        "self_attn": A.attn_axes(lead),
+                        "norm_x": lead + L.SCALE_AXES,
+                        "cross_attn": A.attn_axes(lead),
+                        "norm2": lead + L.SCALE_AXES, "mlp": dict(mlp)}}
+
+
 def encode(params, frames: torch.Tensor, cfg: ModelConfig,
            flags: Flags = DEFAULT_FLAGS, remat: str = "none") -> torch.Tensor:
     """frames: [B, T, D] (precomputed frame embeddings, cast to the weight

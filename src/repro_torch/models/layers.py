@@ -3,32 +3,79 @@
 
 Initializers draw from an explicit ``torch.Generator`` on the device the
 parameter lives on; ``lead`` prepends stacking axes (the ``layers`` axis of
-``transformer.lm_init``). The JAX package's logical sharding axes have no
-counterpart here: the port runs without a mesh.
+``transformer.lm_init``). The logical sharding axes that the JAX package's
+initializers box with each leaf come from the ``*_axes`` function beside
+each ``*_init`` here (``Model.axes()`` assembles the tree, in the
+parameters' layout); ``launch.mesh.param_specs`` resolves them over a mesh.
+Inside a ``shard_map`` body a layer holds its shard's block of each weight
+(``sharding.is_split`` says along which logical axes): ``mlp_apply`` is
+then column- then row-parallel, followed by a ``psum``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple
+import threading
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import spmd
+from repro_torch.models.sharding import constrain, is_split
+
+Axes = Tuple[Optional[str], ...]
 
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
 
 
+_DRAW = threading.local()
+
+
+@contextlib.contextmanager
+def drawing_into(sink):
+    """While open, ``normal`` hands its draws to ``sink(gen, shape, scale,
+    dtype, device)`` in this thread and returns what it returns
+    (``transformer.init_placed`` draws a model straight onto a
+    mesh)."""
+    prev = getattr(_DRAW, "sink", None)
+    _DRAW.sink = sink
+    try:
+        yield
+    finally:
+        _DRAW.sink = prev
+
+
+def normal_slices(gen: torch.Generator, shape: Tuple[int, ...],
+                  scale: float, device
+                  ) -> Iterator[Tuple[Optional[int], torch.Tensor]]:
+    """``normal``'s float32 values in its draw order: (None, all of it)
+    for fewer than three axes, else (i, leading slice i) for each i."""
+    if len(shape) < 3:
+        yield None, torch.randn(shape, generator=gen, dtype=torch.float32,
+                                device=device).mul_(scale)
+        return
+    for i in range(shape[0]):
+        yield i, torch.randn(shape[1:], generator=gen, dtype=torch.float32,
+                             device=device).mul_(scale)
+
+
 def normal(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
            dtype: torch.dtype, device) -> torch.Tensor:
     """``N(0, 1) * scale`` drawn in float32 and cast to ``dtype``. A stacked
     shape (three axes or more) is drawn one leading slice at a time, so the
-    float32 temporary is one layer big."""
+    float32 temporary is one layer big. On the meta device nothing is
+    drawn."""
+    sink = getattr(_DRAW, "sink", None)
+    if sink is not None:
+        return sink(gen, tuple(shape), scale, dtype, device)
     out = torch.empty(shape, dtype=dtype, device=device)
-    slices = [out] if out.dim() < 3 else list(out)
-    for sl in slices:
-        sl.copy_(torch.randn(sl.shape, generator=gen, dtype=torch.float32,
-                             device=device).mul_(scale))
+    if out.device.type == "meta":
+        return out
+    for i, v in normal_slices(gen, tuple(shape), scale, device):
+        (out if i is None else out[i]).copy_(v)
     return out
 
 
@@ -41,6 +88,10 @@ def dense_init(gen, in_dim: int, out_dim: int, *, dtype, device,
 
 def embed_init(gen, vocab: int, dim: int, *, dtype, device) -> torch.Tensor:
     return normal(gen, (vocab, dim), 0.02, dtype, device)
+
+
+EMBED_AXES: Axes = ("vocab", "embed")
+SCALE_AXES: Axes = ("embed",)
 
 
 def scale_init(dim: int, *, device, lead: Tuple[int, ...] = (),
@@ -104,17 +155,45 @@ def mlp_init(gen, d_model: int, d_ff: int, gated: bool, *, dtype, device,
     return p
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              gated: bool) -> torch.Tensor:
+def mlp_axes(gated: bool, lead: Axes = ()) -> Dict[str, Axes]:
+    """``mlp_init``'s logical axes (``lead`` prepends the stacking
+    axes')."""
+    p = {"wi": lead + ("embed", "mlp"), "wo": lead + ("mlp", "embed")}
+    if gated:
+        p["wg"] = lead + ("embed", "mlp")
+    return p
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, gated: bool,
+              reduce: bool = True) -> torch.Tensor:
     """``silu(x·wg) * (x·wi)`` then ``·wo``: ``wi`` is the multiplied
     branch, ``wg`` the gated one. Without gating, tanh-approximated GELU
-    (``jax.nn.gelu``'s default)."""
+    (``jax.nn.gelu``'s default). Inside a ``shard_map`` body whose weights
+    split ``mlp`` (``wi`` column-parallel), the product with ``wo``'s
+    matching rows is a partial sum, which ``tp_sum`` adds over the model
+    axis (or the caller, with ``reduce=False``)."""
     h = x @ p["wi"]
     if gated:
         h = F.silu(x @ p["wg"]) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["wo"]
+    h = constrain(h, "act_batch", "act_seq", "act_mlp")
+    y = h @ p["wo"]
+    return tp_sum(y, "mlp") if reduce else y
+
+
+TP_AXIS = "model"
+
+
+def tp_sum(y: torch.Tensor, axis: str) -> torch.Tensor:
+    """``y`` summed over the model axis where it is a partial sum: a
+    product over logical ``axis`` that the body's weights split
+    (``sharding.is_split``), in float32 and rounded once to ``y``'s dtype;
+    ``y`` itself otherwise. Every shard gets the same bits (``spmd.psum``
+    folds in coordinate order)."""
+    if not is_split(axis):
+        return y
+    return spmd.psum(y.float(), TP_AXIS).to(y.dtype)
 
 
 # ---------------------------------------------------------------------------

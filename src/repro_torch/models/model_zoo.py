@@ -5,7 +5,11 @@ Mamba-2 SSD stack, and RG-LRU with local attention) and the
 encoder-decoder (``models.encdec``), dispatched on ``cfg.enc_dec``.
 
 ``Model`` exposes:
-  init(gen, device)               -> ParamTree (the weights, an nn.Module)
+  init(gen, device[, mesh])       -> ParamTree (the weights, an nn.Module);
+                                     with a mesh, drawn onto it (a nested
+                                     dict of spmd.Sharded)
+  axes()                          -> the weights' logical sharding axes,
+                                     leaf for leaf
   apply(params, batch, mode, cache) -> (hidden, cache) in prefill and
                                      decode; (hidden, None, aux_loss) in
                                      train
@@ -41,10 +45,25 @@ class Model:
     def __post_init__(self):
         T._check_supported(self.cfg)
 
-    def init(self, gen: torch.Generator, device="cuda") -> T.ParamTree:
+    def init(self, gen: torch.Generator, device="cuda", mesh=None):
+        if mesh is not None:
+            if self.cfg.enc_dec:
+                raise NotImplementedError(
+                    f"{self.cfg.name}: an encoder-decoder on a mesh is not "
+                    f"ported (see ROADMAP.md)")
+            return T.init_placed(
+                lambda g, d: T.lm_params(g, self.cfg, self.flags, d),
+                self.axes(), gen, mesh, device)
         if self.cfg.enc_dec:
             return ED.encdec_init(gen, self.cfg, self.flags, device)
         return T.lm_init(gen, self.cfg, self.flags, device)
+
+    def axes(self) -> Dict:
+        """The logical axes of ``init``'s tree (``launch.mesh.
+        param_specs`` resolves them over a mesh)."""
+        if self.cfg.enc_dec:
+            return ED.encdec_axes(self.cfg)
+        return T.lm_axes(self.cfg)
 
     def apply(self, params: T.ParamTree, batch: Dict[str, torch.Tensor], *,
               mode: str, cache: Optional[Dict[str, torch.Tensor]] = None):

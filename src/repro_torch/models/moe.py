@@ -13,6 +13,9 @@ Two execution paths:
   tokens are slotted into per-expert capacity buffers, exchanged with
   ``all_to_all``, processed as batched products on the expert owner, and
   combined back. FLOPs scale with top_k·capacity_factor, not num_experts.
+  Called inside a ``shard_map`` body (a model served on a mesh, its
+  experts already resident: ``E / tp`` a shard), it runs the same
+  exchange on them directly (``shard_map`` does not nest).
 
 Routing picks the top k probabilities with ``torch.topk``, which does not
 say how it orders ties, where ``jax.lax.top_k`` takes the lower index:
@@ -35,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed import spmd
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import active_mesh
+from repro_torch.models.sharding import active_mesh, is_split
 
 
 def moe_init(gen, d_model: int, mcfg: MoEConfig, gated: bool, *, dtype,
@@ -55,6 +58,19 @@ def moe_init(gen, d_model: int, mcfg: MoEConfig, gated: bool, *, dtype,
     if mcfg.d_ff_shared:
         p["shared"] = L.mlp_init(gen, d_model, mcfg.d_ff_shared, gated,
                                  dtype=dtype, device=device, lead=lead)
+    return p
+
+
+def moe_axes(gated: bool, shared: bool,
+             lead: L.Axes = ()) -> Dict[str, object]:
+    """``moe_init``'s logical axes."""
+    p = {"router": lead + ("embed", "experts"),
+         "wi": lead + ("experts", "embed", "expert_mlp"),
+         "wo": lead + ("experts", "expert_mlp", "embed")}
+    if gated:
+        p["wg"] = lead + ("experts", "embed", "expert_mlp")
+    if shared:
+        p["shared"] = L.mlp_axes(gated, lead)
     return p
 
 
@@ -91,7 +107,11 @@ def _expert_ffn(p, h: torch.Tensor, gated: bool) -> torch.Tensor:
 def moe_dense(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Oracle: every expert on every token. x: [B,S,D]. The combine
-    matrix is built in x's dtype from the routing weights cast to it."""
+    matrix is built in x's dtype from the routing weights cast to it.
+    Inside a ``shard_map`` body each shard runs its own experts
+    (``_moe_in_body``)."""
+    if spmd.current_mesh() is not None:
+        return _moe_in_body(p, x, mcfg, gated, dense=True)
     b, s, d = x.shape
     e = mcfg.num_experts
     xf = x.reshape(b * s, d)
@@ -175,7 +195,12 @@ def moe_ep(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
     or with the experts not dividing over it, the dense oracle. Tokens
     shard over ``axis`` along S where it divides (each model shard routes
     its own slice), else (decode) every model shard routes them all. The
-    result lands on x's device."""
+    result lands on x's device. Inside a ``shard_map`` body
+    (``_moe_in_body``) the same, on the shard's resident experts."""
+    if spmd.current_mesh() is not None:
+        return _moe_in_body(p, x, mcfg, gated, axis=axis,
+                            capacity_factor=capacity_factor,
+                            data_axes=data_axes)
     mesh = active_mesh()
     if mesh is None or axis not in mesh.shape or mesh.shape[axis] == 1 \
             or mcfg.num_experts % mesh.shape[axis] != 0:
@@ -210,3 +235,80 @@ def moe_ep(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
     if mcfg.d_ff_shared:
         out = out + L.mlp_apply(p["shared"], x, gated)
     return out, aux
+
+
+def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
+                 axis: str = "model", capacity_factor: float = 1.25,
+                 data_axes: Tuple[str, ...] = ("pod", "data"),
+                 dense: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ep`` (or with ``dense``, ``moe_dense``) inside a
+    ``shard_map`` body whose ``p`` holds this shard's blocks
+    (``launch.mesh.param_specs``): the experts split over ``axis`` where
+    they divide it, the router split with them, the shared expert column-
+    then row-parallel like an MLP. x [B_loc, S, D] is replicated over
+    ``axis``. The router is gathered whole. ``moe_ep`` then routes this
+    shard's slice of S (or, in decode, all tokens) and exchanges them with
+    its peers (``_ep_local``); the slices' outputs come back together in
+    one ``psum`` over ``axis``, with the shared expert's partial sums. The
+    dense oracle (``dense``, or where ``moe_ep`` falls back to it: the
+    weights do not split ``experts`` (``sharding.is_split``), on an axis
+    of size 1 or one the experts do not divide)
+    routes every local token and runs the shard's own experts on them all,
+    a partial sum over the experts. Returns the output, replicated over
+    ``axis``, and the aux loss."""
+    mesh = spmd.current_mesh()
+    tp = mesh.shape.get(axis, 1)
+    e, d = mcfg.num_experts, x.shape[-1]
+    b, s, _ = x.shape
+    e_loc = p["wi"].shape[0]
+    split = is_split("experts")
+    experts = {k: p[k] for k in ("wi", "wo", "wg") if k in p}
+    router = p["router"]
+    if split:
+        # [tp, D, E/tp] -> [D, E], experts in shard order
+        router = spmd.all_gather(router, axis).permute(1, 0, 2).reshape(d, e)
+    experts["router"] = router
+    # the routed part [B, S, D] in float32, partial where it is split
+    if dense or not split:
+        xf = x.reshape(b * s, d)
+        weights, idx, aux = _route(router, xf, mcfg)
+        comb = torch.zeros((b * s, e), dtype=x.dtype, device=x.device)
+        comb.scatter_(1, idx, weights.to(x.dtype))
+        e0 = spmd.axis_index(axis) * e_loc if split else 0
+        ys = _expert_ffn(experts, xf.expand(e_loc, b * s, d), gated)
+        y = torch.einsum("te,etd->td", comb[:, e0:e0 + e_loc], ys)
+        y, partial = y.view(b, s, d).float(), split
+    else:
+        seq_shard = s % tp == 0 and s >= tp
+        xs = x
+        if seq_shard:
+            sl = s // tp
+            s0 = spmd.axis_index(axis) * sl
+            xs = x[:, s0:s0 + sl]
+        out, aux = _ep_local(experts, xs.reshape(-1, d), mcfg, gated, axis,
+                             capacity_factor)
+        aux = spmd.pmean(aux, axis)
+        # a mean over axes of one shard is the value itself
+        batch_axes = tuple(a for a in data_axes if mesh.shape.get(a, 1) > 1)
+        if batch_axes:
+            aux = spmd.pmean(aux, batch_axes)
+        if seq_shard:
+            # each shard's slice into a zero [B, S, D]
+            y = torch.zeros_like(x, dtype=torch.float32)
+            y[:, s0:s0 + sl] = out.view(xs.shape)
+        else:
+            # every shard routed all tokens: the same output on each
+            y = out.view(x.shape).float()
+        partial = seq_shard
+    sh = None
+    if "shared" in p:
+        sh = L.mlp_apply(p["shared"], x, gated, reduce=False)
+        if partial and is_split("mlp"):
+            # row-parallel: its partial sums join the routed part's psum
+            y, sh = y + sh, None
+        else:
+            sh = L.tp_sum(sh, "mlp")
+    if partial:
+        y = spmd.psum(y, axis)
+    y = y.to(x.dtype)
+    return (y if sh is None else y + sh), aux

@@ -63,6 +63,16 @@ def rglru_init(gen, d_model: int, rcfg: RGLRUConfig, n_blocks: int, *,
     }
 
 
+def rglru_axes(lead: L.Axes = ()) -> Dict[str, L.Axes]:
+    """``rglru_init``'s logical axes."""
+    return {"in_x": lead + ("embed", "lru"),
+            "in_gate": lead + ("embed", "lru"),
+            "conv_w": lead + ("conv", "lru"), "conv_b": lead + ("lru",),
+            "w_r": lead + (None, "lru", None), "b_r": lead + ("lru",),
+            "w_i": lead + (None, "lru", None), "b_i": lead + ("lru",),
+            "lam": lead + ("lru",), "out": lead + ("lru", "embed")}
+
+
 def _block_diag(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: [B,S,W]; w: [H, W/H, W/H] block-diagonal projection, in x's
     dtype."""

@@ -3,18 +3,29 @@
 mapping logical axis names to mesh axes, a no-op without a mesh, and
 divisibility-aware (kv_heads=1 cannot shard 16-way).
 
-The port shards nothing implicitly: it has no ``constrain``. The mesh that
-``use_sharding`` activates is read by the modules that run explicitly over
-it (``models.attention.seq_sharded_decode``, ``models.moe.moe_ep``), and
-``resolve_spec`` gives the spec a logical layout would take.
+The port shards nothing implicitly. ``resolve_spec`` gives the spec a
+logical layout takes, ``named_sharding`` the mesh with it, and
+``launch.mesh``'s spec builders apply them to whole trees, which
+``distributed.spmd.place`` puts on the mesh. ``constrain`` lays out a
+``spmd.Sharded`` value by its logical axes; it moves nothing inside a
+``shard_map`` body, where the layers run on their shards' blocks and
+reduce explicitly (``spmd.psum`` after a row-parallel product). Which
+logical axes the body's weights are split along is decided once, by
+their specs: ``split_weights`` tells the body, and the layers ask
+``is_split``. The mesh
+that ``use_sharding`` activates is read by the serving steps, which then
+run each step as one ``shard_map`` over the placed weights and cache, and
+by the modules that run explicitly over it (``models.attention.
+seq_sharded_decode``, ``models.moe.moe_ep``).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, FrozenSet, Optional, Sequence, Tuple, Union
 
-from repro_torch.distributed.spmd import P, Mesh
+from repro_torch.distributed import spmd
+from repro_torch.distributed.spmd import P, Mesh, NamedSharding
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
@@ -53,6 +64,7 @@ class _Ctx(threading.local):
     def __init__(self):
         self.mesh: Optional[Mesh] = None
         self.rules: Dict[str, MeshAxes] = dict(DEFAULT_RULES)
+        self.split: FrozenSet[str] = frozenset()
 
 
 _CTX = _Ctx()
@@ -122,3 +134,76 @@ def resolve_spec(logical_axes: Sequence[Optional[str]],
     while parts and parts[-1] is None:
         parts.pop()
     return P(*parts)
+
+
+def constrain(x, *logical_axes: Optional[str]):
+    """``with_sharding_constraint`` by logical axes. Without a mesh, and
+    inside a ``shard_map`` body (where each shard holds its block and the
+    layers reduce explicitly), ``x`` unchanged; a plain tensor is left
+    where it lies too, since the port places nothing implicitly. A
+    ``spmd.Sharded`` value is laid out as ``resolve_spec`` says over the
+    active mesh (``spmd.reshard``: each shard slices its block where the
+    spec adds an axis; the value is gathered where it drops one). The
+    value itself never changes."""
+    mesh = _CTX.mesh
+    if mesh is None or spmd.current_mesh() is not None \
+            or not isinstance(x, spmd.Sharded):
+        return x
+    if x.mesh is not mesh:
+        raise ValueError(f"constrain: the value lies on {x.mesh}, not on "
+                         f"the active {mesh}")
+    return spmd.reshard(x, resolve_spec(logical_axes, shape=x.shape,
+                                        mesh=mesh))
+
+
+def split_axes(axes_tree, placed) -> FrozenSet[str]:
+    """The logical axes (of ``axes_tree``, ``Model.axes()``) along which
+    the leaves of ``placed`` (``spmd.Sharded`` or ``NamedSharding``, each
+    with its ``.mesh`` and ``.spec``) are split over more than one shard.
+    A layer asks by axis name, so an axis split in some leaves and not in
+    others is refused."""
+    seen: Dict[str, bool] = {}
+
+    def walk(axes, leaf):
+        if isinstance(leaf, dict):
+            for k, v in leaf.items():
+                walk(axes[k], v)
+            return
+        for i, name in enumerate(axes):
+            if name is None:
+                continue
+            part = leaf.spec[i] if i < len(leaf.spec) else None
+            split = _axis_size(leaf.mesh, part) > 1
+            if seen.setdefault(name, split) != split:
+                raise NotImplementedError(
+                    f"the logical axis {name!r} is split in some weights "
+                    f"and not in others: not ported (see ROADMAP.md)")
+
+    walk(axes_tree, placed)
+    return frozenset(n for n, split in seen.items() if split)
+
+
+@contextlib.contextmanager
+def split_weights(split: FrozenSet[str]):
+    """Opened inside a ``shard_map`` body with ``split_axes`` of its
+    weights: while open, ``is_split`` answers for them in this thread."""
+    prev = _CTX.split
+    _CTX.split = split
+    try:
+        yield
+    finally:
+        _CTX.split = prev
+
+
+def is_split(name: str) -> bool:
+    """Whether the weights of the ``shard_map`` body running in this thread
+    hold only their shard's slice along logical axis ``name`` (so a
+    product over it is a partial sum, a lookup along it a masked one);
+    False outside ``split_weights``."""
+    return name in _CTX.split
+
+
+def named_sharding(mesh: Mesh, *logical_axes: Optional[str],
+                   shape: Optional[Sequence[int]] = None) -> NamedSharding:
+    return NamedSharding(mesh, resolve_spec(logical_axes, shape=shape,
+                                            mesh=mesh))

@@ -65,6 +65,17 @@ def ssd_init(gen, d_model: int, scfg: SSMConfig, *, dtype, device,
     }
 
 
+def ssd_axes(lead: L.Axes = ()) -> Dict[str, L.Axes]:
+    """``ssd_init``'s logical axes (``ssm_inner`` stays replicated: pure
+    data parallelism, as in the JAX package)."""
+    return {"in_proj": lead + ("embed", "ssm_inner"),
+            "conv_w": lead + ("conv", "ssm_inner"),
+            "conv_b": lead + ("ssm_inner",), "A_log": lead + (None,),
+            "D": lead + (None,), "dt_bias": lead + (None,),
+            "norm": lead + ("ssm_inner",),
+            "out_proj": lead + ("ssm_inner", "embed")}
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -25,6 +25,13 @@ functions over it, like their JAX counterparts. Train mode returns the
 MoE aux loss beside the hidden states, runs each layer under
 ``Flags.remat`` and takes no forward-only kernel; ``chunked_ce_loss`` is
 the training loss.
+
+``lm_axes`` gives the weights' logical sharding axes, leaf for leaf, and
+``init_placed`` draws them straight onto a mesh. Inside a ``shard_map``
+body (a model served on a mesh: ``serve.serve_step``) the same functions
+run on each shard's blocks: the embedding vocab-parallel (a masked lookup
+and a ``psum``), the logits the shard's slice of the vocabulary, the
+attention, MLP and MoE layers split as their modules say.
 """
 from __future__ import annotations
 
@@ -36,11 +43,13 @@ from torch import nn
 
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
+from repro_torch.distributed import spmd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.models.sharding import constrain, is_split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +207,22 @@ def block_init(gen, cfg: ModelConfig, kind: str, *, dtype, device,
     }
 
 
+def block_axes(cfg: ModelConfig, kind: str,
+               lead: L.Axes = ()) -> Dict[str, Any]:
+    """``block_init``'s logical axes."""
+    scale = lead + L.SCALE_AXES
+    if kind == SSD:
+        return {"norm1": scale, "ssd": S.ssd_axes(lead)}
+    mix = {"rglru": R.rglru_axes(lead)} if kind == RGLRU else \
+        {"attn": A.attn_axes(lead)}
+    if _is_moe_layer(cfg, kind):
+        ffn = {"moe": M.moe_axes(cfg.gated_mlp, bool(cfg.moe.d_ff_shared),
+                                 lead)}
+    else:
+        ffn = {"mlp": L.mlp_axes(cfg.gated_mlp, lead)}
+    return {"norm1": scale, **mix, "norm2": scale, **ffn}
+
+
 def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                 kind: str, mode: str, flags: Flags,
                 cache: Optional[Dict] = None,
@@ -348,8 +373,29 @@ def put_path(tree: Dict[str, Any], path: Path,
 # Whole-model init / apply
 # ---------------------------------------------------------------------------
 
+def lm_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of ``lm_init``'s tree, leaf for leaf: the JAX
+    package's (``unbox(model.init(key))[1]``) in the port's layout, the
+    stacked blocks' leading ``layers``."""
+    _check_supported(cfg)
+    axes: Dict[str, Any] = {"embed": L.EMBED_AXES,
+                            "final_norm": L.SCALE_AXES}
+    if not cfg.tie_embeddings:
+        axes["unembed"] = ("embed", "vocab")
+    for ppath, _, kind, depth in _stacks(cfg):
+        put_path(axes, ppath, block_axes(
+            cfg, kind, () if depth is None else ("layers",)))
+    return axes
+
+
 def lm_init(gen: torch.Generator, cfg: ModelConfig,
             flags: Flags = DEFAULT_FLAGS, device="cuda") -> ParamTree:
+    """``lm_params`` held in a ``ParamTree``."""
+    return ParamTree(lm_params(gen, cfg, flags, device))
+
+
+def lm_params(gen: torch.Generator, cfg: ModelConfig,
+              flags: Flags = DEFAULT_FLAGS, device="cuda") -> Dict[str, Any]:
     """Random weights from ``gen`` (a generator on ``device``):
     ``embed`` [V, D], ``final_norm`` [D], ``unembed`` [D, V] (absent when
     tied) and the blocks (module docstring), each stacked leaf with a
@@ -373,7 +419,75 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
         put_path(params, ppath, block_init(
             gen, cfg, kind, dtype=dtype, device=device,
             lead=() if depth is None else (depth,)))
-    return ParamTree(params)
+    return params
+
+
+def _leaf_paths(tree: Dict[str, Any], prefix: Path = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def init_placed(init, axes: Dict[str, Any], gen: torch.Generator, mesh,
+                device) -> Dict[str, Any]:
+    """The weights ``init(gen, device)`` (a nested dict) draws, drawn
+    straight onto ``mesh`` by ``launch.mesh.param_specs`` of ``axes``: a
+    nested dict of ``spmd.Sharded``. The generator (on ``device``) draws
+    the same values in the same order as without a mesh, each
+    ``layers.normal`` leaf a leading slice at a time, and each slice goes
+    to the shards that hold it; no device holds more of a leaf than its
+    blocks and one float32 slice. The few leaves ``normal`` does not draw
+    (norm scales, constants) are made whole on ``device`` and placed."""
+    from repro_torch.launch.mesh import param_specs
+    drawn: List[torch.Tensor] = []
+
+    def record(gen_, shape, scale, dtype, device_):
+        drawn.append(torch.empty(shape, dtype=dtype, device="meta"))
+        return drawn[-1]
+
+    with L.drawing_into(record):
+        abstract = init(None, "meta")
+    specs = param_specs(abstract, axes, mesh)
+    ids = {id(t): i for i, t in enumerate(drawn)}
+    order: List[Optional[Path]] = [None] * len(drawn)
+    for path, leaf in _leaf_paths(abstract):
+        i = ids.get(id(leaf))
+        if i is not None:
+            order[i] = path
+    if None in order:
+        raise RuntimeError("init_placed: a drawn leaf is not in the tree")
+    placed: Dict[Path, spmd.Sharded] = {}
+
+    def draw(gen_, shape, scale, dtype, device_):
+        path = order[len(placed)]
+        sh = _get(specs, path)
+        out = spmd.zeros(shape, dtype, sh)
+        regions = [spmd._blocks(mesh, sh.spec, i, shape)
+                   + tuple(slice(0, n) for n in shape[len(sh.spec):])
+                   for i in range(mesh.size)]
+        for i, v in L.normal_slices(gen_, shape, scale, device_):
+            v = v.to(dtype)
+            for t, reg in zip(out.shards, regions):
+                if i is None:
+                    t.copy_(v[reg])
+                elif reg[0].start <= i < reg[0].stop:
+                    t[i - reg[0].start].copy_(v[reg[1:]])
+            del v
+        placed[path] = out
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    with L.drawing_into(draw):
+        rest = init(gen, device)
+    out: Dict[str, Any] = {}
+    for path, leaf in _leaf_paths(rest):
+        val = placed.get(path)
+        if val is None:
+            val = spmd.place({"x": leaf},
+                             {"x": _get(specs, path)})["x"]
+        put_path(out, path[:-1], {path[-1]: val})
+    return out
 
 
 def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -397,11 +511,21 @@ def _embed_inputs(p: Dict[str, Any], cfg: ModelConfig,
     """Token embeddings [B,S,D]; for the vision frontend, the batch's
     precomputed ``vision_embeds`` [B, n_tok, D] (cast to the weight dtype)
     over the first n_tok positions. Decode batches carry none."""
-    x = p["embed"][batch["tokens"].long()]
+    emb, ids = p["embed"], batch["tokens"].long()
+    if not is_split("vocab"):
+        x = emb[ids]
+    else:
+        # vocab-parallel inside a shard_map body: each shard looks up the
+        # ids it holds, zeros for the rest, and the psum adds them up
+        rows = emb.shape[0]
+        ids = ids - spmd.axis_index(L.TP_AXIS) * rows
+        mine = (ids >= 0) & (ids < rows)
+        x = torch.where(mine[..., None], emb[ids.clamp(0, rows - 1)], 0)
+        x = spmd.psum(x, L.TP_AXIS)
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         ve = batch["vision_embeds"]
         x[:, :ve.shape[1]] = ve.to(x.dtype)
-    return x
+    return constrain(x, "act_batch", "act_seq", "act_embed")
 
 
 def lm_apply(params, batch: Dict[str, torch.Tensor], *,
@@ -460,11 +584,15 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Logits for a (small) x. [B,S,D] -> [B,S,V]."""
+    """Logits for a (small) x. [B,S,D] -> [B,S,V]; inside a ``shard_map``
+    body, the shard's slice of the vocabulary [B,S,V/tp] where the
+    embedding is split."""
     p = _tree(params)
     if cfg.tie_embeddings:
-        return x @ p["embed"].T
-    return x @ p["unembed"]
+        logits = x @ p["embed"].T
+    else:
+        logits = x @ p["unembed"]
+    return constrain(logits, "act_batch", None, "act_vocab")
 
 
 def chunked_ce_loss(params, x: torch.Tensor, labels: torch.Tensor,

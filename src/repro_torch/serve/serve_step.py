@@ -2,7 +2,13 @@
 (``repro/serve/serve_step.py`` at the same path).
 
 Both steps run without autograd (``torch.no_grad``), whatever the
-weights' ``requires_grad``. ``tasked_decode_loop`` drives the same decode
+weights' ``requires_grad``. Under an active mesh
+(``models.sharding.use_sharding``; ``serving_mesh``) each call is one
+``spmd.shard_map`` over the weights placed by ``launch.mesh.param_specs``
+and the cache by ``cache_specs`` (``place_params``, ``init_mesh_cache``):
+every layer runs on its shard's blocks and reduces explicitly (the JAX
+package's GSPMD layout written out), and the greedy token comes from the
+vocab-sharded logits. ``tasked_decode_loop`` drives the same decode
 step through the port's task runtime: every step is one hetero task over the model state (weights read,
 cache, tokens and lengths read and written), followed by
 ``Runtime.step_boundary()``.
@@ -13,32 +19,151 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.base import RGLRU
+from repro_torch.distributed import spmd
+from repro_torch.models.layers import TP_AXIS
 from repro_torch.models.model_zoo import Model
+from repro_torch.models.sharding import (active_mesh, is_split, split_axes,
+                                         split_weights)
 from repro_torch.models.transformer import ParamTree
 
+_NOT_PORTED = "not ported (see ROADMAP.md)"
 
-def make_prefill_step(model: Model):
+
+def serving_mesh(model: Model, mesh: Optional[spmd.Mesh] = None
+                 ) -> Optional[spmd.Mesh]:
+    """The mesh a step of ``model`` runs over: ``mesh``, else the active
+    one; None without either, and under ``Flags.seq_shard_kv``, whose
+    global layers decode through ``attention.seq_sharded_decode`` over the
+    active mesh as before (placing the whole model under it is not
+    ported: ROADMAP.md). Raises for a family not served on a mesh."""
+    mesh = mesh or active_mesh()
+    if mesh is None or model.flags.seq_shard_kv is not None:
+        return None
+    cfg = model.cfg
+    if cfg.enc_dec or RGLRU in cfg.layer_pattern:
+        what = "an encoder-decoder" if cfg.enc_dec else "RG-LRU layers"
+        raise NotImplementedError(f"{cfg.name}: serving {what} on a mesh "
+                                  f"is {_NOT_PORTED}")
+    return mesh
+
+
+def place_params(model: Model, params, mesh: spmd.Mesh):
+    """``params`` (a ``ParamTree`` or nested dict) placed on ``mesh`` by
+    ``launch.mesh.param_specs`` of ``model.axes()``; placed leaves stay."""
+    from repro_torch.launch.mesh import param_specs
+    tree = params.tree() if isinstance(params, ParamTree) else params
+    return spmd.place(tree, param_specs(tree, model.axes(), mesh))
+
+
+def init_mesh_cache(model: Model, batch: int, cache_len: int,
+                    mesh: spmd.Mesh) -> Dict[str, Any]:
+    """``model.init_cache`` laid out on ``mesh`` by ``launch.mesh.
+    cache_specs``: zero blocks, each shard's its own."""
+    from repro_torch.launch.mesh import cache_specs
+    abstract = model.init_cache(batch, cache_len, "meta")
+    specs = cache_specs(abstract, mesh, model.cfg)
+
+    def zeros(a, sh):
+        if isinstance(a, dict):
+            return {k: zeros(v, sh[k]) for k, v in a.items()}
+        return spmd.zeros(a.shape, a.dtype, sh)
+    return zeros(abstract, specs)
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax over the vocabulary [B,S] int32 of ``logits`` [B,S,V],
+    or inside a ``shard_map`` body whose weights split ``vocab`` of a
+    shard's slice of it: each shard's best and its index are gathered
+    over the model axis and the best of the bests taken, ties to the lower
+    index as ``argmax``'s."""
+    if not is_split("vocab"):
+        return logits.argmax(dim=-1).to(torch.int32)
+    v_loc = logits.shape[-1]
+    best, idx = logits.max(dim=-1)                  # the first best
+    idx = idx + spmd.axis_index(TP_AXIS) * v_loc
+    both = spmd.all_gather(torch.stack([best.float(), idx.float()]),
+                           TP_AXIS)                  # [tp, 2, B, S]
+    win = both[:, 0].argmax(dim=0)                  # the lowest shard
+    return both[:, 1].gather(0, win[None])[0].to(torch.int32)
+
+
+def _mesh_step(model: Model, mesh: spmd.Mesh, mode: str, params, batch,
+               cache, logits: bool):
+    """One prefill or decode step as one ``shard_map``: (next token [B,1]
+    as a ``Sharded``, the cache tree of ``Sharded`` written in place[, the
+    last position's logits as a ``Sharded``, vocab-split])."""
+    from repro_torch.launch.mesh import batch_specs
+    params = place_params(model, params, mesh)
+    p_named = flatten(params)
+    c_named = flatten(cache)
+    if not all(isinstance(t, spmd.Sharded) for _, t in c_named):
+        raise TypeError("a step on a mesh takes the cache "
+                        "init_mesh_cache makes")
+    b_names = sorted(batch)
+    n_p, n_c = len(p_named), len(c_named)
+    bspec = batch_specs(mode, mesh, batch["tokens"].shape[0])["batch"]
+    split = split_axes(model.axes(), params)
+    bax = bspec[0] if len(bspec) else None
+    logits_spec = spmd.P(bax, None, TP_AXIS) if "vocab" in split \
+        else spmd.P(bax)
+
+    @torch.no_grad()        # grad mode is per thread: the shards' own
+    def body(*leaves):
+        p = _unflatten([n for n, _ in p_named], leaves[:n_p])
+        c = _unflatten([n for n, _ in c_named], leaves[n_p:n_p + n_c])
+        b = dict(zip(b_names, leaves[n_p + n_c:]))
+        with split_weights(split):
+            x, c_out = model.apply(p, b, mode=mode, cache=c)
+            last = model.unembed(p, x[:, -1:])
+            out = (_greedy(last), *(t for _, t in flatten(c_out)))
+        return out + (last,) if logits else out
+
+    in_specs = tuple(t.spec for _, t in p_named + c_named) + \
+        (bspec,) * len(b_names)
+    out_specs = (bspec, *(t.spec for _, t in c_named)) + \
+        ((logits_spec,) if logits else ())
+    res = spmd.shard_map(body, mesh, in_specs, out_specs)(
+        *(t for _, t in p_named + c_named), *(batch[k] for k in b_names))
+    new_cache = _unflatten([n for n, _ in c_named], res[1:1 + n_c])
+    return (res[0], new_cache) + ((res[-1],) if logits else ())
+
+
+def make_prefill_step(model: Model, mesh: Optional[spmd.Mesh] = None,
+                      logits: bool = False):
     @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor], cache):
         """``batch``: ``tokens`` [B,S] and the model's other prefill
         inputs (``vision_embeds``, an encoder-decoder's ``frames``).
-        Returns (next_token [B,1] int32, cache after prefill)."""
+        Returns (next_token [B,1] int32, cache after prefill), with
+        ``logits`` the last position's logits [B,1,V] too. On a mesh
+        (``serving_mesh``) they are ``Sharded``, the cache's leaves too."""
+        m = serving_mesh(model, mesh)
+        if m is not None:
+            return _mesh_step(model, m, "prefill", params, batch, cache,
+                              logits)
         x, new_cache = model.apply(params, batch, mode="prefill",
                                    cache=cache)
-        logits = model.unembed(params, x[:, -1:])
-        return logits.argmax(dim=-1).to(torch.int32), new_cache
+        last = model.unembed(params, x[:, -1:])
+        out = (last.argmax(dim=-1).to(torch.int32), new_cache)
+        return out + (last,) if logits else out
     return prefill_step
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, mesh: Optional[spmd.Mesh] = None):
     @torch.no_grad()
     def decode_step(params, cache, tokens: torch.Tensor,
                     lengths: torch.Tensor):
         """tokens: [B,1] current token; lengths: [B] tokens so far.
         Returns (next_token [B,1] int32, cache), the cache written in
         place (a KV cache at slot ``lengths[b]``, a local layer's ring at
-        ``lengths[b] % window``)."""
+        ``lengths[b] % window``). On a mesh (``serving_mesh``) the token
+        is ``Sharded``, and ``tokens`` may be the last step's."""
         batch = {"tokens": tokens, "lengths": lengths}
+        m = serving_mesh(model, mesh)
+        if m is not None:
+            return _mesh_step(model, m, "decode", params, batch, cache,
+                              False)
         x, new_cache = model.apply(params, batch, mode="decode", cache=cache)
         logits = model.unembed(params, x)
         return logits.argmax(dim=-1).to(torch.int32), new_cache
@@ -93,6 +218,10 @@ def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
     cache_objs)`` after the loop's barrier; ``cache_objs`` maps each cache
     leaf's dotted path (``"k"``, ``"periods.5.v"``,
     ``"decoder.cross.k"``) to its object."""
+    if serving_mesh(model) is not None or any(
+            isinstance(t, spmd.Sharded) for t in (tokens, lengths)):
+        raise NotImplementedError(f"tasked_decode_loop on a mesh is "
+                                  f"{_NOT_PORTED}")
     decode = make_decode_step(model)
     tree = params.tree() if isinstance(params, ParamTree) else params
     named = flatten(tree)

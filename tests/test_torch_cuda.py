@@ -1184,3 +1184,41 @@ def test_blockwise_attention_gradients_on_bf16_operands(cuda):
     for a, b in zip(got, want):
         err = (a.float() - b).norm() / b.norm()
         assert err <= 2e-2, err
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh of shards of the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["yi-9b", "llama4-scout-17b-16e"])
+def test_served_on_four_shards_of_the_card_equals_the_cpu_mesh(cuda, arch):
+    """The smoke model (float32) served by the Engine under a (1, 4) mesh
+    of shards of the card, each on its own stream, prompts of 128 (the
+    flash kernel at the shards' heads, once a layer and shard): the same
+    tokens as over four CPU shards (held to the JAX package on the CPU),
+    and the prefill's last logits within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    from repro_torch.models.sharding import use_sharding
+    cfg = get_smoke_config(arch)
+    model = build_smoke(cfg, moe_mode="ep", use_flash_kernel=True)
+    cpu = torch.device("cpu")
+    params = model.init(torch.Generator().manual_seed(0), cpu).tree()
+    toks = torch.randint(0, cfg.vocab, (4, 128),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in (cpu, cuda):
+        mesh = make_smoke_mesh(1, 4, devices=[dev] * 4)
+        with use_sharding(mesh):
+            eng = Engine(model, {k: v for k, v in params.items()}, 4, 136)
+            n = LAUNCHES["flash_attention"]
+            logits = eng.prefill(toks.to(dev), logits=True)[2]
+            launched = LAUNCHES["flash_attention"] - n
+            out[dev.type] = (logits.cpu(), eng.generate(toks.to(dev), 6)
+                             .cpu(), launched)
+    assert out["cuda"][2] == 4 * cfg.n_layers and out["cpu"][2] == 0
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])

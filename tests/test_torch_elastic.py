@@ -203,6 +203,42 @@ def test_straggler_drained_on_injected_clock():
             er.close()
 
 
+def test_recovery_without_a_copy_leaves_the_world_as_it_was():
+    """A live rank whose heartbeats starve past the timeout before any
+    copy of its chunk exists (under load, before ``run_cluster_elastic``'s
+    first replica): the recovery raises, and the owner map, the health
+    and the epoch stay as they were. The monitor thread swallows that
+    error, so a commit against the owner map under the unchanged epoch
+    must still find every chunk at its owner (it found none, a KeyError,
+    when the failed recovery had already remapped the chunk). Once a copy
+    exists the next poll recovers from it."""
+    t = [0.0]
+    with Cluster(3, _cfg()) as c:
+        owner, data = _chunks(c, 3)
+        er = ElasticRuntime(c, owner, key_fn=lambda o: ("chunk", o),
+                            clock=lambda: t[0], heartbeat_interval_s=0.02,
+                            heartbeat_timeout_s=0.5)
+        try:
+            before = dict(owner.items())
+            c.ranks[2]._hb_dst = None           # rank 2 falls silent
+            _advance(er, t, 0.6, {0, 1})
+            with pytest.raises(RuntimeError, match="chunk 2 lost"):
+                er.poll()
+            assert dict(owner.items()) == before and er.epoch == 0
+            assert sorted(er.controller.alive_workers()) == [0, 1, 2]
+            for oid, r in before.items():
+                assert ("chunk", oid) in c.ranks[r].objects
+            # a replica of chunk 2 on rank 1: the same detection recovers
+            c.ranks[1].register_object(
+                ("chunk", 2), c.ranks[1].runtime.hetero_object(data[2]))
+            assert er.poll()["dead"] == [2]
+            assert er.epoch == 1 and owner.owner(2) != 2
+            np.testing.assert_array_equal(
+                c.ranks[owner.owner(2)].objects[("chunk", 2)].get(), data[2])
+        finally:
+            er.close()
+
+
 # ---------------------------------------------------------------------------
 # run_cluster_elastic
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package ``repro``, and the CUDA build is imported
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+card tools under ``tools/`` import neither JAX nor the JAX package
+``repro``, and the CUDA build is imported
 only when a CUDA tensor reaches a kernel wrapper."""
 import os
 import pathlib
@@ -15,7 +16,7 @@ FORBIDDEN = re.compile(
 
 def _port_sources():
     return sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"]
+        [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("*.py"))
 
 
 def test_port_sources_never_import_jax_or_repro():

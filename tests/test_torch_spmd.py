@@ -9,6 +9,7 @@ also runs at 3 and 4 shards against numpy oracles.
 """
 import sys
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -300,6 +301,21 @@ def test_a_failing_shard_fails_the_call_and_frees_its_peers():
     t.start()
     t.join(timeout=30)
     assert not t.is_alive() and done
+
+
+def test_a_shard_skipping_a_collective_fails_the_call():
+    """One shard returns without a collective its peers make (the shards
+    take turns between collectives): the call raises at once instead of
+    reading a stale post or waiting out the timeout."""
+    def body(a):
+        if spmd.axis_index("data") == 2:
+            return a
+        return spmd.psum(a, "data")
+
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="skipped a collective"):
+        spmd.shard_map(body, _tmesh(4), P("data"), P("data"))(torch.ones(4))
+    assert time.perf_counter() - t0 < 30
 
 
 def test_collectives_under_thread_switching_stress():

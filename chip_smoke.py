@@ -118,7 +118,17 @@ the port's main path through the tasking runtime:
     resume at one layer bit for bit the uninterrupted run under
     deterministic algorithms; ``compressed_pmean`` over four shards of
     the card against the stacked form, and ``run_elastic`` 4 -> 2 shards
-    against an uninterrupted 2-shard run. Beside phase 2, ``window_attention`` on bf16
+    against an uninterrupted 2-shard run;
+  * phase 20, training on a mesh: the same 12-layer yi-9b drawn straight
+    onto a (1, 4) production mesh of four shards of the card (each
+    shard's share of the state as its specs give it) and trained
+    tensor-parallel, each step one ``shard_map`` whose shards run the
+    forward and backward on their blocks: the first step's loss and
+    every gradient leaf against the one-card step on the same weights and
+    batch, then steps on one repeated batch whose loss must fall, with
+    no kernel launch (ms and rendezvous a step, a traced step's busy
+    share, peak memory), under a watchdog that fails the phase instead
+    of hanging; the allocation back after. Beside phase 2, ``window_attention`` on bf16
     operands against its products on float32 copies at a gemma3 and a
     recurrentgemma local layer's prefill shapes, both timed; phase 2's
     flash rows also run at olmoe's and llama4-scout's head layouts, the
@@ -143,6 +153,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -232,6 +243,22 @@ TRAIN_COS_MIN = 0.99
 TRAIN_OD, TRAIN_OD_CE_TOL, TRAIN_OD_M_TOL = 4, 1e-2, 2e-2
 TRAIN_OD_GN_TOL, TRAIN_OD_SHARE_MAX = 1e-3, 1e-3
 RESUME_LAYERS, RESUME_STEPS, RESUME_AT = 1, 6, 3
+# phase 20: phase 16's model and batch trained over a (1, 4) production
+# mesh of shards of the card (tensor-parallel), MESH_TRAIN_STEPS steps on
+# the repeated batch; its first loss within MESH_TRAIN_LOSS_RTOL of the
+# one-card step's (bf16: the mesh adds partial sums in float32 and rounds
+# them once, one card rounds each product; the two differ by about 1e-6),
+# each gradient leaf's cosine with the one-card step's at least
+# TRAIN_COS_MIN (its direction) and its norm within MESH_TRAIN_NORM_RTOL of
+# it (its scale: a loss seeded with 1 in place of 1 / its replicas, or a
+# replicated leaf's gradient summed twice or not at all, keeps the
+# direction and moves the norm by a factor of 2 or more), and so the
+# step's grad_norm; the phase fails, and the script exits, if it has not
+# ended after MESH_TRAIN_WATCHDOG_S (a collective left waiting in a
+# backward would otherwise hang the run)
+MESH_TRAIN_SHARDS, MESH_TRAIN_STEPS = 4, 4
+MESH_TRAIN_LOSS_RTOL, MESH_TRAIN_NORM_RTOL = 1e-4, 1e-2
+MESH_TRAIN_WATCHDOG_S = 600
 COMPRESS_SHARDS, COMPRESS_TOL = 4, 1e-6
 ELASTIC_TRAIN_RTOL = 1e-4
 # the EP check after each: one full-width MoE layer's moe_ep over a (1, 4)
@@ -3258,6 +3285,199 @@ def compression_elastic_phase(card: str) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 20: training on a mesh of shards of the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def watchdog(seconds: float, what: str):
+    """While open, a timer that ends the process with a message after
+    ``seconds``: a phase that hangs fails instead of holding the run."""
+    def expire():
+        print(f"chip_smoke: {what} did not end within {seconds:.0f} s",
+              file=sys.stderr, flush=True)
+        os._exit(3)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def state_shares(state, mesh) -> dict:
+    """Each shard's bytes of a placed ``TrainState`` (GB) and what the
+    leaves' specs give it: a leaf's bytes over the shards of the axes
+    that split it."""
+    from repro_torch.train.optimizer import tree_leaves
+    o = state.opt
+    leaves = (tree_leaves(state.params) + tree_leaves(o.m)
+              + tree_leaves(o.v) + tree_leaves(o.master) + [o.step])
+    held = [0] * mesh.size
+    want = 0
+    for x in leaves:
+        n = math.prod(mesh.shape[a] for entry in x.spec if entry
+                      for a in ((entry,) if isinstance(entry, str)
+                                else entry))
+        want += math.prod(x.shape) * x.shards[0].element_size() // n
+        for i, t in enumerate(x.shards):
+            held[i] += t.numel() * t.element_size()
+    return {"shard_state_gb": [h / 1e9 for h in held],
+            "spec_state_gb": want / 1e9}
+
+
+def mesh_train_phase(ops, card: str) -> dict:
+    """Phase 20: phase 16's yi-9b (full width, ``TRAIN_LAYERS`` layers,
+    bf16, remat "dots") on phase 16's batch, trained over
+    ``make_production_mesh`` of ``MESH_TRAIN_SHARDS`` shards of the card.
+    The one-card gradients first (weights drawn from the seed, then
+    freed, the gradients kept on the host); then the state drawn straight
+    onto the mesh from the same seed (``init_train_state(..., mesh=)``:
+    the same weights), its gradients held to the one card's (each leaf's
+    cosine and norm, and the global norm), and
+    ``MESH_TRAIN_STEPS`` steps of ``make_train_step`` on the repeated
+    batch, timed, their rendezvous counted, one more traced."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_grad_fn, make_mesh_grad_fn,
+                                   make_train_step)
+    from repro_torch.train.optimizer import (global_norm, tree_flatten,
+                                             tree_map)
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = allocated_without_workspaces()
+    check(mem0 < MEMORY_BEFORE_SERVE, f"phase 20: {mem0} B still "
+          f"allocated on the card before the weights load")
+    model = train_model(TRAIN_LAYERS)
+    cfg = model.cfg
+    batch = train_batch(cfg, 0, dev)
+    r = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
+         "seq": TRAIN_SEQ, "remat": model.flags.remat,
+         "shards": MESH_TRAIN_SHARDS, "steps": MESH_TRAIN_STEPS}
+
+    # -- the one-card step's gradients, kept on the host --
+    params = tree_map(lambda p: p.detach(), model.init(
+        torch.Generator(device=dev).manual_seed(SEED), dev).tree())
+    g1, m1 = make_grad_fn(model)(params, batch)
+    host = [(k, v.to("cpu")) for k, v in tree_flatten(g1)]
+    r["one_card_loss"] = float(m1["ce"] + m1["aux"])
+    r["one_card_grad_norm"] = float(global_norm(g1))
+    del params, g1, m1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the state drawn onto the mesh, its gradients against them --
+    mesh = make_production_mesh(devices=[dev] * MESH_TRAIN_SHARDS)
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev)
+                             .manual_seed(SEED), dev, mesh=mesh)
+    torch.cuda.synchronize()
+    r["draw_s"] = time.perf_counter() - t0
+    r.update(state_shares(state, mesh))
+    gm, mm = make_mesh_grad_fn(model)(state.params, batch)
+    r["mesh_loss"] = float(mm["ce"] + mm["aux"])
+    r["mesh_grad_norm"] = float(mm["grad_norm"])
+    cos, ratio = {}, {}
+    for (k, a), (_, b) in zip(host, tree_flatten(gm)):
+        a = a.to(dev).float().flatten()
+        b = b.full().float().flatten()
+        na, nb = a.norm(), b.norm()
+        cos["/".join(k)] = float(torch.dot(a, b) / (na * nb)
+                                 .clamp_min(1e-30))
+        ratio["/".join(k)] = float(nb / na.clamp_min(1e-30))
+        del a, b
+    r["min_cosine"] = min(cos.values())
+    r["cosine"] = cos
+    r["norm_ratio"] = ratio
+    r["max_norm_ratio_err"] = max(abs(x - 1) for x in ratio.values())
+    del gm, mm, host
+    gc.collect()
+
+    # -- the timed steps on the repeated batch --
+    step = make_train_step(model, TrainConfig(opt=train_opt()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    losses, ms, rdv = [], [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        with counted_rendezvous() as count:
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rdv.append(count[0])
+        losses.append(float(met["loss"]))
+        r.setdefault("first_step_grad_norm", float(met["grad_norm"]))
+    r["launches"] = dict(ops.LAUNCHES)
+    r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r.update(losses=losses, step_ms=ms, rendezvous_per_step=rdv,
+             grad_norm=float(met["grad_norm"]),
+             ms_per_step=float(np.median(ms[1:])))
+    r["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / r["ms_per_step"] * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    summary = _trace_summary(prof)
+    if "device_busy_ms" in summary:
+        summary["step_ms"] = (t1 - t0) * 1e3
+        summary["busy_share_of_step"] = summary["device_busy_ms"] / (
+            summary["step_ms"])
+    r["trace"] = summary
+    del state, step, batch, prof, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = allocated_without_workspaces()
+    r.update(allocated_at_start_mb=mem0 / 2**20,
+             allocated_at_end_mb=mem1 / 2**20)
+    print(f"train on a (1, {MESH_TRAIN_SHARDS}) mesh, phase 20 ({card}): "
+          + json.dumps(r))
+    shares = r["shard_state_gb"]
+    check(all(abs(g - shares[0]) < 1e-9 for g in shares)
+          and abs(sum(shares) - r["spec_state_gb"] * MESH_TRAIN_SHARDS)
+          <= 1e-6 * sum(shares),
+          f"phase 20: the shards hold {shares} GB of state, their specs "
+          f"give {r['spec_state_gb']} GB each")
+    check(abs(r["mesh_loss"] - r["one_card_loss"])
+          <= MESH_TRAIN_LOSS_RTOL * r["one_card_loss"],
+          f"phase 20: the mesh's first loss {r['mesh_loss']} vs one card's "
+          f"{r['one_card_loss']}, relative tolerance {MESH_TRAIN_LOSS_RTOL}")
+    check(r["min_cosine"] >= TRAIN_COS_MIN,
+          f"phase 20: a gradient leaf's cosine with the one-card step's is "
+          f"{r['min_cosine']} < {TRAIN_COS_MIN}: "
+          f"{sorted(cos.items(), key=lambda kv: kv[1])[:3]}")
+    check(r["max_norm_ratio_err"] <= MESH_TRAIN_NORM_RTOL,
+          f"phase 20: a gradient leaf's norm over the one-card step's is "
+          f"not within {MESH_TRAIN_NORM_RTOL} of 1: "
+          f"{sorted(ratio.items(), key=lambda kv: -abs(kv[1] - 1))[:3]}")
+    for what in ("mesh_grad_norm", "first_step_grad_norm"):
+        check(abs(r[what] - r["one_card_grad_norm"])
+              <= MESH_TRAIN_NORM_RTOL * r["one_card_grad_norm"],
+              f"phase 20: {what} {r[what]} vs one card's "
+              f"{r['one_card_grad_norm']}, relative tolerance "
+              f"{MESH_TRAIN_NORM_RTOL}")
+    check(all(math.isfinite(x) for x in losses),
+          f"phase 20: non-finite loss {losses}")
+    check(abs(losses[0] - r["mesh_loss"]) <= 1e-5 * r["mesh_loss"],
+          f"phase 20: the first step's loss {losses[0]} is not the "
+          f"gradients' {r['mesh_loss']}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"phase 20: the loss on a repeated batch does not fall every "
+          f"step: {losses}")
+    check(not any(r["launches"].values()),
+          f"phase 20: the train steps launched hand-written kernels "
+          f"{r['launches']}")
+    check(abs(mem1 - mem0) <= MEMORY_SLACK,
+          f"phase 20: {mem1} B allocated after, {mem0} B before")
+    return r
+
+
 def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3481,6 +3701,11 @@ def main() -> int:
     train_phase(ops, card)
     resume_phase(card)
     compression_elastic_phase(card)
+
+    # -- phase 20: yi-9b trained over a (1, 4) mesh of shards of the card
+    # (prints its line before its checks) --------------------------------
+    with watchdog(MESH_TRAIN_WATCHDOG_S, "phase 20 (training on a mesh)"):
+        mesh_train_phase(ops, card)
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],

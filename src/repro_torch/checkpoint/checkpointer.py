@@ -13,7 +13,13 @@ restores in the other.
 
 Restore is device-agnostic: leaves are loaded on host and placed on the
 *current* device (``restore(..., device=)``), so a checkpoint restores onto
-a shrunk or grown world (elastic rescale path). A state may be nested
+a shrunk or grown world (elastic rescale path). A state placed on a mesh
+(leaves ``spmd.Sharded``) is saved leaf by leaf through the host, each
+shard's block copied straight into the host array, so no card ever holds
+more than its own blocks; the files are those of the same state on one
+device, and ``restore(..., shardings=)`` places each leaf onto any mesh by
+a matching tree of ``spmd.NamedSharding`` (``launch.mesh.opt_specs``), as
+JAX's mesh-agnostic restore does. A state may be nested
 dicts, sequences and dataclasses (``train.TrainState``: leaves
 ``params__...``, ``opt__step``, ``opt__m__...``); its reference for a
 restore may be a state of ``meta``-device tensors
@@ -110,7 +116,11 @@ def _unflatten(tree: Any, leaf_fn, path: Tuple = ()) -> Any:
 
 def _host_leaf(v: Any) -> Tuple[np.ndarray, str]:
     """A leaf as the host array that is written (a private copy of a
-    tensor; a bf16 leaf as its uint16 bits) and its manifest dtype."""
+    tensor; a placed leaf joined on the host; a bf16 leaf as its uint16
+    bits) and its manifest dtype."""
+    from repro_torch.distributed import spmd
+    if isinstance(v, spmd.Sharded):
+        v = v.full("cpu")
     if isinstance(v, torch.Tensor):
         t = v.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
@@ -237,16 +247,29 @@ class Checkpointer:
         return arr
 
     def restore(self, step: int, abstract_state: Any,
-                device: Optional[Any] = None) -> Any:
+                device: Optional[Any] = None, shardings: Any = None) -> Any:
         """Load ``step`` into the structure of ``abstract_state``, each
         leaf in its reference leaf's dtype. With ``device`` every leaf is
         a tensor there (device-agnostic restore); without, a leaf is a
         CPU tensor where its reference is a tensor or the leaf is
-        bfloat16, and a numpy array otherwise. Every leaf is
-        digest/shape/dtype-verified before placement."""
+        bfloat16, and a numpy array otherwise. With ``shardings`` (a tree
+        like the state of ``spmd.NamedSharding``) every leaf is placed
+        from the host by its own, each shard a tensor of its own
+        (``spmd.place(..., share=False)``: a state the shards update in
+        place). Every leaf is digest/shape/dtype-verified before
+        placement."""
         d = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)["leaves"]
+        if shardings is not None:
+            from repro_torch.distributed import spmd
+            placed = dict(_flatten(shardings))
+            host = self.restore(step, abstract_state)
+
+            def put(path, leaf):
+                return spmd.place({"x": leaf}, {"x": placed[path]},
+                                  consume=True, share=False)["x"]
+            return _unflatten(host, put)
 
         def leaf(path, ref):
             key = _key_of(path)

@@ -289,6 +289,15 @@ def train_state_from_jax(state, device="cpu"):
         ef=None if state.ef is None else _plain(state.ef, device))
 
 
+def train_state_placed_from_jax(state, model, mesh):
+    """A JAX ``TrainState`` of numpy leaves (``train_state_from_jax``'s
+    input) placed on ``mesh`` by ``launch.mesh.place_train_state``: each
+    leaf moved from the host onto the shards' devices one at a time."""
+    from repro_torch.launch.mesh import place_train_state
+    return place_train_state(train_state_from_jax(state, "cpu"),
+                             model.axes(), mesh, consume=True)
+
+
 def train_state_to_numpy(state):
     """The port's ``TrainState`` with every tensor leaf as a numpy array
     (``to_numpy``; bfloat16 leaves need a numpy bfloat16), in the port's

@@ -74,6 +74,7 @@ mark step edges with ``runtime.step_boundary()`` (a no-op otherwise).
 """
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -399,13 +400,23 @@ class GraphTracer:
     def _capture(self, dev: TorchDevice, ch: _Chain, inputs) -> None:
         """Capture ``ch`` on ``inputs`` (the window objects' own tensors)
         as a CUDA graph on the device's compute stream. The capture runs
-        no kernel: the caller replays it."""
+        no kernel: the caller replays it. Python's garbage collector is
+        off meanwhile: a collection could free a dead cycle holding an
+        earlier CUDA graph, whose destruction the capture forbids and
+        which would spoil it (``torch.cuda.graph`` no longer collects
+        before it captures)."""
         graph = torch.cuda.CUDAGraph()
-        with kernels.recording_launches() as launches, \
-                torch.cuda.device(dev.torch_device), \
-                torch.cuda.graph(graph, stream=dev.compute_stream,
-                                 capture_error_mode="thread_local"):
-            outs = ch.fn(*inputs)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.recording_launches() as launches, \
+                    torch.cuda.device(dev.torch_device), \
+                    torch.cuda.graph(graph, stream=dev.compute_stream,
+                                     capture_error_mode="thread_local"):
+                outs = ch.fn(*inputs)
+        finally:
+            if collecting:
+                gc.enable()
         ch.graph, ch.static_in, ch.static_out = graph, tuple(inputs), outs
         ch.launches = launches
 

@@ -37,11 +37,29 @@ Specs. ``P`` stands for ``PartitionSpec``: one entry per leading dim, each
 ``out_specs`` for the body's results. An output replicated along an axis
 is taken from the shard at coordinate 0 of it.
 
+Autograd. A shard posts a collective's tensor detached, so a peer's copy
+records no edge into another thread's graph; each differentiable
+collective is a ``torch.autograd.Function`` whose backward is its exact
+adjoint over the whole mesh, itself a collective (``psum``'s is ``psum``,
+``all_gather``'s a ``psum`` and this shard's slice, ``all_to_all``'s the
+inverse exchange; ``pmean`` follows from ``psum``). ``pmax`` carries no
+gradient, and ``ppermute`` (the halo exchange's, never differentiated)
+refuses a tensor that requires grad. Each shard's backward then gives the
+gradient of the sum of the shards' objectives, so a body whose loss is
+replicated over an axis seeds it with 1 / its size, and a leaf replicated
+over an axis sums its shards' gradients (``train.train_step``). A body
+runs with autograd's multithreaded backward off, so that a backward it
+runs stays on the shard's thread, where the adjoints meet (on a card the
+engine would otherwise run it on a device thread shared by the shards).
+A ``shard_map`` called outside a body on inputs that require grad is
+differentiable as a whole (``_ShardMapFn``).
+
 Placement. ``NamedSharding`` pairs a mesh with a spec; ``place`` puts a
 whole tree of tensors onto a mesh by a matching tree of them, leaf by leaf
 (``launch.mesh.param_specs`` / ``cache_specs`` build the trees), ``zeros``
-makes a laid-out zero value (a cache), and ``reshard`` lays a ``Sharded``
-value out anew (``models.sharding.constrain``). ``shard_map`` takes a
+makes a laid-out zero value (a cache), ``map_shards`` a value of the same
+layout from each block, and ``reshard`` lays a ``Sharded`` value out anew
+(``models.sharding.constrain``). ``shard_map`` takes a
 placed leaf as it is. ``current_mesh`` tells a body it runs in one.
 """
 from __future__ import annotations
@@ -269,24 +287,26 @@ def _block_of(x: torch.Tensor, region: Tuple[slice, ...], device,
     return out
 
 
-def place(tree, shardings, *, consume: bool = False):
+def place(tree, shardings, *, consume: bool = False, share: bool = True):
     """A nested dict of tensors put on a mesh leaf by leaf, by the
     matching tree of ``NamedSharding`` (``launch.mesh.param_specs``): a
     nested dict of ``Sharded``. A leaf the spec splits gives each shard a
     contiguous copy of its block; a replicated one is shared by the shards
-    on its own device and copied to the others. A stacked leaf is copied
-    one leading slice at a time (``_block_of``). With ``consume`` each
-    leaf is dropped from ``tree`` as soon as it is placed, so that the
-    source and the placed tree are never both whole on a device. A leaf
-    that is already ``Sharded`` with its sharding stays as it is."""
+    on its own device (with ``share``; else each has a copy of its own,
+    as a state the shards update in place needs) and copied to the
+    others. A stacked leaf is copied one leading slice at a time
+    (``_block_of``). With ``consume`` each leaf is dropped from ``tree``
+    as soon as it is placed, so that the source and the placed tree are
+    never both whole on a device. A leaf that is already ``Sharded`` with
+    its sharding stays as it is (``unshare``d without ``share``)."""
     out = {}
     for key in list(tree):
         leaf, sh = tree[key], shardings[key]
         if isinstance(leaf, dict):
-            out[key] = place(leaf, sh, consume=consume)
+            out[key] = place(leaf, sh, consume=consume, share=share)
         elif isinstance(leaf, Sharded) and leaf.mesh is sh.mesh \
                 and tuple(leaf.spec) == tuple(sh.spec):
-            out[key] = leaf
+            out[key] = leaf if share else unshare(leaf)
         else:
             if isinstance(leaf, Sharded):
                 leaf = leaf.full()
@@ -294,12 +314,25 @@ def place(tree, shardings, *, consume: bool = False):
             _check_spec(sh.mesh, sh.spec, leaf.dim())
             out[key] = _recorded(sh.mesh, sh.spec, [
                 _block_of(leaf, _blocks(sh.mesh, sh.spec, i, leaf.shape),
-                          dev, share=True)
+                          dev, share=share)
                 for i, dev in enumerate(sh.mesh.devices)])
         if consume:
             del tree[key]
         del leaf
     return out
+
+
+def shares(x: Sharded) -> bool:
+    """Whether two shards of ``x`` hold one tensor (``place``'s replicas
+    on one device)."""
+    ptrs = [t.data_ptr() for t in x.shards if t.numel()]
+    return len(set(ptrs)) != len(ptrs)
+
+
+def unshare(x: Sharded) -> Sharded:
+    """``x`` with a tensor of its own for every shard: where shards share
+    one (``shares``), a copy for each."""
+    return map_shards(torch.clone, x) if shares(x) else x
 
 
 def zeros(shape: Sequence[int], dtype: torch.dtype,
@@ -311,6 +344,22 @@ def zeros(shape: Sequence[int], dtype: torch.dtype,
     local = sharding.shard_shape(shape)
     return _recorded(mesh, spec, [torch.zeros(local, dtype=dtype, device=d)
                                   for d in mesh.devices])
+
+
+def map_shards(fn: Callable[[torch.Tensor], torch.Tensor],
+               x: Sharded) -> Sharded:
+    """``fn`` of each shard's block of ``x`` (on its device, after its
+    event), laid out as ``x`` is: a value of the same spec, each block
+    ``fn``'s result (a float32 copy of a placed leaf, say)."""
+    shards = []
+    for t, ev in zip(x.shards, x.events):
+        if ev is None:
+            shards.append(fn(t))
+            continue
+        torch.cuda.current_stream(t.device).wait_event(ev)
+        with torch.cuda.device(t.device):
+            shards.append(fn(t))
+    return _recorded(x.mesh, x.spec, shards)
 
 
 def reshard(x: Sharded, spec: P) -> Sharded:
@@ -469,10 +518,12 @@ def _ctx():
 
 class _Posted:
     """A tensor a shard posts to a collective, with the event its readers
-    wait on."""
+    wait on. It is posted detached: a peer's copy of it records no
+    autograd edge into this shard's graph (the collectives' gradients come
+    from their adjoints, module docstring)."""
 
     def __init__(self, t: torch.Tensor):
-        self.t = t
+        self.t = t.detach()
         self.event = None
         if t.device.type == "cuda":
             self.event = torch.cuda.Event()
@@ -537,7 +588,12 @@ def ppermute(x: torch.Tensor, axis_name: str,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Shard ``src`` sends ``x`` to ``dst`` along ``axis_name`` for each
     ``(src, dst)`` of ``perm``; a shard that no pair names as its ``dst``
-    gets zeros. A source may send to several shards."""
+    gets zeros. A source may send to several shards. It has no adjoint:
+    a tensor that requires grad is refused, since its copy would carry
+    none."""
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("ppermute is not differentiable: its input "
+                           "requires grad")
     me = axis_index(axis_name)
     n = axis_size(axis_name)
     src_of: Dict[int, int] = {}
@@ -564,8 +620,21 @@ def _reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
     return acc
 
 
+class _PSum(torch.autograd.Function):
+    """``psum``; its adjoint is itself."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        ctx.axis_name = axis_name
+        return _reduce(x, axis_name, torch.add)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g.contiguous(), ctx.axis_name, torch.add), None
+
+
 def psum(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    return _reduce(x, axis_name, torch.add)
+    return _PSum.apply(x, axis_name)
 
 
 def pmean(x: torch.Tensor, axis_name: AxisNames) -> torch.Tensor:
@@ -579,16 +648,8 @@ def pmean(x: torch.Tensor, axis_name: AxisNames) -> torch.Tensor:
     return x / n
 
 
-def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
-               concat_axis: int, *, tiled: bool = False) -> torch.Tensor:
-    """``x`` split along ``split_axis`` into one chunk per shard along
-    ``axis_name``: chunk ``j`` goes to the shard at coordinate ``j``,
-    which concatenates what it receives along ``concat_axis`` in the
-    order of the senders' coordinates. Each shard copies only the chunk
-    addressed to it, a view of the sender's posted tensor. Only JAX's
-    ``tiled=True`` form."""
-    if not tiled:
-        raise NotImplementedError("all_to_all: only tiled=True is ported")
+def _all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
     n = axis_size(axis_name)
     me = axis_index(axis_name)
     if x.shape[split_axis] % n:
@@ -608,10 +669,34 @@ def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
     return out
 
 
-def all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    """Every shard's ``x`` along ``axis_name``, stacked on a new leading
-    axis in coordinate order (``jax.lax.all_gather`` untiled): the same
-    bits on every shard."""
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all``; its adjoint is the inverse exchange (split and
+    concatenated axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, split_axis, concat_axis):
+        ctx.args = (axis_name, concat_axis, split_axis)
+        return _all_to_all(x, axis_name, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), *ctx.args), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
+               concat_axis: int, *, tiled: bool = False) -> torch.Tensor:
+    """``x`` split along ``split_axis`` into one chunk per shard along
+    ``axis_name``: chunk ``j`` goes to the shard at coordinate ``j``,
+    which concatenates what it receives along ``concat_axis`` in the
+    order of the senders' coordinates. Each shard copies only the chunk
+    addressed to it, a view of the sender's posted tensor. Only JAX's
+    ``tiled=True`` form."""
+    if not tiled:
+        raise NotImplementedError("all_to_all: only tiled=True is ported")
+    return _AllToAll.apply(x, axis_name, split_axis, concat_axis)
+
+
+def _all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     n = axis_size(axis_name)
     me = axis_index(axis_name)
     posted = _exchange(x)
@@ -625,8 +710,33 @@ def all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     return out
 
 
+class _AllGather(torch.autograd.Function):
+    """``all_gather``; its adjoint sums the gradient over the shards and
+    keeps this shard's slice."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        ctx.axis_name = axis_name
+        return _all_gather(x, axis_name)
+
+    @staticmethod
+    def backward(ctx, g):
+        a = ctx.axis_name
+        return _reduce(g.contiguous(), a, torch.add)[axis_index(a)], None
+
+
+def all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """Every shard's ``x`` along ``axis_name``, stacked on a new leading
+    axis in coordinate order (``jax.lax.all_gather`` untiled): the same
+    bits on every shard."""
+    return _AllGather.apply(x, axis_name)
+
+
 def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:
-    return _reduce(x, axis_name, torch.maximum)
+    """The maximum over the shards along ``axis_name``. It carries no
+    gradient: its one use under autograd is the shift of a stable
+    logsumexp, which the result does not depend on."""
+    return _reduce(x.detach(), axis_name, torch.maximum)
 
 
 def bulk_barrier(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -652,10 +762,143 @@ def _split(arg, spec: P, mesh: Mesh) -> List[torch.Tensor]:
     return device_put(arg, mesh, spec).shards
 
 
+def _run_shards(mesh: Mesh, job: Callable[[int], tuple],
+                blocks: Sequence[List[torch.Tensor]] = ()) -> List[tuple]:
+    """``job(i)`` for every shard ``i`` of ``mesh`` in the shard's worker
+    thread, with its coordinates bound (the collectives' rendezvous), its
+    device and stream current, the shards taking turns (``_Group``), and
+    autograd's backward run on the calling thread
+    (``set_multithreading_enabled(False)``: on a card the engine would
+    otherwise run it on a device thread of its own, shared by the shards
+    and outside their bindings). ``blocks`` are the inputs' blocks the job
+    reads. Returns (``job(i)``, the event recorded on shard ``i``'s stream
+    after it) for each shard."""
+    # each shard's stream starts after the caller's work on its device
+    for dev, stream in zip(mesh.devices, mesh.streams):
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+    group = _Group(mesh.size)
+    results: List = [None] * mesh.size
+    errors: List[BaseException] = []
+
+    def body(i: int) -> None:
+        dev, stream = mesh.devices[i], mesh.streams[i]
+        _CTX.mesh, _CTX.index, _CTX.coords = mesh, i, mesh.coords(i)
+        _CTX.group, _CTX.count = group, 0
+        try:
+            group.wait_turn(i)
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(
+                    torch.autograd.set_multithreading_enabled(False))
+                if stream is not None:
+                    stack.enter_context(torch.cuda.device(dev))
+                    stack.enter_context(torch.cuda.stream(stream))
+                    for b in blocks:
+                        b[i].record_stream(stream)
+                out = job(i)
+                ev = None
+                if stream is not None:
+                    ev = torch.cuda.Event()
+                    ev.record(stream)
+                results[i] = (out, ev)
+            group.finish(i)
+        except BaseException as e:   # re-raised by the caller below
+            errors.append(e)
+            group.abort()            # wake peers held at a collective
+        finally:
+            # the group holds the last collectives' posted tensors
+            _CTX.mesh = _CTX.group = None
+
+    mesh.run(body)
+    if errors:
+        raise next((e for e in errors
+                    if not isinstance(e, threading.BrokenBarrierError)),
+                   errors[0])
+    return results
+
+
+def _outputs(fn: Callable, single_out: bool, n_out: int, args) -> tuple:
+    out = fn(*args)
+    out = (out,) if single_out else tuple(out)
+    if len(out) != n_out:
+        raise ValueError(f"shard_map body returned {len(out)} values for "
+                         f"{n_out} out_specs")
+    return out
+
+
+class _ShardMapFn(torch.autograd.Function):
+    """A ``shard_map`` called outside a body on inputs that require grad:
+    the forward runs each shard's body recording its own graph (from
+    detached leaves of its blocks); the backward runs each shard's
+    backward in its own thread (another ``_run_shards``), where the
+    collectives' adjoints meet, and adds each shard's gradient into its
+    block of the input (the replicas of a replicated input sum). Its
+    outputs are the shards' results, output-major."""
+
+    @staticmethod
+    def forward(ctx, call, *args):
+        mesh, per_arg = call["mesh"], call["per_arg"]
+        diff = [j for j, a in enumerate(args)
+                if isinstance(a, torch.Tensor) and a.requires_grad]
+        leaves: List = [None] * mesh.size
+        outs: List = [None] * mesh.size
+
+        def job(i):
+            with torch.enable_grad():
+                xs = [b[i] for b in per_arg]
+                for j in diff:
+                    xs[j] = xs[j].detach().requires_grad_()
+                leaves[i] = [xs[j] for j in diff]
+                outs[i] = _outputs(call["fn"], call["single_out"],
+                                   call["n_out"], xs)
+            return tuple(o.detach() for o in outs[i])
+
+        results = _run_shards(mesh, job, per_arg)
+        ctx.call, ctx.diff, ctx.leaves, ctx.outs = call, diff, leaves, outs
+        ctx.shapes = [tuple(a.shape) if isinstance(a, torch.Tensor)
+                      else None for a in args]
+        ctx.devices = [getattr(a, "device", None) for a in args]
+        call["events"] = [ev for _, ev in results]
+        return tuple(results[i][0][k] for k in range(call["n_out"])
+                     for i in range(mesh.size))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        call, diff = ctx.call, ctx.diff
+        mesh, n = call["mesh"], call["mesh"].size
+
+        def job(i):
+            pairs = [(o, grads[k * n + i]) for k, o in enumerate(ctx.outs[i])
+                     if o.requires_grad]
+            if not pairs:
+                return (None,) * len(diff)
+            return torch.autograd.grad(
+                [o for o, _ in pairs], ctx.leaves[i],
+                [g.to(o.device) for o, g in pairs], allow_unused=True)
+
+        results = _run_shards(mesh, job)
+        out: List = [None] * len(ctx.shapes)
+        for k, j in enumerate(diff):
+            dev, shape = ctx.devices[j], ctx.shapes[j]
+            total = torch.zeros(shape, dtype=ctx.leaves[0][k].dtype,
+                                device=dev)
+            for i, (gs, ev) in enumerate(results):
+                if gs[k] is None:
+                    continue
+                if ev is not None:
+                    torch.cuda.current_stream(gs[k].device).wait_event(ev)
+                total[_blocks(mesh, call["in_specs"][j], i, shape)] += \
+                    gs[k].to(dev)
+            out[j] = total
+        del ctx.leaves, ctx.outs
+        return (None, *out)
+
+
 def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
     """``fn`` applied to each shard's blocks of the inputs, in a thread per
     shard; returns a ``Sharded`` per output (one, or a tuple as
-    ``out_specs`` is)."""
+    ``out_specs`` is). Where grad mode is on and an input tensor requires
+    grad, the call is differentiable (``_ShardMapFn``), as JAX's is."""
     single_in = isinstance(in_specs, P)
     single_out = isinstance(out_specs, P)
     ins = (in_specs,) if single_in else tuple(in_specs)
@@ -667,58 +910,30 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
         if len(args) != len(ins):
             raise TypeError(f"shard_map body takes {len(ins)} arguments, "
                             f"got {len(args)}")
-        per_arg = [_split(a, s, mesh) for a, s in zip(args, ins)]
-        # each shard's stream starts after the caller's work on its device
-        for dev, stream in zip(mesh.devices, mesh.streams):
-            if stream is not None:
-                stream.wait_stream(torch.cuda.current_stream(dev))
-        group = _Group(mesh.size)
-        results: List = [None] * mesh.size
-        errors: List[BaseException] = []
-
-        def body(i: int) -> None:
-            dev, stream = mesh.devices[i], mesh.streams[i]
-            _CTX.mesh, _CTX.index, _CTX.coords = mesh, i, mesh.coords(i)
-            _CTX.group, _CTX.count = group, 0
-            try:
-                group.wait_turn(i)
-                with contextlib.ExitStack() as stack:
-                    if stream is not None:
-                        stack.enter_context(torch.cuda.device(dev))
-                        stack.enter_context(torch.cuda.stream(stream))
-                        for blocks in per_arg:
-                            blocks[i].record_stream(stream)
-                    out = fn(*(blocks[i] for blocks in per_arg))
-                    out = (out,) if single_out else tuple(out)
-                    if len(out) != len(outs):
-                        raise ValueError(f"shard_map body returned "
-                                         f"{len(out)} values for "
-                                         f"{len(outs)} out_specs")
-                    ev = None
-                    if stream is not None:
-                        ev = torch.cuda.Event()
-                        ev.record(stream)
-                    results[i] = (out, ev)
-                group.finish(i)
-            except BaseException as e:   # re-raised by the caller below
-                errors.append(e)
-                group.abort()            # wake peers held at a collective
-            finally:
-                # the group holds the last collectives' posted tensors
-                _CTX.mesh = _CTX.group = None
-
-        mesh.run(body)
-        if errors:
-            first = next((e for e in errors
-                          if not isinstance(e, threading.BrokenBarrierError)),
-                         errors[0])
-            raise first
+        with torch.no_grad():
+            per_arg = [_split(a, s, mesh) for a, s in zip(args, ins)]
+        if torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args):
+            call = {"mesh": mesh, "fn": fn, "per_arg": per_arg,
+                    "single_out": single_out, "n_out": len(outs),
+                    "in_specs": ins}
+            flat = _ShardMapFn.apply(call, *args)
+            shards = [flat[k * mesh.size:(k + 1) * mesh.size]
+                      for k in range(len(outs))]
+            events = call.pop("events")
+            del call["per_arg"]
+        else:
+            results = _run_shards(
+                mesh, lambda i: _outputs(fn, single_out, len(outs),
+                                         [b[i] for b in per_arg]), per_arg)
+            shards = [[results[i][0][k] for i in range(mesh.size)]
+                      for k in range(len(outs))]
+            events = [ev for _, ev in results]
         values = []
-        for k, spec in enumerate(outs):
-            shards = [results[i][0][k] for i in range(mesh.size)]
-            _check_spec(mesh, spec, shards[0].dim())
-            values.append(Sharded(mesh, spec, shards,
-                                  [results[i][1] for i in range(mesh.size)]))
+        for spec, sh in zip(outs, shards):
+            _check_spec(mesh, spec, sh[0].dim())
+            values.append(Sharded(mesh, spec, list(sh), events))
         return values[0] if single_out else tuple(values)
 
     return run

@@ -4,8 +4,11 @@ single-controller ``Mesh``: the production and smoke meshes, and the
 parameter, optimizer-state, batch and cache specs, each a tree of
 ``spmd.NamedSharding`` (the batch specs are ``P``s, as in the JAX
 package) that ``spmd.place`` puts a tree on. The rules are JAX's line for
-line, the divisibility fallback included. Placing a ``TrainState`` by
-``opt_specs`` (ZeRO-1 in ``launch.train``) is not ported yet (ROADMAP.md).
+line, the divisibility fallback included. ``place_train_state`` puts a
+``TrainState`` on a mesh by ``opt_specs(..., zero=False)``, the moments
+and master by their parameters' specs, as the JAX driver's state lies
+under GSPMD; ZeRO-1 (``zero=True``) is placed by the JAX package's dry-run
+alone and waits for ROADMAP.md item 7.
 """
 from __future__ import annotations
 
@@ -128,6 +131,33 @@ def opt_specs(abs_state, axes_tree, mesh: Mesh, zero: bool = True):
                        m=_map(zspec, opt.m, axes_tree),
                        v=_map(zspec, opt.v, axes_tree),
                        master=_map(zspec, opt.master, axes_tree)))
+
+
+def place_train_state(state, axes_tree, mesh: Mesh, *,
+                      consume: bool = False):
+    """A ``train.TrainState`` (plain tensors on one device) placed on
+    ``mesh`` by ``opt_specs(state, axes_tree, mesh, zero=False)``: every
+    leaf a ``spmd.Sharded`` whose shards each hold a tensor of their own
+    (the step updates them in place), the moments and master laid out as
+    their parameters, the step replicated. With ``consume`` each leaf is
+    dropped from ``state`` as it is placed. The error-feedback residuals
+    of the compressed path are not placed (ROADMAP.md)."""
+    from repro_torch.distributed.spmd import place
+    from repro_torch.train.optimizer import AdamWState, TrainState
+    if state.ef is not None:
+        raise NotImplementedError("placing compress_pod_grads residuals is "
+                                  "not ported (see ROADMAP.md)")
+    specs = opt_specs(state, axes_tree, mesh, zero=False)
+
+    def put(tree, sh):
+        return place(tree, sh, consume=consume, share=False)
+    opt = state.opt
+    return TrainState(params=put(state.params, specs.params),
+                      opt=AdamWState(
+                          step=put({"s": opt.step}, {"s": specs.opt.step})["s"],
+                          m=put(opt.m, specs.opt.m),
+                          v=put(opt.v, specs.opt.v),
+                          master=put(opt.master, specs.opt.master)))
 
 
 def _data_axes(mesh: Mesh) -> Tuple[str, ...]:

@@ -7,11 +7,18 @@ Runs on the CUDA card unless ``--device cpu`` is given; it never falls
 back to the CPU on its own. ``--smoke`` takes the reduced config and
 ``SMOKE_FLAGS`` (float32 weights); without it the full config with
 ``DEFAULT_FLAGS`` (bf16 weights, ``remat="dots"``). One device holds the
-whole state: the JAX driver's production mesh and its optimizer-state
-placement are not ported (ROADMAP.md Queue 1 item 6c'). Fault tolerance:
-checkpoints every ``--ckpt-every`` steps (async, rotated), automatic
-resume from the latest committed step, stateless data pipeline keyed by
-(seed, step).
+whole state, or with ``--production-mesh`` the state is drawn straight
+onto ``launch.mesh.make_production_mesh`` (every card; two CPU shards with
+``--device cpu``) and each step trains tensor-parallel over it
+(``train.train_step``), as the JAX driver's jitted step does under
+``use_sharding``; RG-LRU and the encoder-decoder do not train on a mesh
+and a mesh across nodes (``--multi-pod``) is not ported (ROADMAP.md).
+Fault tolerance: checkpoints every ``--ckpt-every`` steps (async,
+rotated), automatic resume from the latest committed step (onto the mesh
+by its specs), stateless data pipeline keyed by (seed, step).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \
+        --device cpu --production-mesh --steps 4
 """
 from __future__ import annotations
 
@@ -23,7 +30,9 @@ import torch
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import canon, get_config, get_smoke_config
 from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.launch.mesh import make_production_mesh, opt_specs
 from repro_torch.models import build_model, build_smoke
+from repro_torch.models.sharding import use_sharding
 from repro_torch.train import (AdamWConfig, TrainConfig, abstract_train_state,
                                init_train_state, make_train_step)
 
@@ -63,16 +72,24 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    if args.production_mesh or args.multi_pod:
-        raise SystemExit("the production mesh is not ported (ROADMAP.md "
-                         "Queue 1 item 6c')")
+    if args.multi_pod:
+        raise SystemExit("a multi-pod mesh (across nodes) is not ported "
+                         "(see ROADMAP.md)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to run on the host")
     device = torch.device(args.device)
     arch = canon(args.arch)
     cfg = get_smoke_config(arch) if args.smoke else get_config(arch)
     model = build_smoke(cfg) if args.smoke else build_model(cfg)
+    mesh = None
+    if args.production_mesh:
+        mesh = make_production_mesh(
+            devices=[device] * 2 if device.type == "cpu" else None)
+    with use_sharding(mesh):
+        return _train(args, cfg, model, device, mesh)
 
+
+def _train(args, cfg, model, device, mesh):
     tcfg = TrainConfig(
         opt=AdamWConfig(lr_peak=args.lr, warmup_steps=max(args.steps // 20, 5),
                         total_steps=args.steps, weight_decay=0.01),
@@ -82,14 +99,18 @@ def main(argv=None):
 
     step_fn = make_train_step(model, tcfg)
     state = init_train_state(model, torch.Generator(device).manual_seed(0),
-                             device)
+                             device, mesh=mesh)
     start = 0
     ck = None
     if args.checkpoint_dir:
         ck = Checkpointer(args.checkpoint_dir, keep=3)
         latest = ck.latest_step()
         if latest is not None:
-            state = ck.restore(latest, abstract_train_state(model), device)
+            abstract = abstract_train_state(model)
+            shardings = None if mesh is None else \
+                opt_specs(abstract, model.axes(), mesh, zero=False)
+            del state
+            state = ck.restore(latest, abstract, device, shardings)
             start = latest
             print(f"resumed from step {latest}")
 

@@ -9,7 +9,10 @@ each ``*_init`` here (``Model.axes()`` assembles the tree, in the
 parameters' layout); ``launch.mesh.param_specs`` resolves them over a mesh.
 Inside a ``shard_map`` body a layer holds its shard's block of each weight
 (``sharding.is_split`` says along which logical axes): ``mlp_apply`` is
-then column- then row-parallel, followed by a ``psum``.
+then column- then row-parallel, followed by a ``psum``, and
+``softmax_cross_entropy`` vocab-parallel. The collectives are
+differentiable (their exact adjoints, ``distributed.spmd``), so the same
+code trains on a mesh.
 """
 from __future__ import annotations
 
@@ -220,11 +223,35 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           ) -> torch.Tensor:
     """Mean token cross-entropy of ``logits`` [..., V] (taken in float32)
     against integer ``labels`` [...]; with ``mask`` [...], the mean over
-    the masked-in tokens (at least one)."""
+    the masked-in tokens (at least one). Inside a ``shard_map`` body whose
+    weights split ``vocab`` the logits are the shard's slice of the
+    vocabulary, and the logsumexp and the label's logit are taken across
+    the model axis (``_vocab_parallel_terms``)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if is_split("vocab"):
+        logz, ll = _vocab_parallel_terms(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - ll
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
+
+
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The logsumexp over the whole vocabulary and the label's logit, from
+    this shard's slice ``logits`` [..., V/tp] (float32): the maximum
+    over the shards (``pmax``, no gradient: the result does not depend on
+    it), then one ``psum`` of the shifted exponentials' sum and of the
+    label's logit, which only the shard holding its row contributes."""
+    rows = logits.shape[-1]
+    m = spmd.pmax(logits.detach().amax(dim=-1), TP_AXIS)
+    ids = labels.long() - spmd.axis_index(TP_AXIS) * rows
+    mine = (ids >= 0) & (ids < rows)
+    ll = logits.gather(-1, ids.clamp(0, rows - 1)[..., None])[..., 0]
+    both = spmd.psum(torch.stack([
+        torch.exp(logits - m[..., None]).sum(dim=-1),
+        torch.where(mine, ll, 0.0)]), TP_AXIS)
+    return torch.log(both[0]) + m, both[1]

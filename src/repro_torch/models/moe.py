@@ -81,17 +81,27 @@ def _route(router_w: torch.Tensor, x: torch.Tensor, mcfg: MoEConfig
     probs = torch.softmax(x.float() @ router_w, dim=-1)
     weights, idx = probs.topk(mcfg.top_k, dim=-1)
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
-    # Switch-style load balance loss: E * sum_e f_e * p_e, f_e the mean
-    # number of a token's k slots routed to e (counted by a scatter-add,
-    # which needs no read-back of the largest index)
+    return weights, idx, balance_loss(probs, idx, mcfg)
+
+
+def balance_loss(probs: torch.Tensor, idx: torch.Tensor, mcfg: MoEConfig,
+                 axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """The Switch-style load-balance loss of routing probabilities
+    [T, E] and choices [T, k]: E * sum_e f_e * p_e, f_e the mean number
+    of a token's k slots routed to e (counted by a scatter-add, which
+    needs no read-back of the largest index), p_e the mean probability.
+    Inside a ``shard_map`` body, ``axes`` (data axes whose shards hold
+    equal slices of the batch) average f and p over them first: the loss
+    of the whole batch, as one device takes it."""
     e = mcfg.num_experts
     me = probs.mean(dim=0)                                        # [E]
-    counts = torch.zeros(e, dtype=torch.float32, device=x.device)
+    counts = torch.zeros(e, dtype=torch.float32, device=probs.device)
     counts.scatter_add_(0, idx.reshape(-1),
-                        torch.ones(idx.numel(), device=x.device))
-    fe = counts / x.shape[0]
-    aux = e * (me * fe).sum() * mcfg.load_balance_loss_weight
-    return weights, idx, aux
+                        torch.ones(idx.numel(), device=probs.device))
+    fe = counts / probs.shape[0]
+    if axes:
+        me, fe = spmd.pmean(torch.stack([me, fe]), axes)
+    return e * (me * fe).sum() * mcfg.load_balance_loss_weight
 
 
 def _expert_ffn(p, h: torch.Tensor, gated: bool) -> torch.Tensor:
@@ -254,8 +264,11 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
     weights do not split ``experts`` (``sharding.is_split``), on an axis
     of size 1 or one the experts do not divide)
     routes every local token and runs the shard's own experts on them all,
-    a partial sum over the experts. Returns the output, replicated over
-    ``axis``, and the aux loss."""
+    a partial sum over the experts; its load-balance loss takes the whole
+    batch's statistics where data axes split the batch
+    (``balance_loss``), as the oracle on one device does, while
+    ``moe_ep``'s averages the shards' losses, as the JAX package's does.
+    Returns the output, replicated over ``axis``, and the aux loss."""
     mesh = spmd.current_mesh()
     tp = mesh.shape.get(axis, 1)
     e, d = mcfg.num_experts, x.shape[-1]
@@ -268,10 +281,16 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
         # [tp, D, E/tp] -> [D, E], experts in shard order
         router = spmd.all_gather(router, axis).permute(1, 0, 2).reshape(d, e)
     experts["router"] = router
+    # a mean over axes of one shard is the value itself
+    batch_axes = tuple(a for a in data_axes if mesh.shape.get(a, 1) > 1)
     # the routed part [B, S, D] in float32, partial where it is split
     if dense or not split:
         xf = x.reshape(b * s, d)
         weights, idx, aux = _route(router, xf, mcfg)
+        if batch_axes:
+            # the whole batch's load-balance loss, as the oracle takes it
+            aux = balance_loss(torch.softmax(xf.float() @ router, dim=-1),
+                               idx, mcfg, batch_axes)
         comb = torch.zeros((b * s, e), dtype=x.dtype, device=x.device)
         comb.scatter_(1, idx, weights.to(x.dtype))
         e0 = spmd.axis_index(axis) * e_loc if split else 0
@@ -288,8 +307,6 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
         out, aux = _ep_local(experts, xs.reshape(-1, d), mcfg, gated, axis,
                              capacity_factor)
         aux = spmd.pmean(aux, axis)
-        # a mean over axes of one shard is the value itself
-        batch_axes = tuple(a for a in data_axes if mesh.shape.get(a, 1) > 1)
         if batch_axes:
             aux = spmd.pmean(aux, batch_axes)
         if seq_shard:

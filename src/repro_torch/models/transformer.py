@@ -28,10 +28,13 @@ the training loss.
 
 ``lm_axes`` gives the weights' logical sharding axes, leaf for leaf, and
 ``init_placed`` draws them straight onto a mesh. Inside a ``shard_map``
-body (a model served on a mesh: ``serve.serve_step``) the same functions
-run on each shard's blocks: the embedding vocab-parallel (a masked lookup
-and a ``psum``), the logits the shard's slice of the vocabulary, the
-attention, MLP and MoE layers split as their modules say.
+body (a model served or trained on a mesh: ``serve.serve_step``,
+``train.train_step``) the same functions run on each shard's blocks: the
+embedding vocab-parallel (a masked lookup and a ``psum``), the logits the
+shard's slice of the vocabulary and ``chunked_ce_loss`` vocab-parallel
+(``layers.softmax_cross_entropy``), the attention, MLP and MoE layers
+split as their modules say. Under ``remat`` the backward recomputes a
+layer's collectives on every shard in the same order.
 """
 from __future__ import annotations
 

@@ -8,5 +8,6 @@ from repro_torch.train.optimizer import (AdamWConfig, AdamWState,  # noqa: F401
 from repro_torch.train.train_step import (TrainConfig,  # noqa: F401
                                           abstract_train_state,
                                           init_train_state, make_grad_fn,
-                                          make_loss_fn, make_train_step,
+                                          make_loss_fn, make_mesh_grad_fn,
+                                          make_train_step,
                                           runtime_allreduce)

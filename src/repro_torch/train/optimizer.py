@@ -3,10 +3,14 @@ path).
 
 Parameters are stored in the compute dtype (bf16); the optimizer keeps
 float32 master weights and moments, and each step casts the updated master
-back into the parameters. The JAX package additionally shards the moments
-and master over the data axes ("ZeRO-1") under a mesh; the port places
-nothing implicitly (mesh placement is ROADMAP.md Queue 1 item 6c'), so
-every leaf lives on the device of its parameter.
+back into the parameters. Every leaf lives where its parameter does: on
+one device, or on a mesh (``launch.mesh.place_train_state``) by its
+parameter's spec, where ``train.train_step`` runs the update on each
+shard's blocks (``adamw_apply``) with the norm of the whole gradient
+(``train_step._placed_norm``). ZeRO-1 (the moments and master split over
+the data axes as well, ``launch.mesh.opt_specs(zero=True)``) is placed by
+the JAX package's dry-run only, not by its drivers; it waits for
+ROADMAP.md item 7.
 
 Trees are nested dicts of tensors. The update runs under ``torch.no_grad``
 and writes the state's tensors in place, as the JAX drivers donate the
@@ -146,16 +150,27 @@ def adamw_update(cfg: AdamWConfig, state: TrainState, grads
     opt = state.opt
     step = opt.step + 1
     gnorm = global_norm(grads)
+    lr = adamw_apply(cfg, step, gnorm, tree_leaves(grads), tree_leaves(opt.m),
+                     tree_leaves(opt.v), tree_leaves(opt.master),
+                     tree_leaves(state.params))
+    opt.step = step
+    return state, {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_apply(cfg: AdamWConfig, step: torch.Tensor, gnorm: torch.Tensor,
+                grads, ms, vs, masters, params) -> torch.Tensor:
+    """``adamw_update``'s arithmetic on lists of matching leaves (a whole
+    tree's, or one shard's blocks of a placed one): ``step`` the new step
+    count, ``gnorm`` the norm of the whole gradient. Writes the moments,
+    master and parameters in place; returns the learning rate."""
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_schedule(cfg, step)
     stepf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.full_like(stepf, cfg.b1), stepf)
     bc2 = 1.0 - torch.pow(torch.full_like(stepf, cfg.b2), stepf)
-
-    for (path, g), m, v, w, p in zip(
-            tree_flatten(grads), tree_leaves(opt.m), tree_leaves(opt.v),
-            tree_leaves(opt.master), tree_leaves(state.params), strict=True):
+    for g, m, v, w, p in zip(grads, ms, vs, masters, params, strict=True):
         g = g.to(torch.float32, copy=True).mul_(scale)
         m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
@@ -165,5 +180,4 @@ def adamw_update(cfg: AdamWConfig, state: TrainState, grads
         w.sub_(upd)
         del upd
         p.copy_(w)
-    opt.step = step
-    return state, {"grad_norm": gnorm, "lr": lr}
+    return lr

@@ -8,13 +8,27 @@ microbatched gradient accumulation: the batch is split into
 activation memory drops by that factor. ``over_decompose=1`` is the
 paper-faithful "no over-decomposition" baseline (one monolithic batch).
 
+A state placed on a mesh (``init_train_state(..., mesh=)`` or
+``launch.mesh.place_train_state``: every leaf an ``spmd.Sharded`` by its
+parameter's spec) trains tensor-parallel, the explicit form of what GSPMD
+makes of the JAX step under ``use_sharding``: each step is one
+``spmd.shard_map`` whose body, on each shard, runs the forward and the
+backward on its blocks (the layers split as ``sharding.split_weights``
+says, the loss vocab-parallel), reduces the gradients, takes the norm of
+the whole gradient and updates its blocks in place. The collectives'
+backwards are their exact adjoints (``distributed.spmd``), so each shard
+seeds its backward with 1 / (the shards the loss is replicated over,
+the non-data axes): the gradient of a split leaf's block is then exact
+as it stands, a replicated leaf's is the ``psum`` of the shards' parts,
+and the data axes' shards average theirs (``pmean``).
+
 Under an active mesh (``models.sharding.use_sharding``) whose data axes
-(``pod``, ``data``) span more than one shard, the gradients are computed
-data-parallel: each shard takes its slice of the batch inside
-``spmd.shard_map`` and the gradients and metrics are averaged with
-``spmd.pmean``, the explicit form of what GSPMD does for the JAX step.
-``compress_pod_grads`` replaces the reduction over ``pod`` with the int8
-error-feedback one of ``train.compression``.
+(``pod``, ``data``) span more than one shard, a state that is not placed
+is trained data-parallel: each shard takes its slice of the batch inside
+``spmd.shard_map`` with the whole parameters and the gradients and
+metrics are averaged with ``spmd.pmean``. ``compress_pod_grads``
+replaces the reduction over ``pod`` with the int8 error-feedback one of
+``train.compression`` (on that path only).
 
 Gradients come from ``torch.autograd.grad`` on detached copies of the
 parameter leaves that require grad, so the state's tensors never carry
@@ -24,18 +38,22 @@ updates them in place.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import RGLRU
 from repro_torch.convert import to_numpy, to_torch
 from repro_torch.distributed import spmd
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.sharding import active_mesh
-from repro_torch.train.optimizer import (AdamWConfig, TrainState,
-                                         adamw_update, init_opt_state,
-                                         tree_flatten, tree_leaves, tree_map,
+from repro_torch.models.sharding import (active_mesh, split_axes,
+                                         split_weights)
+from repro_torch.train.optimizer import (AdamWConfig, AdamWState, TrainState,
+                                         adamw_apply, adamw_update,
+                                         init_opt_state, tree_flatten,
+                                         tree_leaves, tree_map,
                                          tree_unflatten)
 
 
@@ -78,9 +96,12 @@ def make_grad_fn(model: Model):
     return grad_fn
 
 
+_DATA_AXES = ("pod", "data")
+
+
 def _batch_axes(mesh) -> Tuple[str, ...]:
     """The mesh's data axes that span more than one shard."""
-    return tuple(a for a in ("pod", "data")
+    return tuple(a for a in _DATA_AXES
                  if a in mesh.shape and mesh.shape[a] > 1)
 
 
@@ -117,15 +138,194 @@ def _over_mesh(body, mesh, params, batch, batch_spec, extra=(),
     return grads, metrics, full[npar + 2:]
 
 
+# ---------------------------------------------------------------------------
+# the tensor-parallel step over a placed state
+# ---------------------------------------------------------------------------
+
+def check_mesh_family(model: Model) -> None:
+    """Raise for a family that does not train on a mesh: RG-LRU layers
+    and the encoder-decoder (ROADMAP.md item 6g), as serving does."""
+    cfg = model.cfg
+    if cfg.enc_dec or RGLRU in cfg.layer_pattern:
+        what = "an encoder-decoder" if cfg.enc_dec else "RG-LRU layers"
+        raise NotImplementedError(f"{cfg.name}: training {what} on a mesh "
+                                  f"is not ported (see ROADMAP.md item 6g)")
+
+
+def _is_placed(tree) -> bool:
+    """Whether the leaves of ``tree`` lie on a mesh (``spmd.Sharded``)."""
+    return any(isinstance(x, spmd.Sharded) for x in tree_leaves(tree))
+
+
+def _named_axes(spec) -> Tuple[str, ...]:
+    return tuple(a for entry in spec if entry is not None
+                 for a in ((entry,) if isinstance(entry, str) else entry))
+
+
+def _placed_norm(grads, specs, mesh: spmd.Mesh) -> torch.Tensor:
+    """Inside a ``shard_map`` body: the L2 norm of the whole gradient, of
+    which this shard holds ``grads`` (a list of blocks, laid out by
+    ``specs``), summed in float32: each leaf's squared sum over its block,
+    added over the shards along the axes that split it (``psum``), a
+    leaf replicated along an axis counted once. Every shard gets the same
+    bits."""
+    groups: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for g, spec in zip(grads, specs, strict=True):
+        axes = tuple(a for a in _named_axes(spec) if mesh.shape[a] > 1)
+        sq = g.detach().float().square().sum()
+        groups[axes] = sq if axes not in groups else groups[axes] + sq
+    total = None
+    for axes in sorted(groups):
+        v = groups[axes]
+        for a in axes:
+            v = spmd.psum(v, a)
+        total = v if total is None else total + v
+    return torch.sqrt(total)
+
+
+def _shard_grads(loss_fn, leaves, paths, batch, od: int, seed: float):
+    """Inside a body: the gradients of this shard's loss (seeded with
+    ``seed``) with respect to its blocks ``leaves``, over ``od``
+    microbatches of its batch accumulated in float32 and divided by their
+    count, as the one-device step does; and the metrics' mean."""
+    n = next(iter(batch.values())).shape[0]
+    if n % od:
+        raise ValueError(f"a shard's batch of {n} does not split into "
+                         f"{od} microbatches")
+    acc, metrics = None, None
+    for i in range(od):
+        mb = batch if od == 1 else \
+            {k: v[i * (n // od):(i + 1) * (n // od)] for k, v in batch.items()}
+        live = [x.detach().requires_grad_() for x in leaves]
+        with torch.enable_grad():
+            loss, m = loss_fn(tree_unflatten(paths, live), mb)
+            gs = torch.autograd.grad(loss, live, torch.full_like(loss, seed),
+                                     allow_unused=True)
+        gs = [torch.zeros_like(x) if g is None else g
+              for x, g in zip(live, gs)]
+        del live, loss
+        m = {k: v.detach() for k, v in m.items()}
+        if od == 1:
+            acc, metrics = gs, m
+        elif acc is None:
+            acc, metrics = [g.float() for g in gs], m
+        else:
+            for a, g in zip(acc, gs):
+                a.add_(g)
+            metrics = {k: metrics[k] + m[k] for k in metrics}
+        del gs
+    if od > 1:
+        acc = [a.div_(od) for a in acc]
+        metrics = {k: v / od for k, v in metrics.items()}
+    return acc, metrics
+
+
+def _mesh_run(model: Model, state, batch: Dict[str, torch.Tensor], od: int,
+              opt: Optional[AdamWConfig]):
+    """One ``shard_map`` over the mesh the placed ``state.params`` lie on
+    (module docstring). With ``opt`` (a ``TrainState``) the body updates
+    the state's blocks in place and returns (state, metrics); without
+    (``state`` a tree of placed parameters) it returns (the gradients, a
+    tree of ``spmd.Sharded`` laid out as the parameters, and ``{"ce",
+    "aux", "grad_norm"}``). The metrics are tensors on shard 0's
+    device."""
+    check_mesh_family(model)
+    from repro_torch.launch.mesh import batch_specs
+    params = state.params if opt is not None else state
+    pflat = tree_flatten(params)
+    if not all(isinstance(x, spmd.Sharded) for _, x in pflat):
+        raise TypeError("a step on a mesh takes a state whose every leaf "
+                        "is placed (init_train_state(..., mesh=))")
+    paths = [k for k, _ in pflat]
+    mesh = pflat[0][1].mesh
+    specs = [x.spec for _, x in pflat]
+    placed = [x for _, x in pflat]
+    if opt is not None:
+        o = state.opt
+        placed += tree_leaves(o.m) + tree_leaves(o.v) + \
+            tree_leaves(o.master) + [o.step]
+        if any(spmd.shares(x) for x in placed):
+            raise ValueError("a placed state whose shards share a tensor "
+                             "would be updated once a shard: place it "
+                             "with share=False (launch.mesh."
+                             "place_train_state)")
+    names = sorted(batch)
+    bspec = batch_specs("train", mesh, batch["tokens"].shape[0])["batch"]
+    split = split_axes(model.axes(), params)
+    data_axes = _batch_axes(mesh)
+    # the loss is the same on the shards along every other axis
+    seed = 1.0 / math.prod(n for a, n in mesh.shape.items()
+                           if a not in _DATA_AXES)
+    loss_fn = make_loss_fn(model)
+    npar = len(paths)
+
+    def body(*args):
+        leaves = args[:npar]
+        b = dict(zip(names, args[len(placed):]))
+        with split_weights(split):
+            grads, m = _shard_grads(loss_fn, leaves, paths, b, od, seed)
+            out = []
+            for g, spec in zip(grads, specs):
+                named = _named_axes(spec)
+                for a, size in mesh.shape.items():
+                    if size > 1 and a not in named and a not in _DATA_AXES:
+                        g = spmd.psum(g.float(), a)
+                if data_axes:
+                    g = spmd.pmean(g.float(), data_axes)
+                out.append(g)
+            grads = out
+            if data_axes:
+                m = {k: spmd.pmean(v, data_axes) for k, v in m.items()}
+            gnorm = _placed_norm(grads, specs, mesh)
+        metrics = (m["ce"], m["aux"], gnorm)
+        if opt is None:
+            return (*metrics, *grads)
+        mo, vo, wo = (args[npar * k:npar * (k + 1)] for k in (1, 2, 3))
+        step = args[4 * npar]
+        new_step = step + 1
+        lr = adamw_apply(opt, new_step, gnorm, grads, mo, vo, wo, leaves)
+        step.copy_(new_step)
+        return (*metrics, lr)
+
+    out_specs = (spmd.P(),) * 3 + ((spmd.P(),) if opt is not None
+                                   else tuple(specs))
+    res = spmd.shard_map(body, mesh,
+                         tuple(x.spec for x in placed) + (bspec,) * len(names),
+                         out_specs)(*placed, *(batch[k] for k in names))
+    device = mesh.devices[0]
+    metrics = {k: r.full(device) for k, r in
+               zip(("ce", "aux", "grad_norm"), res[:3])}
+    if opt is None:
+        return tree_unflatten(paths, list(res[3:])), metrics
+    # the state's blocks were written in the body: later readers
+    # (``Sharded.full``, a checkpoint) wait for it
+    for x in placed:
+        x.events = list(res[0].events)
+    metrics["lr"] = res[3].full(device)
+    metrics["loss"] = metrics["ce"] + metrics["aux"]
+    return state, metrics
+
+
+def make_mesh_grad_fn(model: Model, over_decompose: int = 1):
+    """``grad_fn(params, batch) -> (grads, {"ce", "aux", "grad_norm"})``
+    for parameters placed on a mesh (a nested dict of ``spmd.Sharded``):
+    the tensor-parallel step's gradients (``_mesh_run``) without the
+    update, each leaf laid out as its parameter."""
+    def grad_fn(params, batch):
+        return _mesh_run(model, params, batch, over_decompose, None)
+    return grad_fn
+
+
 def make_train_step(model: Model, tcfg: TrainConfig
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch) -> (state, metrics)``: the gradients of
     the batch (``over_decompose`` microbatches accumulated in float32 and
-    divided by their count; data-parallel or compressed over an active
-    mesh, module docstring), then ``adamw_update``, which consumes the
-    state. ``metrics``: ce, aux, loss = ce + aux, grad_norm, lr. Runs
-    where the state's tensors are; nothing moves to another device."""
+    divided by their count; tensor-parallel for a placed state,
+    data-parallel or compressed over an active mesh, module docstring),
+    then the AdamW update, which consumes the state. ``metrics``: ce, aux,
+    loss = ce + aux, grad_norm, lr. Runs where the state's tensors are;
+    nothing moves to another device."""
     grad_fn = make_grad_fn(model)
     od = tcfg.over_decompose
 
@@ -174,6 +374,12 @@ def make_train_step(model: Model, tcfg: TrainConfig
         return g, m, tree_unflatten([k for k, _ in eflat], res)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if _is_placed(state.params):
+            if tcfg.compress_pod_grads:
+                raise NotImplementedError(
+                    "compress_pod_grads with a placed state is not ported "
+                    "(see ROADMAP.md): it runs on the data-parallel path")
+            return _mesh_run(model, state, batch, od, tcfg.opt)
         new_ef = state.ef
         if tcfg.compress_pod_grads and od == 1:
             grads, metrics, new_ef = compressed_grads(state, batch)
@@ -254,11 +460,36 @@ def runtime_allreduce(group, grad_trees, average: bool = True):
 
 
 def init_train_state(model: Model, gen: Optional[torch.Generator],
-                     device="cuda", ef_pods: int = 0) -> TrainState:
+                     device="cuda", ef_pods: int = 0,
+                     mesh: Optional[spmd.Mesh] = None) -> TrainState:
     """Parameters from ``model.init(gen, device)`` (plain tensors: the
     ``ParamTree``'s leaves detached), the AdamW state, and with
     ``ef_pods`` zero float32 error-feedback residuals [ef_pods, ...] per
-    leaf."""
+    leaf. With ``mesh`` the parameters are drawn straight onto it
+    (``Model.init(..., mesh=)``: the same values) and every leaf of the
+    state is placed by its parameter's spec, the step replicated; each
+    shard makes its own moments and master, so that no device ever holds
+    more than its blocks."""
+    if mesh is not None:
+        check_mesh_family(model)
+        if ef_pods:
+            raise NotImplementedError("compress_pod_grads with a placed "
+                                      "state is not ported (see ROADMAP.md)")
+        # each shard updates its blocks in place: no two share a tensor
+        params = tree_map(spmd.unshare, model.init(gen, device, mesh=mesh))
+
+        def zeros(p):
+            return spmd.map_shards(lambda t: torch.zeros(
+                t.shape, dtype=torch.float32, device=t.device), p)
+        step = spmd.place({"s": torch.zeros((), dtype=torch.int32,
+                                            device=device)},
+                          {"s": spmd.NamedSharding(mesh, spmd.P())},
+                          share=False)["s"]
+        return TrainState(params=params, opt=AdamWState(
+            step=step, m=tree_map(zeros, params),
+            v=tree_map(zeros, params),
+            master=tree_map(lambda p: spmd.map_shards(
+                lambda t: t.to(torch.float32, copy=True), p), params)))
     params = tree_map(lambda p: p.detach(), model.init(gen, device).tree())
     ef = None
     if ef_pods:

@@ -147,9 +147,16 @@ def test_train_driver_runs_and_resumes(tmp_path, capsys):
 
 
 def test_train_driver_refuses_what_it_does_not_run():
-    with pytest.raises(SystemExit):
+    """A mesh across nodes, and RG-LRU and the encoder-decoder on the
+    production mesh (which trains the other families since the
+    tensor-parallel step), raise with a pointer to ``ROADMAP.md``."""
+    with pytest.raises(SystemExit, match="ROADMAP"):
         ltrain.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
-                     "--production-mesh"])
+                     "--production-mesh", "--multi-pod"])
+    for arch in ("recurrentgemma-9b", "whisper-large-v3"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ltrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--production-mesh", "--steps", "1"])
 
 
 def test_runtime_allreduce_gradient_trees():

@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Train yi-9b at full width over a (1, 4) production mesh with one shard a
+card, on a node of four CUDA cards: all 48 of its layers by default
+(8.83 B parameters, a 124 GB training state, about 31 GB a card), which
+no single card holds. ``chip_smoke.py`` phase 20 trains 12 of them over
+four shards of one card.
+
+    python3 tools/mesh_train_cards.py [--layers 48]
+        [--out chiprun_out/mesh_train_cards.json]
+
+For each depth the state is drawn straight onto the mesh from the seed
+(``init_train_state(..., mesh=)``: the one-device draws, shard by shard,
+each shard making its own moments and float32 master), then
+``make_train_step`` trains tensor-parallel on phase 16's batch (4 x 2048
+from ``SyntheticLM``, bf16, remat "dots"), phase 20's
+``MESH_TRAIN_STEPS`` steps on the one repeated batch: ms a step (host clock around steps synchronised on every
+card), SPMD rendezvous a step, each card's peak allocation, each shard's
+share of the state. Checks: each shard holds what the specs give it, the
+losses are finite, the first within 0.5 of ln V, and they fall every step;
+no hand-written kernel launches. A watchdog ends the run with a message
+after ``WATCHDOG_S`` seconds. Prints each card's name and power limit and
+one JSON object (also written to ``--out``). Exits non-zero with fewer
+than four cards or on a failed check.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+CARDS = 4
+# seconds after which the run ends with a message (a collective left
+# waiting in a backward would otherwise hang it)
+WATCHDOG_S = 1500
+
+
+def sync_all() -> None:
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def train_depth(layers: int, C, check, devices) -> dict:
+    """Train ``layers`` of yi-9b over a (1, len(devices)) mesh of
+    ``devices``; the numbers and checks of the module docstring."""
+    from repro_torch import kernels as ops
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    dev = devices[0]
+    model = C.train_model(layers)
+    cfg = model.cfg
+    assert cfg.n_layers == layers
+    r = {"arch": cfg.name, "layers": layers,
+         "config_layers": get_config(C.TRAIN_ARCH).n_layers,
+         "devices": [str(d) for d in devices], "batch": C.TRAIN_BATCH,
+         "seq": C.TRAIN_SEQ, "remat": model.flags.remat,
+         "steps": C.MESH_TRAIN_STEPS}
+    mesh = make_production_mesh(devices=devices)
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(dev).manual_seed(C.SEED),
+                             dev, mesh=mesh)
+    sync_all()
+    r["draw_s"] = time.perf_counter() - t0
+    r["params"] = sum(math.prod(x.shape) for x in
+                      _leaves(state.params))
+    r.update(C.state_shares(state, mesh))
+    batch = C.train_batch(cfg, 0, dev)
+    step = make_train_step(model, TrainConfig(opt=C.train_opt()))
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    losses, ms, rdv = [], [], []
+    for _ in range(C.MESH_TRAIN_STEPS):
+        with C.counted_rendezvous() as count:
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            sync_all()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rdv.append(count[0])
+        losses.append(float(met["loss"]))
+    r["launches"] = dict(ops.LAUNCHES)
+    r["peak_gb_per_card"] = [torch.cuda.max_memory_allocated(d) / 1e9
+                             for d in devices]
+    r.update(losses=losses, step_ms=ms, rendezvous_per_step=rdv,
+             grad_norm=float(met["grad_norm"]),
+             ms_per_step=float(np.median(ms[1:] or ms)))
+    r["tokens_per_s"] = C.TRAIN_BATCH * C.TRAIN_SEQ / r["ms_per_step"] * 1e3
+    print(json.dumps(r), flush=True)
+    shares = r["shard_state_gb"]
+    check(all(abs(g - shares[0]) < 1e-9 for g in shares)
+          and abs(sum(shares) - r["spec_state_gb"] * len(devices))
+          <= 1e-6 * sum(shares),
+          f"{layers} layers: the shards hold {shares} GB, the specs give "
+          f"{r['spec_state_gb']} GB each")
+    check(all(math.isfinite(x) for x in losses),
+          f"{layers} layers: non-finite loss {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab)) <= 0.5,
+          f"{layers} layers: the first loss {losses[0]} is not within 0.5 "
+          f"of ln {cfg.vocab}")
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"{layers} layers: the loss does not fall every step: {losses}")
+    check(not any(r["launches"].values()),
+          f"{layers} layers: launched hand-written kernels {r['launches']}")
+    del state, step, batch, met, mesh
+    gc.collect()
+    for d in devices:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
+    return r
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, nargs="+", default=[48])
+    ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
+                                                  "mesh_train_cards.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
+        print(f"mesh_train_cards: needs {CARDS} CUDA cards", file=sys.stderr)
+        return 2
+    import chip_smoke as C
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip())
+    failures = []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            print(f"mesh_train_cards: FAILED: {what}", file=sys.stderr)
+
+    out = {"cards": torch.cuda.device_count(),
+           "kind": torch.cuda.get_device_name(0), "torch": torch.__version__}
+    devices = [torch.device("cuda", i) for i in range(CARDS)]
+    with C.watchdog(WATCHDOG_S, "mesh_train_cards"):
+        for layers in args.layers:
+            try:
+                out[f"layers_{layers}"] = train_depth(layers, C, check,
+                                                      devices)
+            except Exception:      # recorded; the next depth still runs
+                check(False, f"{layers} layers: {traceback.format_exc()}")
+                gc.collect()
+                continue
+    out["failures"] = failures
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

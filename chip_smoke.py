@@ -128,7 +128,20 @@ the port's main path through the tasking runtime:
     batch, then steps on one repeated batch whose loss must fall, with
     no kernel launch (ms and rendezvous a step, a traced step's busy
     share, peak memory), under a watchdog that fails the phase instead
-    of hanging; the allocation back after. Beside phase 2, ``window_attention`` on bf16
+    of hanging; the allocation back after;
+  * phase 21, run inside phases 11 and 15 on their weights and prompts:
+    recurrentgemma-9b and whisper-large-v3 served over the same (1, 4)
+    mesh of the card's shards, tensor-parallel (the RG-LRU channels, the
+    heads, the MLP and, where it divides, the vocabulary), 16 decode
+    steps each: each shard's share and every block against its spec, no
+    kernel launch, the prefill's last logits within 5e-2 relative L2 of
+    the one-card Engine's, a second greedy run equal to the first, the
+    greedy tokens against a full forward on the weights gathered back;
+    prefill ms, decode ms a step, rendezvous, peak; the allocation back;
+  * phase 22, phase 20's checks under its watchdog for recurrentgemma-9b
+    at full width cut to 6 of its 38 layers (4 x 2048) and
+    whisper-large-v3 at full depth (8 x 448 over 1500 seeded frames).
+    Beside phase 2, ``window_attention`` on bf16
     operands against its products on float32 copies at a gemma3 and a
     recurrentgemma local layer's prefill shapes, both timed; phase 2's
     flash rows also run at olmoe's and llama4-scout's head layouts, the
@@ -199,6 +212,25 @@ MESH_SHARDS = 4
 MESH_LOGITS_TOL = 5e-2
 MESH_SHARES = {"experts": 4, "q_heads": 10, "kv_heads": 2,
                "vocab_rows": 50512}
+# phase 21: phase 11's recurrentgemma-9b and phase 15's whisper-large-v3
+# over the same mesh, on their phases' weights and prompts, each decoding
+# MESH_SERVE_STEPS steps; phase 19's logits tolerance and greedy checks,
+# and what shard 0 holds: recurrentgemma's lru channels, query heads and
+# vocabulary split four ways, its one kv head whole; whisper's heads and
+# MLP split, its 51,866 vocabulary rows whole (51,866 % 4 = 2)
+MESH_SERVE_STEPS = 16
+MESH_SERVE_SHARES = {
+    "recurrentgemma-9b": {"lru_channels": 1024, "q_heads": 4,
+                          "kv_heads": 1, "mlp_columns": 3072,
+                          "vocab_rows": 64000},
+    "whisper-large-v3": {"q_heads": 5, "kv_heads": 5, "mlp_columns": 1280,
+                         "vocab_rows": 51866}}
+# the leaf (the last keys of its path) and dim each share is read from
+SHARE_LEAVES = {"experts": (("moe", "wi"), 1),
+                "lru_channels": (("rglru", "in_x"), -1),
+                "q_heads": (("wq",), -2), "kv_heads": (("wk",), -2),
+                "mlp_columns": (("mlp", "wi"), -1),
+                "vocab_rows": (("embed",), 0)}
 # phase 15: whisper-large-v3 at full width and depth (32 encoder and 32
 # decoder layers; 3.29 GB bf16, 6.57 GB float32 with the learned positions),
 # 8 requests of 1500 seeded frames at the scale tests/test_arch_smoke.py
@@ -259,6 +291,15 @@ RESUME_LAYERS, RESUME_STEPS, RESUME_AT = 1, 6, 3
 MESH_TRAIN_SHARDS, MESH_TRAIN_STEPS = 4, 4
 MESH_TRAIN_LOSS_RTOL, MESH_TRAIN_NORM_RTOL = 1e-4, 1e-2
 MESH_TRAIN_WATCHDOG_S = 600
+# phase 22: phase 20's checks for recurrentgemma-9b at full width cut to
+# two periods (6 of 38 layers: 3.3 B parameters, 46 GB of state at 14 B a
+# parameter; its 38 layers' 135 GB train on four cards,
+# tools/mesh_train_cards.py) on 4 x 2048, and whisper-large-v3 at full
+# width and depth (1.6 B parameters) on 8 x 448 decoder tokens over 1500
+# seeded frames. Each cell: arch -> (layers, None for the config's depth;
+# batch; sequence)
+MESH_TRAIN_CELLS = {TRAIN_ARCH: (TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ),
+                    RG_ARCH: (6, 4, 2048), WHISPER_ARCH: (None, 8, 448)}
 COMPRESS_SHARDS, COMPRESS_TOL = 4, 1e-6
 ELASTIC_TRAIN_RTOL = 1e-4
 # the EP check after each: one full-width MoE layer's moe_ep over a (1, 4)
@@ -1456,6 +1497,9 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
         # phase 19 takes these weights over (and frees them)
         r["mesh"] = mesh_phase(ops, model, eng, params, tokens, extra,
                                steps)
+    elif arch in MESH_SERVE_SHARES:
+        # and phase 21 those of phases 11 and 15
+        r["mesh"] = mesh_serve_phase(ops, model, eng, params, tokens, extra)
     if trace_name is not None:
         share = r["trace"]["prefill"].get(f"{trace_name}_share_of_busy",
                                           0.0)
@@ -2035,6 +2079,7 @@ def mesh_phase(ops, model, eng, params, tokens, extra, steps: int) -> dict:
     from repro_torch.launch.mesh import make_smoke_mesh, param_specs
     from repro_torch.launch.serve import Engine
     from repro_torch.models.sharding import use_sharding
+    t_phase = time.perf_counter()
     cfg, mcfg = model.cfg, model.cfg.moe
     b, s = tokens.shape
     tp, dev = MESH_SHARDS, tokens.device
@@ -2066,7 +2111,7 @@ def mesh_phase(ops, model, eng, params, tokens, extra, steps: int) -> dict:
     torch.cuda.synchronize()
     r["place_s"] = time.perf_counter() - t0
     del tree
-    r.update(shard_shares(placed, tp))
+    r.update(placed_shares(placed, mesh, MESH_SHARES))
     check(r["shard_shares"] == MESH_SHARES, f"phase 19: a shard holds "
           f"{r['shard_shares']}, not {MESH_SHARES}")
     r["weights_gb"] = weights / 1e9
@@ -2171,21 +2216,156 @@ def mesh_phase(ops, model, eng, params, tokens, extra, steps: int) -> dict:
     check(abs(mem1 - (mem0 - weights)) <= MEMORY_SLACK,
           f"phase 19: {mem1} B allocated after, {mem0} B before with "
           f"{weights} B of weights taken over")
+    r["phase_s"] = time.perf_counter() - t_phase
     return r
 
 
-def shard_shares(placed: dict, tp: int) -> dict:
-    """What shard 0 of a placed llama4-scout holds (experts, query and kv
-    heads, vocabulary rows) and each shard's bytes of weights."""
-    lay = placed["layers"]
-    return {"shard_shares": {
-        "experts": lay["moe"]["wi"].shards[0].shape[1],
-        "q_heads": lay["attn"]["wq"].shards[0].shape[-2],
-        "kv_heads": lay["attn"]["wk"].shards[0].shape[-2],
-        "vocab_rows": placed["embed"].shards[0].shape[0]},
-        "shard_weights_gb": [sum(
-            t.shards[i].numel() * t.shards[i].element_size()
-            for _, t in _sharded_leaves(placed)) / 1e9 for i in range(tp)]}
+def placed_shares(placed: dict, mesh, want: dict) -> dict:
+    """What shard 0 of a placed model holds (``want``'s keys, each read
+    off the first leaf ``SHARE_LEAVES`` names), each shard's bytes of
+    weights, and whether every block has the shape its spec gives."""
+    from repro_torch.distributed import spmd
+    leaves = list(_sharded_leaves(placed))
+
+    def dim(name):
+        suffix, d = SHARE_LEAVES[name]
+        return next(t.shards[0].shape[d] for path, t in leaves
+                    if path[-len(suffix):] == suffix)
+    return {"shard_shares": {k: dim(k) for k in want},
+            "shard_weights_gb": [sum(
+                t.shards[i].numel() * t.shards[i].element_size()
+                for _, t in leaves) / 1e9 for i in range(mesh.size)],
+            "blocks_as_specs": all(
+                tuple(b.shape) == spmd.NamedSharding(mesh, t.spec)
+                .shard_shape(t.shape) for _, t in leaves for b in t.shards)}
+
+
+def mesh_serve_phase(ops, model, eng, params, tokens, extra) -> dict:
+    """Phase 21: phase 11's recurrentgemma-9b or phase 15's whisper-large-v3
+    (bf16; ``eng`` its one-device Engine on ``params``) served over a (1,
+    MESH_SHARDS) mesh of shards of the card, tensor-parallel (the RG-LRU
+    channels, the heads, the MLP and, where it divides, the vocabulary).
+
+    The reference first: the one-device prefill's last logits. The weights
+    then move onto the mesh leaf by leaf (``spmd.place``, consuming the
+    one-device tree) and each shard's share is checked against
+    ``MESH_SERVE_SHARES`` and every block against its spec. The main path:
+    the mesh Engine's prefill and ``MESH_SERVE_STEPS`` decode steps, the
+    counters zeroed before and read after (no kernel launches, as on one
+    card); the prefill's logits within ``MESH_LOGITS_TOL`` of the
+    reference's; a second greedy run equal to the first; the weights
+    gathered back to one device and the greedy tokens held to a full
+    forward (``greedy_vs_full_forward``). The allocation must come back
+    to what it was less the weights the phase took over."""
+    from repro_torch.distributed import spmd
+    from repro_torch.launch.mesh import make_smoke_mesh, param_specs
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models.sharding import split_axes, use_sharding
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    b, s = tokens.shape
+    tp, dev, steps = MESH_SHARDS, tokens.device, MESH_SERVE_STEPS
+    gc.collect()
+    mem0 = allocated_without_workspaces()
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    r = {"arch": cfg.name, "mesh": {"data": 1, "model": tp},
+         "devices": f"{tp} shards of {dev}", "layers": cfg.n_layers,
+         "batch": b, "prompt": s, "decode_steps": steps,
+         "host_threads": threading.active_count()}
+    want = eng.prefill(tokens, extra, logits=True)[2].float()
+
+    # -- the weights onto the mesh, leaf by leaf --
+    mesh = make_smoke_mesh(1, tp, devices=[dev] * tp)
+    tree = take_tree(params)
+    t0 = time.perf_counter()
+    placed = spmd.place(tree, param_specs(tree, model.axes(), mesh),
+                        consume=True)
+    torch.cuda.synchronize()
+    r["place_s"] = time.perf_counter() - t0
+    del tree
+    shares = MESH_SERVE_SHARES[cfg.name]
+    r.update(placed_shares(placed, mesh, shares))
+    r["split_axes"] = sorted(split_axes(model.axes(), placed))
+    r["weights_gb"] = weights / 1e9
+    check(r["shard_shares"] == shares, f"phase 21 ({cfg.name}): a shard "
+          f"holds {r['shard_shares']}, not {shares}")
+    check(r["blocks_as_specs"], f"phase 21 ({cfg.name}): a block's shape "
+          f"is not the one its spec gives")
+
+    with use_sharding(mesh):
+        meng = Engine(model, placed, b, s + steps)
+        with counted_rendezvous() as count:          # warm-up, not counted
+            nxt, cache = meng.prefill(tokens, extra)
+        r["rendezvous_per_prefill"] = count[0]
+        with counted_rendezvous() as count:
+            meng.decode(cache, nxt, s, 2)
+        r["rendezvous_per_decode_step"] = count[0] / 2
+        del nxt, cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # -- the main path: prefill + decode, counters around it --
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        nxt, cache = meng.prefill(tokens, extra)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rest = meng.decode(cache, nxt, s, steps)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        r["launches"] = dict(ops.LAUNCHES)
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["cache_gb_per_shard"] = sum(
+            t.shards[0].numel() * t.shards[0].element_size()
+            for _, t in _sharded_leaves(cache)) / 1e9
+        r["prefill_ms"] = (t1 - t0) * 1e3
+        r["prefill_tok_s"] = b * s / (t1 - t0)
+        r["decode_ms_per_step"] = (t2 - t1) * 1e3 / steps
+        r["decode_tok_s"] = b * steps / (t2 - t1)
+        out = torch.cat([nxt, rest], dim=1)
+        del cache, rest
+        check(not any(r["launches"].values()), f"phase 21 ({cfg.name}) "
+              f"launched hand-written kernels {r['launches']}")
+        check(out.shape == (b, steps + 1) and bool(
+            ((out >= 0) & (out < cfg.vocab)).all()), f"phase 21 "
+              f"({cfg.name}): tokens out of range")
+
+        # -- the prefill's logits against the one device's --
+        got = meng.prefill(tokens, extra, logits=True)[2].float()
+        rel = ((got - want).norm() / want.norm()).item()
+        r["prefill_logits_vs_one_card"] = {
+            "rel_l2": rel, "tol": MESH_LOGITS_TOL,
+            "argmax_equal": (got.argmax(-1) == want.argmax(-1)).float()
+            .mean().item()}
+        check(bool(torch.isfinite(got).all()), f"phase 21 ({cfg.name}): "
+              f"non-finite logits")
+        check(rel <= MESH_LOGITS_TOL, f"phase 21 ({cfg.name}): prefill "
+              f"logits {rel} (relative L2) from one card's, above "
+              f"{MESH_LOGITS_TOL}")
+        del got, want
+        again = meng.generate(tokens, steps + 1, extra)
+        check(torch.equal(again, out), f"phase 21 ({cfg.name}): a second "
+              f"greedy run gave other tokens")
+        del meng, again
+
+    # -- greedy against a full forward, the weights back on one device --
+    back = gather_tree(placed)
+    del placed, mesh
+    r["greedy_vs_full_forward"] = greedy_vs_full_forward(
+        model, back, tokens, extra, out)
+    del back, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = allocated_without_workspaces()
+    r.update(allocated_at_start_mb=mem0 / 2**20,
+             allocated_at_end_mb=mem1 / 2**20,
+             weights_taken_over_mb=weights / 2**20)
+    check(abs(mem1 - (mem0 - weights)) <= MEMORY_SLACK,
+          f"phase 21 ({cfg.name}): {mem1} B allocated after, {mem0} B "
+          f"before with {weights} B of weights taken over")
+    r["phase_s"] = time.perf_counter() - t_phase
+    return r
 
 
 def _sharded_leaves(tree: dict, path=()):
@@ -2860,25 +3040,36 @@ def prefill_vs_plain(model, params, tokens, extra, tol: float,
 # phases 16-18: training (yi-9b at full width)
 # ---------------------------------------------------------------------------
 
-def train_model(layers: int, dtype=torch.bfloat16):
-    """yi-9b at full width, cut to ``layers`` layers, with ``DEFAULT_FLAGS``
-    in ``dtype`` (remat "dots", loss chunks of 1024)."""
+def train_model(layers: Optional[int], dtype=torch.bfloat16,
+                arch: str = TRAIN_ARCH):
+    """``arch`` (yi-9b by default) at full width, cut to ``layers`` layers
+    (None: the config's depth), with ``DEFAULT_FLAGS`` in ``dtype`` (remat
+    "dots", loss chunks of 1024)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import DEFAULT_FLAGS, build_model
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     return build_model(cfg, dataclasses.replace(DEFAULT_FLAGS,
                                                 param_dtype=dtype))
 
 
-def train_batch(cfg, step: int, dev) -> dict:
-    """``SyntheticLM``'s batch ``step`` at [TRAIN_BATCH, TRAIN_SEQ] on the
-    card, as ``launch.train`` feeds it."""
+def train_batch(cfg, step: int, dev, batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ) -> dict:
+    """``SyntheticLM``'s batch ``step`` at [batch, seq] on the card, as
+    ``launch.train`` feeds it; an encoder-decoder's frames seeded at
+    ``FRAME_SCALE`` (the driver's are zeros)."""
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.train import batch_on
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH, seed=SEED))
-    return batch_on(data, step, cfg, dev)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=SEED))
+    out = batch_on(data, step, cfg, dev)
+    if cfg.enc_dec:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1 + step)
+        out["frames"] = FRAME_SCALE * torch.randn(
+            out["frames"].shape, device=dev, generator=gen)
+    return out
 
 
 def train_opt():
@@ -3328,10 +3519,13 @@ def state_shares(state, mesh) -> dict:
             "spec_state_gb": want / 1e9}
 
 
-def mesh_train_phase(ops, card: str) -> dict:
+def mesh_train_phase(ops, card: str, arch: str = TRAIN_ARCH,
+                     phase: int = 20) -> dict:
     """Phase 20: phase 16's yi-9b (full width, ``TRAIN_LAYERS`` layers,
     bf16, remat "dots") on phase 16's batch, trained over
-    ``make_production_mesh`` of ``MESH_TRAIN_SHARDS`` shards of the card.
+    ``make_production_mesh`` of ``MESH_TRAIN_SHARDS`` shards of the card;
+    phase 22: the same for recurrentgemma-9b and whisper-large-v3, each at
+    the depth and batch of its ``MESH_TRAIN_CELLS`` entry.
     The one-card gradients first (weights drawn from the seed, then
     freed, the gradients kept on the host); then the state drawn straight
     onto the mesh from the same seed (``init_train_state(..., mesh=)``:
@@ -3346,18 +3540,23 @@ def mesh_train_phase(ops, card: str) -> dict:
                                    make_train_step)
     from repro_torch.train.optimizer import (global_norm, tree_flatten,
                                              tree_map)
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
     mem0 = allocated_without_workspaces()
-    check(mem0 < MEMORY_BEFORE_SERVE, f"phase 20: {mem0} B still "
+    check(mem0 < MEMORY_BEFORE_SERVE, f"phase {phase}: {mem0} B still "
           f"allocated on the card before the weights load")
-    model = train_model(TRAIN_LAYERS)
+    layers, bsz, seq = MESH_TRAIN_CELLS[arch]
+    model = train_model(layers, arch=arch)
     cfg = model.cfg
-    batch = train_batch(cfg, 0, dev)
-    r = {"arch": cfg.name, "layers": cfg.n_layers, "batch": TRAIN_BATCH,
-         "seq": TRAIN_SEQ, "remat": model.flags.remat,
+    batch = train_batch(cfg, 0, dev, bsz, seq)
+    r = {"arch": cfg.name, "layers": cfg.n_layers, "batch": bsz,
+         "seq": seq, "remat": model.flags.remat,
          "shards": MESH_TRAIN_SHARDS, "steps": MESH_TRAIN_STEPS}
+    if cfg.enc_dec:
+        r.update(encoder_layers=cfg.n_encoder_layers,
+                 frames=cfg.encoder_seq)
 
     # -- the one-card step's gradients, kept on the host --
     params = tree_map(lambda p: p.detach(), model.init(
@@ -3418,7 +3617,7 @@ def mesh_train_phase(ops, card: str) -> dict:
     r.update(losses=losses, step_ms=ms, rendezvous_per_step=rdv,
              grad_norm=float(met["grad_norm"]),
              ms_per_step=float(np.median(ms[1:])))
-    r["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / r["ms_per_step"] * 1e3
+    r["tokens_per_s"] = bsz * seq / r["ms_per_step"] * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         state, _ = step(state, batch)
@@ -3435,50 +3634,53 @@ def mesh_train_phase(ops, card: str) -> dict:
     torch.cuda.empty_cache()
     mem1 = allocated_without_workspaces()
     r.update(allocated_at_start_mb=mem0 / 2**20,
-             allocated_at_end_mb=mem1 / 2**20)
-    print(f"train on a (1, {MESH_TRAIN_SHARDS}) mesh, phase 20 ({card}): "
-          + json.dumps(r))
+             allocated_at_end_mb=mem1 / 2**20,
+             phase_s=time.perf_counter() - t_phase)
+    print(f"train {cfg.name} on a (1, {MESH_TRAIN_SHARDS}) mesh, phase "
+          f"{phase} ({card}): " + json.dumps(r))
     shares = r["shard_state_gb"]
     check(all(abs(g - shares[0]) < 1e-9 for g in shares)
           and abs(sum(shares) - r["spec_state_gb"] * MESH_TRAIN_SHARDS)
           <= 1e-6 * sum(shares),
-          f"phase 20: the shards hold {shares} GB of state, their specs "
+          f"phase {phase}: the shards hold {shares} GB of state, their specs "
           f"give {r['spec_state_gb']} GB each")
     check(abs(r["mesh_loss"] - r["one_card_loss"])
           <= MESH_TRAIN_LOSS_RTOL * r["one_card_loss"],
-          f"phase 20: the mesh's first loss {r['mesh_loss']} vs one card's "
-          f"{r['one_card_loss']}, relative tolerance {MESH_TRAIN_LOSS_RTOL}")
+          f"phase {phase}: the mesh's first loss {r['mesh_loss']} vs one "
+          f"card's {r['one_card_loss']}, relative tolerance "
+          f"{MESH_TRAIN_LOSS_RTOL}")
     check(r["min_cosine"] >= TRAIN_COS_MIN,
-          f"phase 20: a gradient leaf's cosine with the one-card step's is "
-          f"{r['min_cosine']} < {TRAIN_COS_MIN}: "
+          f"phase {phase}: a gradient leaf's cosine with the one-card "
+          f"step's is {r['min_cosine']} < {TRAIN_COS_MIN}: "
           f"{sorted(cos.items(), key=lambda kv: kv[1])[:3]}")
     check(r["max_norm_ratio_err"] <= MESH_TRAIN_NORM_RTOL,
-          f"phase 20: a gradient leaf's norm over the one-card step's is "
+          f"phase {phase}: a gradient leaf's norm over the one-card step's is "
           f"not within {MESH_TRAIN_NORM_RTOL} of 1: "
           f"{sorted(ratio.items(), key=lambda kv: -abs(kv[1] - 1))[:3]}")
     for what in ("mesh_grad_norm", "first_step_grad_norm"):
         check(abs(r[what] - r["one_card_grad_norm"])
               <= MESH_TRAIN_NORM_RTOL * r["one_card_grad_norm"],
-              f"phase 20: {what} {r[what]} vs one card's "
+              f"phase {phase}: {what} {r[what]} vs one card's "
               f"{r['one_card_grad_norm']}, relative tolerance "
               f"{MESH_TRAIN_NORM_RTOL}")
     check(all(math.isfinite(x) for x in losses),
-          f"phase 20: non-finite loss {losses}")
+          f"phase {phase}: non-finite loss {losses}")
     check(abs(losses[0] - r["mesh_loss"]) <= 1e-5 * r["mesh_loss"],
-          f"phase 20: the first step's loss {losses[0]} is not the "
+          f"phase {phase}: the first step's loss {losses[0]} is not the "
           f"gradients' {r['mesh_loss']}")
     check(all(b < a for a, b in zip(losses, losses[1:])),
-          f"phase 20: the loss on a repeated batch does not fall every "
+          f"phase {phase}: the loss on a repeated batch does not fall every "
           f"step: {losses}")
     check(not any(r["launches"].values()),
-          f"phase 20: the train steps launched hand-written kernels "
+          f"phase {phase}: the train steps launched hand-written kernels "
           f"{r['launches']}")
     check(abs(mem1 - mem0) <= MEMORY_SLACK,
-          f"phase 20: {mem1} B allocated after, {mem0} B before")
+          f"phase {phase}: {mem1} B allocated after, {mem0} B before")
     return r
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not torch.cuda.is_available():
@@ -3534,6 +3736,13 @@ def main() -> int:
           "ptxas serialised the wgmma products of a flash kernel")
     earlier_lib = variants.load("column_groups", "flash_attention")
 
+    marks = [("start", t_start)]
+
+    def mark(name: str) -> None:
+        """The wall time up to here, named after the phase that ended."""
+        marks.append((name, time.perf_counter()))
+    mark("1 build")
+
     # -- phase 2: kernels against their plain versions ------------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     res = kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_lib)
@@ -3544,6 +3753,7 @@ def main() -> int:
     print(f"window ({card}): {json.dumps(window)}")
     gc.collect()
     torch.cuda.empty_cache()
+    mark("2 kernels")
 
     # -- phase 3: double DGEMM through the runtime -----------------------------
     rt = Runtime(RuntimeConfig())
@@ -3624,14 +3834,17 @@ def main() -> int:
     del got, want
     gc.collect()
     torch.cuda.empty_cache()
+    mark("3-4b dgemm, jacobi")
 
     # -- phase 5: dense-LM serving, yi-9b at full width and depth -------------
     srv = serve_phase(ops, Runtime, RuntimeConfig, 5)
     print(f"serve ({card}): " + json.dumps(srv))
+    mark("5 yi-9b")
 
     # -- phase 6: Mamba-2 serving, mamba2-370m at full width and depth -------
     ssm = serve_phase(ops, Runtime, RuntimeConfig, 6)
     print(f"serve ssm ({card}): " + json.dumps(ssm))
+    mark("6 mamba2")
 
     # -- phase 7: the distributed proxy on the message engine --------------
     dist = cluster_phase(ops, run_reference, RuntimeConfig, u0)
@@ -3656,30 +3869,40 @@ def main() -> int:
         spmd_phase(ops, run_reference, u0, dist["ms_per_iteration"])))
     gc.collect()
     torch.cuda.empty_cache()
+    mark("7-9 cluster, resilience, spmd")
 
     # -- phase 10: gemma3-27b serving at full width and depth ------------
     gemma = serve_phase(ops, Runtime, RuntimeConfig, 10)
     gemma["window_share_of_prefill"] = window_share(
         GEMMA_ARCH, window["gemma3"]["ms"], gemma["prefill_ms"])
     print(f"serve gemma3 ({card}): " + json.dumps(gemma))
+    mark("10 gemma3")
 
     # -- phase 11: recurrentgemma-9b serving at full width and depth -----
+    # -- phase 21 (run inside phases 11 and 15, on their weights): each
+    # model served over a (1, 4) mesh of shards of the card -------------
     rg = serve_phase(ops, Runtime, RuntimeConfig, 11)
     rg["window_share_of_prefill"] = window_share(
         RG_ARCH, window["recurrentgemma"]["ms"], rg["prefill_ms"])
     rg["rglru"]["scan_share_of_prefill"] = layers_of(RG_ARCH, "rglru") * \
         rg["rglru"]["scan_ms"] / rg["prefill_ms"]
+    mesh_rg = rg.pop("mesh")
     print(f"serve recurrentgemma ({card}): " + json.dumps(rg))
+    print(f"serve recurrentgemma on a (1, {MESH_SHARDS}) mesh, phase 21 "
+          f"({card}): " + json.dumps(mesh_rg))
+    mark("11 recurrentgemma, with 21")
 
     # -- phase 12: pixtral-12b serving at full width and depth -----------
     pix = serve_phase(ops, Runtime, RuntimeConfig, 12)
     print(f"serve pixtral ({card}): " + json.dumps(pix))
+    mark("12 pixtral")
 
     # -- phase 13: olmoe-1b-7b serving at full width and depth, then one
     # MoE layer expert-parallel over four shards sharing the card --------
     olmoe = serve_phase(ops, Runtime, RuntimeConfig, 13)
     olmoe["ep"] = ep_check(MOE_ARCH)
     print(f"serve olmoe ({card}): " + json.dumps(olmoe))
+    mark("13 olmoe")
 
     # -- phase 14: llama4-scout-17b-16e at full width, 8 of 48 layers ----
     scout = serve_phase(ops, Runtime, RuntimeConfig, 14)
@@ -3690,10 +3913,15 @@ def main() -> int:
     print(f"serve llama4-scout ({card}): " + json.dumps(scout))
     print(f"serve llama4-scout on a (1, {MESH_SHARDS}) mesh, phase 19 "
           f"({card}): " + json.dumps(mesh_scout))
+    mark("14 llama4-scout, with 19")
 
     # -- phase 15: whisper-large-v3 at full width and depth --------------
     whisper = serve_phase(ops, Runtime, RuntimeConfig, 15)
+    mesh_whisper = whisper.pop("mesh")
     print(f"serve whisper ({card}): " + json.dumps(whisper))
+    print(f"serve whisper on a (1, {MESH_SHARDS}) mesh, phase 21 "
+          f"({card}): " + json.dumps(mesh_whisper))
+    mark("15 whisper, with 21")
 
     # -- phases 16-18: training yi-9b at full width; resume; compression
     # and the elastic driver over shards of the card --------------------
@@ -3701,11 +3929,25 @@ def main() -> int:
     train_phase(ops, card)
     resume_phase(card)
     compression_elastic_phase(card)
+    mark("16-18 training")
 
     # -- phase 20: yi-9b trained over a (1, 4) mesh of shards of the card
     # (prints its line before its checks) --------------------------------
     with watchdog(MESH_TRAIN_WATCHDOG_S, "phase 20 (training on a mesh)"):
         mesh_train_phase(ops, card)
+    mark("20 yi-9b on a mesh")
+
+    # -- phase 22: recurrentgemma-9b (6 layers) and whisper-large-v3
+    # trained over the same mesh (each prints its line before its
+    # checks) -------------------------------------------------------------
+    for arch in (RG_ARCH, WHISPER_ARCH):
+        with watchdog(MESH_TRAIN_WATCHDOG_S, f"phase 22 ({arch})"):
+            mesh_train_phase(ops, card, arch, 22)
+        mark(f"22 {arch}")
+    print("phase seconds: " + json.dumps(
+        {name: round(t - t0_, 1) for (_, t0_), (name, t)
+         in zip(marks, marks[1:])} | {"total": round(
+            marks[-1][1] - t_start, 1)}))
 
     launches = {"jacobi3d_faces": jac_launches["jacobi3d_faces"],
                 "matmul": dgemm_launches["matmul"],

@@ -27,10 +27,12 @@ the dense oracle, as under the JAX Engine's 1x1 mesh) and the
 encoder-decoder whisper-large-v3 (its audio frontend a stub: ``main``
 passes zero ``frames`` of [B, encoder_seq, D], as the JAX package's
 does). Runs on the CUDA card unless ``--device cpu`` is given.
-``--production-mesh`` serves over ``launch.mesh.make_production_mesh``
-(``("data", "model") = (1, n)`` over the node's cards, or with ``--device
-cpu`` over two CPU shards): the decoder-only attention, MoE and SSD
-models; RG-LRU and the encoder-decoder raise there (ROADMAP.md).
+``--production-mesh`` serves any of them over ``launch.mesh.
+make_production_mesh`` (``("data", "model") = (1, n)`` over the node's
+cards, or with ``--device cpu`` over two CPU shards), tensor-parallel:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --smoke --device cpu --production-mesh
 """
 from __future__ import annotations
 

@@ -11,14 +11,17 @@ whole state, or with ``--production-mesh`` the state is drawn straight
 onto ``launch.mesh.make_production_mesh`` (every card; two CPU shards with
 ``--device cpu``) and each step trains tensor-parallel over it
 (``train.train_step``), as the JAX driver's jitted step does under
-``use_sharding``; RG-LRU and the encoder-decoder do not train on a mesh
-and a mesh across nodes (``--multi-pod``) is not ported (ROADMAP.md).
+``use_sharding``, every family alike; a mesh across nodes
+(``--multi-pod``) is not ported (ROADMAP.md).
 Fault tolerance: checkpoints every ``--ckpt-every`` steps (async,
 rotated), automatic resume from the latest committed step (onto the mesh
 by its specs), stateless data pipeline keyed by (seed, step).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \
         --device cpu --production-mesh --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch whisper-large-v3 --smoke --device cpu --production-mesh \
+        --steps 4 --seq-len 32
 """
 from __future__ import annotations
 

@@ -519,7 +519,7 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
             t = k.shape[1]
             valid = torch.ones((b, t), dtype=torch.bool, device=x.device) \
                 if kv_valid is None else kv_valid[None, :].expand(b, t)
-            out = decode_attention(qd, k, v, valid=valid)[:, None]
+            out = decode_attention(qd, own(k), own(v), valid=valid)[:, None]
             new_cache = None
         else:
             t = cache["k"].shape[1]

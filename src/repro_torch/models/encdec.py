@@ -17,6 +17,15 @@ trees, every leaf with a leading layer axis. The cache is ``{"decoder":
 the self cache at capacity, the cross cache at ``encoder_seq`` rounded up
 to 128. As in the port's other models, the stack runs as a Python loop
 over layer views, and a prefill or decode with a cache writes it in place.
+
+``encdec_axes`` gives the weights' logical sharding axes, and
+``Model.init(..., mesh=)`` draws ``encdec_params`` straight onto a mesh.
+Inside a ``shard_map`` body (served or trained on a mesh) the same
+functions run on each shard's blocks: every attention (the encoder's, the
+decoder's self- and cross-attention, all through ``attention_layer``) on
+the shard's heads, the MLPs column- then row-parallel, the cross cache the
+shard's kv heads, and the token lookup, the logits and the loss
+vocab-parallel where the weights split ``vocab``.
 """
 from __future__ import annotations
 
@@ -82,9 +91,16 @@ def _dec_block_init(gen, cfg: ModelConfig, *, dtype, device, lead):
 
 def encdec_init(gen: torch.Generator, cfg: ModelConfig,
                 flags: Flags = DEFAULT_FLAGS, device="cuda") -> ParamTree:
+    """``encdec_params`` held in a ``ParamTree``."""
+    return ParamTree(encdec_params(gen, cfg, flags, device))
+
+
+def encdec_params(gen: torch.Generator, cfg: ModelConfig,
+                  flags: Flags = DEFAULT_FLAGS, device="cuda"
+                  ) -> Dict[str, Any]:
     """Random weights from ``gen`` (a generator on ``device``); the tree in
-    the module docstring. Norm scales are float32, the rest
-    ``flags.param_dtype``."""
+    the module docstring, as a nested dict. Norm scales are float32, the
+    rest ``flags.param_dtype``."""
     dtype = flags.param_dtype
     params: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg.vocab, cfg.d_model, dtype=dtype,
@@ -100,7 +116,7 @@ def encdec_init(gen: torch.Generator, cfg: ModelConfig,
         "decoder": _dec_block_init(gen, cfg, dtype=dtype, device=device,
                                    lead=(cfg.n_layers,)),
     }
-    return ParamTree(params)
+    return params
 
 
 def encdec_axes(cfg: ModelConfig) -> Dict[str, Any]:
@@ -185,14 +201,11 @@ def _dec_block(p, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
         new_cross = cache["cross"]
     else:
         ck, cv = _cross_kv(p, enc_out)
-        b, s, _ = h.shape
-        q = A._project(h, p["cross_attn"]["wq"])
-        out = A.flash_attention(A._split_gqa(q, cfg.n_kv_heads), ck, cv,
-                                causal=False, q_block=flags.flash_block,
-                                kv_block=flags.flash_block,
-                                kv_valid=enc_valid)
-        wo = p["cross_attn"]["wo"]                               # [H,D,M]
-        mix = out.to(x.dtype).reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+        mix, _ = A.attention_layer(
+            p["cross_attn"], h, kind="global_attn", rope_theta=0.0,
+            n_kv_heads=cfg.n_kv_heads, mode=mode, causal=False,
+            use_rope=False, kv_override=(ck, cv), kv_valid=enc_valid,
+            flash_block=flags.flash_block)
         new_cross = {"k": ck, "v": cv}
         if cache is not None:
             t, slots = ck.shape[1], cache["cross"]["k"].shape[1]
@@ -250,7 +263,7 @@ def encdec_apply(params, batch: Dict[str, torch.Tensor], *,
         pe = p["pos_embed"][lengths.long()][:, None]                # [B,1,D]
     else:
         pe = p["pos_embed"][None, :s]
-    x = p["embed"][tokens.long()]
+    x = L.embed_lookup(p["embed"], tokens)
     x = x + pe.to(x.dtype)
     dec = p["decoder"]
     outs = []

@@ -188,6 +188,20 @@ def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, gated: bool,
 TP_AXIS = "model"
 
 
+def embed_lookup(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The rows ``emb[ids]``; inside a ``shard_map`` body whose weights
+    split ``vocab``, vocab-parallel: each shard looks up the ids it holds,
+    zeros for the rest, and a ``psum`` adds them up."""
+    ids = ids.long()
+    if not is_split("vocab"):
+        return emb[ids]
+    rows = emb.shape[0]
+    ids = ids - spmd.axis_index(TP_AXIS) * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = torch.where(mine[..., None], emb[ids.clamp(0, rows - 1)], 0)
+    return spmd.psum(x, TP_AXIS)
+
+
 def tp_sum(y: torch.Tensor, axis: str) -> torch.Tensor:
     """``y`` summed over the model axis where it is a partial sum: a
     product over logical ``axis`` that the body's weights split

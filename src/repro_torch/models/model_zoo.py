@@ -47,12 +47,9 @@ class Model:
 
     def init(self, gen: torch.Generator, device="cuda", mesh=None):
         if mesh is not None:
-            if self.cfg.enc_dec:
-                raise NotImplementedError(
-                    f"{self.cfg.name}: an encoder-decoder on a mesh is not "
-                    f"ported (see ROADMAP.md)")
+            params = ED.encdec_params if self.cfg.enc_dec else T.lm_params
             return T.init_placed(
-                lambda g, d: T.lm_params(g, self.cfg, self.flags, d),
+                lambda g, d: params(g, self.cfg, self.flags, d),
                 self.axes(), gen, mesh, device)
         if self.cfg.enc_dec:
             return ED.encdec_init(gen, self.cfg, self.flags, device)

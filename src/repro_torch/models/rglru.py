@@ -14,6 +14,14 @@ of place, where autograd records), decode with a single-step update written
 into the cache in place. The recurrence and input gates use block-diagonal
 projections (``n_blocks`` heads) as in the paper. The JAX package computes
 all of it outside any Pallas kernel, and so it is plain torch here.
+
+Inside a ``shard_map`` body whose weights split ``lru`` (a model served or
+trained on a mesh) a shard holds W/tp channels: ``in_x`` and ``in_gate``
+column-parallel, the conv, ``lam``, the biases, the cache and the scan
+channel-local, ``out`` row-parallel and reduced by ``layers.tp_sum``. The
+gates' weights keep the JAX package's spec, which splits every block's
+rows, so the layer gathers them over the model axis and takes its own
+blocks (``_local_gate_weights``).
 """
 from __future__ import annotations
 
@@ -24,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RGLRUConfig
+from repro_torch.distributed import spmd
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import is_split
 
 _C = 8.0
 
@@ -82,10 +92,40 @@ def _block_diag(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshi,hij->bshj", xr, w).reshape(b, s, width)
 
 
+def _local_gate_weights(params, width: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``w_r`` and ``w_i`` for a shard's ``width`` channels. Outside a body
+    that splits ``lru`` they are the weights as they stand. Inside one a
+    shard holds rows [k·bd/tp, (k+1)·bd/tp) of every block (the JAX spec
+    ``(None, "lru", None)``) and its channels are whole blocks [k·H/tp,
+    (k+1)·H/tp): each weight is gathered over the model axis, its rows put
+    back in order and the shard's blocks taken. The gather's adjoint (a
+    ``psum`` and the shard's rows) gives each shard the gradient of the
+    rows it holds."""
+    w_r, w_i = params["w_r"], params["w_i"]
+    if not is_split("lru"):
+        return w_r, w_i
+    tp, k = spmd.axis_size(L.TP_AXIS), spmd.axis_index(L.TP_AXIS)
+    h, _, bd = w_r.shape
+    if h % tp or width != (h // tp) * bd:
+        raise NotImplementedError(
+            f"RG-LRU gates of {h} blocks of {bd} over {tp} shards of "
+            f"{width} channels: a shard's channels are not whole blocks, "
+            f"not ported (see ROADMAP.md)")
+    hl = h // tp
+
+    def mine(w):
+        full = spmd.all_gather(w, L.TP_AXIS)          # [tp, H, bd/tp, bd]
+        full = full.permute(1, 0, 2, 3).reshape(h, bd, bd)
+        return full[k * hl:(k + 1) * hl]
+    return mine(w_r), mine(w_i)
+
+
 def _gates(params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (log_a [B,S,W] fp32, gated_input [B,S,W] fp32)."""
-    r = torch.sigmoid(_block_diag(x, params["w_r"]).float() + params["b_r"])
-    i = torch.sigmoid(_block_diag(x, params["w_i"]).float() + params["b_i"])
+    w_r, w_i = _local_gate_weights(params, x.shape[-1])
+    r = torch.sigmoid(_block_diag(x, w_r).float() + params["b_r"])
+    i = torch.sigmoid(_block_diag(x, w_i).float() + params["b_i"])
     log_a = -_C * F.softplus(params["lam"]) * r                # <= 0
     gated = i * x.float()
     return log_a, gated
@@ -156,7 +196,9 @@ def rglru_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
     zeros otherwise; a decode needs it. With a cache, prefill and decode
     write the new conv inputs and state into it in place (tensor ops only,
     so a CUDA graph can capture a decode step) and return it; a prefill
-    without one returns new tensors; train returns None."""
+    without one returns new tensors; train returns None. Inside a body
+    that splits ``lru`` the cache and every channel are the shard's
+    (module docstring)."""
     gate = F.gelu(u @ params["in_gate"], approximate="tanh")
     x = u @ params["in_x"]
     x, new_conv = _causal_conv(x, params["conv_w"], params["conv_b"],
@@ -187,7 +229,7 @@ def rglru_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
             new_cache = cache
 
     y = h.to(u.dtype) * gate
-    return y @ params["out"], new_cache
+    return L.tp_sum(y @ params["out"], "lru"), new_cache
 
 
 def init_rglru_cache(batch: int, d_model: int, rcfg: RGLRUConfig, *, dtype,

@@ -52,7 +52,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
-from repro_torch.models.sharding import constrain, is_split
+from repro_torch.models.sharding import constrain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -514,17 +514,7 @@ def _embed_inputs(p: Dict[str, Any], cfg: ModelConfig,
     """Token embeddings [B,S,D]; for the vision frontend, the batch's
     precomputed ``vision_embeds`` [B, n_tok, D] (cast to the weight dtype)
     over the first n_tok positions. Decode batches carry none."""
-    emb, ids = p["embed"], batch["tokens"].long()
-    if not is_split("vocab"):
-        x = emb[ids]
-    else:
-        # vocab-parallel inside a shard_map body: each shard looks up the
-        # ids it holds, zeros for the rest, and the psum adds them up
-        rows = emb.shape[0]
-        ids = ids - spmd.axis_index(L.TP_AXIS) * rows
-        mine = (ids >= 0) & (ids < rows)
-        x = torch.where(mine[..., None], emb[ids.clamp(0, rows - 1)], 0)
-        x = spmd.psum(x, L.TP_AXIS)
+    x = L.embed_lookup(p["embed"], batch["tokens"])
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         ve = batch["vision_embeds"]
         x[:, :ve.shape[1]] = ve.to(x.dtype)

@@ -19,7 +19,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import RGLRU
 from repro_torch.distributed import spmd
 from repro_torch.models.layers import TP_AXIS
 from repro_torch.models.model_zoo import Model
@@ -36,15 +35,10 @@ def serving_mesh(model: Model, mesh: Optional[spmd.Mesh] = None
     one; None without either, and under ``Flags.seq_shard_kv``, whose
     global layers decode through ``attention.seq_sharded_decode`` over the
     active mesh as before (placing the whole model under it is not
-    ported: ROADMAP.md). Raises for a family not served on a mesh."""
+    ported: ROADMAP.md)."""
     mesh = mesh or active_mesh()
     if mesh is None or model.flags.seq_shard_kv is not None:
         return None
-    cfg = model.cfg
-    if cfg.enc_dec or RGLRU in cfg.layer_pattern:
-        what = "an encoder-decoder" if cfg.enc_dec else "RG-LRU layers"
-        raise NotImplementedError(f"{cfg.name}: serving {what} on a mesh "
-                                  f"is {_NOT_PORTED}")
     return mesh
 
 
@@ -134,7 +128,8 @@ def make_prefill_step(model: Model, mesh: Optional[spmd.Mesh] = None,
     @torch.no_grad()
     def prefill_step(params, batch: Dict[str, torch.Tensor], cache):
         """``batch``: ``tokens`` [B,S] and the model's other prefill
-        inputs (``vision_embeds``, an encoder-decoder's ``frames``).
+        inputs (``vision_embeds``, an encoder-decoder's ``frames``; on a
+        mesh each split along its batch dim as the tokens are).
         Returns (next_token [B,1] int32, cache after prefill), with
         ``logits`` the last position's logits [B,1,V] too. On a mesh
         (``serving_mesh``) they are ``Sharded``, the cache's leaves too."""

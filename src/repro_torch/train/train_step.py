@@ -44,7 +44,6 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import RGLRU
 from repro_torch.convert import to_numpy, to_torch
 from repro_torch.distributed import spmd
 from repro_torch.models.model_zoo import Model
@@ -142,16 +141,6 @@ def _over_mesh(body, mesh, params, batch, batch_spec, extra=(),
 # the tensor-parallel step over a placed state
 # ---------------------------------------------------------------------------
 
-def check_mesh_family(model: Model) -> None:
-    """Raise for a family that does not train on a mesh: RG-LRU layers
-    and the encoder-decoder (ROADMAP.md item 6g), as serving does."""
-    cfg = model.cfg
-    if cfg.enc_dec or RGLRU in cfg.layer_pattern:
-        what = "an encoder-decoder" if cfg.enc_dec else "RG-LRU layers"
-        raise NotImplementedError(f"{cfg.name}: training {what} on a mesh "
-                                  f"is not ported (see ROADMAP.md item 6g)")
-
-
 def _is_placed(tree) -> bool:
     """Whether the leaves of ``tree`` lie on a mesh (``spmd.Sharded``)."""
     return any(isinstance(x, spmd.Sharded) for x in tree_leaves(tree))
@@ -229,7 +218,6 @@ def _mesh_run(model: Model, state, batch: Dict[str, torch.Tensor], od: int,
     tree of ``spmd.Sharded`` laid out as the parameters, and ``{"ce",
     "aux", "grad_norm"}``). The metrics are tensors on shard 0's
     device."""
-    check_mesh_family(model)
     from repro_torch.launch.mesh import batch_specs
     params = state.params if opt is not None else state
     pflat = tree_flatten(params)
@@ -471,7 +459,6 @@ def init_train_state(model: Model, gen: Optional[torch.Generator],
     shard makes its own moments and master, so that no device ever holds
     more than its blocks."""
     if mesh is not None:
-        check_mesh_family(model)
         if ef_pods:
             raise NotImplementedError("compress_pod_grads with a placed "
                                       "state is not ported (see ROADMAP.md)")

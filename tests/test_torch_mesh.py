@@ -46,10 +46,11 @@ TOL = 1e-5
 CPU = torch.device("cpu")
 ARCHS = tconfigs.ARCH_IDS
 # served on a mesh: attention (global, local and global, with the vision
-# embeddings), dense MLP, MoE, and the SSD stack (replicated)
+# embeddings), dense MLP, MoE, the SSD stack (replicated), RG-LRU with local
+# attention, and the encoder-decoder (its frames in ``extra``)
 SERVED = ("yi_9b", "phi4_mini_3_8b", "codeqwen15_7b", "gemma3_27b",
           "pixtral_12b", "olmoe_1b_7b", "llama4_scout_17b_a16e",
-          "mamba2_370m")
+          "mamba2_370m", "recurrentgemma_9b", "whisper_large_v3")
 MESHES = ((1, 2), (1, 4))
 
 
@@ -411,6 +412,13 @@ def _ep_drops(route_mod, gid_of, mcfg, xp):
         route_mod._route = route
 
 
+def _frames(cfg, b, seed=9):
+    """An encoder-decoder's frames [B, encoder_seq, D] at 0.1 scale, as
+    ``tests/test_arch_smoke.py`` draws them."""
+    return 0.1 * torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+
+
 def _tokens(seed, shape, vocab=256):
     return np.random.default_rng(seed).integers(0, vocab, shape).astype(
         np.int32)
@@ -434,6 +442,8 @@ def test_served_on_a_mesh_equals_one_device_and_jax(arch, shape):
         extra["vision_embeds"] = 0.02 * torch.from_numpy(
             np.random.default_rng(8).standard_normal(
                 (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.enc_dec:
+        extra["frames"] = _frames(cfg, b)
     mesh = _tmesh(*shape)
     with TS.use_sharding(mesh):
         eng = Engine(tm, tp, b, s + gen)
@@ -469,8 +479,7 @@ def test_served_on_a_mesh_equals_one_device_and_jax(arch, shape):
     # the JAX model's full forward, with the same drops
     full = np.concatenate([toks.numpy(), out[:, :-1].numpy()], axis=1)
     jbatch = {"tokens": jnp.asarray(full)}
-    if extra:
-        jbatch["vision_embeds"] = jnp.asarray(extra["vision_embeds"].numpy())
+    jbatch.update({k: jnp.asarray(v.numpy()) for k, v in extra.items()})
     jdrops = contextlib.nullcontext() if cfg.moe is None else _ep_drops(
         JM, lambda: gid.reshape(-1), cfg.moe, jnp)
     with jdrops, JS.use_sharding(None):
@@ -488,13 +497,58 @@ def test_serve_main_on_a_production_mesh_of_cpu_shards(capsys):
     assert "generated (2, 3) on cpu" in capsys.readouterr().out
 
 
-def test_families_not_served_on_a_mesh_say_so():
-    for arch in ("recurrentgemma_9b", "whisper_large_v3"):
-        tm = tbuild_smoke(tconfigs.get_smoke_config(arch))
-        with TS.use_sharding(_tmesh(1, 2)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                Engine(tm, tm.init(torch.Generator().manual_seed(0), CPU),
-                       2, 8)
+# whisper's smoke config with 258 vocabulary rows: split over (1, 2),
+# replicated over (1, 4) (258 % 4 = 2), as whisper-large-v3's 51,866 are
+WHISPER_258 = dataclasses.replace(
+    tconfigs.get_smoke_config("whisper_large_v3"), vocab=258)
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=["1x2", "1x4"])
+def test_whisper_served_where_the_vocabulary_splits_and_where_not(shape):
+    """The encoder-decoder with a vocabulary that divides the model axis
+    of (1, 2) and not that of (1, 4): the lookup, the logits and the
+    greedy token vocab-parallel on the first, plain on the second. The
+    prefill's last logits within 1e-5 of the one-device Engine's, the
+    tokens equal; the cross cache holds each shard's kv heads."""
+    tm = tbuild_smoke(WHISPER_258)
+    tp = tm.init(torch.Generator().manual_seed(4), CPU)
+    b, s, gen = 4, 16, 6
+    toks = torch.from_numpy(_tokens(5, (b, s), vocab=258))
+    extra = {"frames": _frames(tm.cfg, b, seed=6)}
+    mesh = _tmesh(*shape)
+    with TS.use_sharding(mesh):
+        eng = Engine(tm, tp, b, s + gen)
+        want_split = {"heads", "kv_heads", "mlp"} | (
+            {"vocab"} if shape[1] == 2 else set())
+        assert TS.split_axes(tm.axes(), eng.params) == want_split
+        nxt, cache, logits = eng.prefill(toks, extra, logits=True)
+        ck = cache["decoder"]["cross"]["k"]
+        assert ck.shards[0].shape[-2] == tm.cfg.n_kv_heads // shape[1]
+        out = eng.generate(toks, gen, extra)
+    one = Engine(tm, tp, b, s + gen)
+    want_next, _, want_logits = one.prefill(toks, extra, logits=True)
+    torch.testing.assert_close(logits, want_logits, rtol=TOL, atol=TOL)
+    assert torch.equal(nxt, want_next)
+    assert torch.equal(out, one.generate(toks, gen, extra))
+
+
+def test_rglru_gates_refuse_a_shard_of_part_of_a_block():
+    """recurrentgemma's smoke config has 4 gate blocks of 16 channels: over
+    (1, 8) a shard's 8 channels are half a block, which the layer refuses
+    with a pointer to ROADMAP.md, serving and training alike."""
+    from repro_torch.train import make_mesh_grad_fn
+    tm = tbuild_smoke(tconfigs.get_smoke_config("recurrentgemma_9b"))
+    tp = tm.init(torch.Generator().manual_seed(0), CPU)
+    mesh = _tmesh(1, 8)
+    toks = torch.from_numpy(_tokens(3, (2, 8)))
+    with TS.use_sharding(mesh):
+        eng = Engine(tm, tp, 2, 10)
+        assert "lru" in TS.split_axes(tm.axes(), eng.params)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng.prefill(toks)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_mesh_grad_fn(tm)(eng.params, {
+                "tokens": toks, "labels": toks})
 
 
 def test_tasked_decode_loop_on_a_mesh_says_so():

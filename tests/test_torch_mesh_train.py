@@ -15,6 +15,7 @@ the two host devices ``conftest.py`` pins. Each collective's gradient is
 held to autograd of its one-device form in float64 (1e-12).
 """
 import contextlib
+import dataclasses
 import threading
 
 import jax
@@ -56,9 +57,10 @@ COLLECTIVE_TOL = 1e-12  # a collective's gradient in float64
 CPU = torch.device("cpu")
 KEY = jax.random.PRNGKey(0)
 # the families that train on a mesh: attention (global; local and global),
-# MoE, and the SSD stack (replicated)
+# MoE, the SSD stack (replicated), RG-LRU with local attention, and the
+# encoder-decoder
 ARCHS = ("yi_9b", "gemma3_27b", "olmoe_1b_7b", "llama4_scout_17b_a16e",
-         "mamba2_370m")
+         "mamba2_370m", "recurrentgemma_9b", "whisper_large_v3")
 MESHES = ((1, 2), (1, 4), (2, 2))
 # the JAX package's defaults, as test_torch_train.py's step against JAX
 # takes them: the first update moves a parameter by at most about the
@@ -77,14 +79,22 @@ def _tmesh(data, model):
 
 
 def _batch(cfg, b=4, s=32, seed=0):
-    """Seeded tokens and labels (and the vision embeddings at 0.1 scale)."""
+    """Seeded tokens and labels (and the vision embeddings or an
+    encoder-decoder's frames at 0.1 scale)."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
              "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
     if cfg.frontend == "vision":
         batch["vision_embeds"] = (0.1 * rng.standard_normal(
             (b, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    if cfg.enc_dec:
+        batch["frames"] = _frames(cfg, b, rng)
     return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _frames(cfg, b, rng):
+    return (0.1 * rng.standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model))).astype(np.float32)
 
 
 def _rel(got, want) -> float:
@@ -243,6 +253,56 @@ def test_recomputation_on_a_mesh_changes_no_gradient(remat):
     _assert_grads_close(got, want, got_m, want_m)
 
 
+@pytest.mark.parametrize("arch,remat", [
+    ("recurrentgemma_9b", "full"), ("recurrentgemma_9b", "dots"),
+    ("whisper_large_v3", "full")])
+def test_recomputation_of_rglru_and_the_encoder_decoder(arch, remat):
+    """The same for the RG-LRU stack (its gates' gather and ``out``'s
+    ``psum`` issued again in the backward) and for the encoder-decoder,
+    which recomputes every encoder and decoder layer under any remat but
+    "none", as the JAX package's ``jax.checkpoint`` of both scans does."""
+    cfg = tconfigs.get_smoke_config(arch)
+    model = tbuild_smoke(cfg, remat=remat, loss_chunk=16)
+    one, placed = _states(model, _tmesh(1, 2))
+    batch = _batch(cfg)
+    want, want_m = make_grad_fn(model)(one.params, batch)
+    want_m["grad_norm"] = global_norm(want)
+    got, got_m = make_mesh_grad_fn(model)(placed.params, batch)
+    _assert_grads_close(got, want, got_m, want_m)
+
+
+# whisper's smoke config with 258 vocabulary rows: split over (1, 2),
+# replicated over (1, 4), as whisper-large-v3's 51,866 are
+WHISPER_258 = dataclasses.replace(
+    tconfigs.get_smoke_config("whisper_large_v3"), vocab=258)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4)], ids=["1x2", "1x4"])
+def test_whisper_trains_where_the_vocabulary_splits_and_where_not(shape):
+    """One step of the encoder-decoder whose vocabulary divides the model
+    axis of (1, 2) (the lookup and the loss vocab-parallel, ``embed`` and
+    ``unembed`` split) and not that of (1, 4) (both replicated, their
+    gradients summed over the shards): the gradients and the updated
+    state against the one-device step."""
+    model = tbuild_smoke(WHISPER_258)
+    mesh = _tmesh(*shape)
+    one, placed = _states(model, mesh)
+    split = shape[1] == 2
+    assert bool(any(placed.params["embed"].spec)) == split
+    assert bool(any(placed.params["unembed"].spec)) == split
+    batch = _batch(WHISPER_258)
+    want, want_m = make_grad_fn(model)(one.params, batch)
+    want_m["grad_norm"] = global_norm(want)
+    got, got_m = make_mesh_grad_fn(model)(placed.params, batch)
+    _assert_grads_close(got, want, got_m, want_m)
+    step = make_train_step(model, TrainConfig(opt=OPT))
+    one, m1 = step(one, batch)
+    placed, mm = step(placed, batch)
+    assert abs(float(mm["loss"]) - float(m1["loss"])) <= \
+        LOSS_TOL * float(m1["loss"])
+    _assert_states_close(placed, one)
+
+
 def test_over_decomposition_on_a_mesh():
     """od=2 on a (1, 2) mesh: the one-device od=2 step within the
     tolerances above, and the mesh's od=1 step within the over-
@@ -273,19 +333,23 @@ def test_over_decomposition_on_a_mesh():
 # against JAX's step on a JAX mesh
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["yi_9b", "olmoe_1b_7b", "mamba2_370m"])
+@pytest.mark.parametrize("arch", ["yi_9b", "olmoe_1b_7b", "mamba2_370m",
+                                  "recurrentgemma_9b", "whisper_large_v3"])
 def test_mesh_step_equals_jax_step_on_a_jax_mesh(arch):
     """One step of the port on a (1, 2) mesh of CPU shards (the JAX
     state placed by ``train_state_placed_from_jax``) against JAX's jitted
     step under ``use_sharding`` of a (1, 2) JAX mesh, from the same state
-    and ``SyntheticLM`` batch: the loss, the gradient norm, and the
-    updated parameters and moments."""
+    and ``SyntheticLM`` batch (an encoder-decoder's with seeded frames):
+    the loss, the gradient norm, and the updated parameters and
+    moments."""
     cfg = jget_smoke(arch)
     jm = jbuild_smoke(cfg)
     jstate = jinit_train_state(jm, KEY)
     data = JSyntheticLM(JDataConfig(vocab=cfg.vocab, seq_len=32,
                                     global_batch=8, seed=3))
     batch = data.batch(0)
+    if cfg.enc_dec:
+        batch["frames"] = _frames(cfg, 8, np.random.default_rng(4))
     jmesh = JMesh(np.array(jax.devices()[:2]).reshape(1, 2),
                   ("data", "model"))
     tm = tbuild_smoke(tconfigs.get_smoke_config(arch))
@@ -495,6 +559,38 @@ def test_each_shard_holds_its_share_of_the_state():
     assert tuple(placed.params["layers"]["norm1"].spec) == ()
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-large-v3"])
+def test_train_main_trains_rglru_and_whisper_on_a_production_mesh(arch,
+                                                                  capsys):
+    """``launch.train --production-mesh --device cpu`` for the RG-LRU
+    stack and the encoder-decoder (zero frames, as the JAX driver feeds):
+    finite losses, the state placed over two CPU shards."""
+    state = ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                         "--production-mesh", "--seq-len", "32",
+                         "--log-every", "1", "--steps", "2"])
+    out = capsys.readouterr().out
+    assert "step     2 loss=" in out and "nan" not in out
+    leaf = state.params["embed"]
+    assert isinstance(leaf, spmd.Sharded) and leaf.mesh.shape == {
+        "data": 1, "model": 2}
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "whisper_large_v3"])
+def test_elastic_driver_shrinks_rglru_and_whisper(arch, tmp_path):
+    """``launch.elastic_train.run_elastic`` for the RG-LRU stack and the
+    encoder-decoder: 4 data-parallel shards, 2 of them fail at step 2,
+    the run restores and finishes on 2; the losses equal an uninterrupted
+    2-shard run's at ``test_torch_train_driver.py``'s rtol 1e-4."""
+    from repro_torch.launch.elastic_train import run_elastic
+    losses, worlds = run_elastic(arch, steps=4, fail_at=2,
+                                 ckpt_dir=str(tmp_path / "a"),
+                                 devices=[CPU] * 4)
+    assert worlds == [4, 4, 2, 2], worlds
+    want, _ = run_elastic(arch, steps=4, fail_at=4,
+                          ckpt_dir=str(tmp_path / "b"), devices=[CPU] * 2)
+    np.testing.assert_allclose(losses, want, rtol=1e-4)
+
+
 def test_train_main_on_a_production_mesh_of_cpu_shards(capsys, tmp_path):
     """``launch.train --production-mesh --device cpu`` trains over two CPU
     shards and resumes from its checkpoint onto the mesh; the state is
@@ -513,14 +609,7 @@ def test_train_main_on_a_production_mesh_of_cpu_shards(capsys, tmp_path):
 
 
 def test_what_does_not_train_on_a_mesh_says_so():
-    """RG-LRU and the encoder-decoder raise with a pointer to
-    ``ROADMAP.md``, and so does a multi-pod mesh."""
-    mesh = _tmesh(1, 2)
-    for arch in ("recurrentgemma_9b", "whisper_large_v3"):
-        model = tbuild_smoke(tconfigs.get_smoke_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_train_state(model, torch.Generator().manual_seed(0), CPU,
-                             mesh=mesh)
+    """A multi-pod mesh raises with a pointer to ``ROADMAP.md``."""
     with pytest.raises(SystemExit, match="ROADMAP"):
         ttrain.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
                      "--production-mesh", "--multi-pod", "--steps", "1"])

@@ -147,16 +147,20 @@ def test_train_driver_runs_and_resumes(tmp_path, capsys):
 
 
 def test_train_driver_refuses_what_it_does_not_run():
-    """A mesh across nodes, and RG-LRU and the encoder-decoder on the
-    production mesh (which trains the other families since the
-    tensor-parallel step), raise with a pointer to ``ROADMAP.md``."""
+    """A mesh across nodes raises with a pointer to ``ROADMAP.md``. RG-LRU
+    and the encoder-decoder, which it refused on the production mesh
+    until they trained tensor-parallel, now take a step there, their
+    state placed."""
     with pytest.raises(SystemExit, match="ROADMAP"):
         ltrain.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
                      "--production-mesh", "--multi-pod"])
     for arch in ("recurrentgemma-9b", "whisper-large-v3"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ltrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                         "--production-mesh", "--steps", "1"])
+        state = ltrain.main(["--arch", arch, "--smoke", "--device", "cpu",
+                             "--production-mesh", "--steps", "1",
+                             "--seq-len", "32"])
+        assert int(state.opt.step.full()) == 1
+        assert all(bool(torch.isfinite(v.full()).all())
+                   for _, v in tree_flatten(state.params))
 
 
 def test_runtime_allreduce_gradient_trees():

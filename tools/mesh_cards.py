@@ -156,7 +156,7 @@ def serve_depth(cfg, C, check, devices) -> dict:
                         mesh=mesh)
     sync_all()
     r["init_s"] = time.perf_counter() - t0
-    r.update(C.shard_shares(params, tp))
+    r.update(C.placed_shares(params, mesh, C.MESH_SHARES))
     check(r["shard_shares"] == C.MESH_SHARES, f"{layers} layers: a shard "
           f"holds {r['shard_shares']}")
     with use_sharding(mesh):

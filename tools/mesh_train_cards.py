@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Train yi-9b at full width over a (1, 4) production mesh with one shard a
-card, on a node of four CUDA cards: all 48 of its layers by default
-(8.83 B parameters, a 124 GB training state, about 31 GB a card), which
-no single card holds. ``chip_smoke.py`` phase 20 trains 12 of them over
-four shards of one card.
+"""Train a model at full width over a (1, 4) production mesh with one shard
+a card, on a node of four CUDA cards, at depths no single card holds: by
+default yi-9b at all 48 of its layers (8.83 B parameters, a 124 GB
+training state, about 31 GB a card); ``--arch recurrentgemma-9b`` at all
+38 (9.6 B parameters, about 135 GB). ``chip_smoke.py`` phases 20 and 22
+train them cut to 12 and 6 layers over four shards of one card.
 
-    python3 tools/mesh_train_cards.py [--layers 48]
+    python3 tools/mesh_train_cards.py [--arch yi-9b] [--layers 48]
         [--out chiprun_out/mesh_train_cards.json]
 
-For each depth the state is drawn straight onto the mesh from the seed
-(``init_train_state(..., mesh=)``: the one-device draws, shard by shard,
-each shard making its own moments and float32 master), then
-``make_train_step`` trains tensor-parallel on phase 16's batch (4 x 2048
-from ``SyntheticLM``, bf16, remat "dots"), phase 20's
-``MESH_TRAIN_STEPS`` steps on the one repeated batch: ms a step (host clock around steps synchronised on every
+For each depth (by default the config's) the state is drawn straight onto
+the mesh from the seed (``init_train_state(..., mesh=)``: the one-device
+draws, shard by shard, each shard making its own moments and float32
+master), then ``make_train_step`` trains tensor-parallel on the batch of
+the model's ``chip_smoke.MESH_TRAIN_CELLS`` entry (``SyntheticLM``, bf16,
+``DEFAULT_FLAGS``), phase 20's ``MESH_TRAIN_STEPS`` steps on the one
+repeated batch: ms a step (host clock around steps synchronised on every
 card), SPMD rendezvous a step, each card's peak allocation, each shard's
 share of the state. Checks: each shard holds what the specs give it, the
 losses are finite, the first within 0.5 of ln V, and they fall every step;
@@ -33,6 +35,7 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import Optional
 
 import numpy as np
 import torch
@@ -52,23 +55,25 @@ def sync_all() -> None:
         torch.cuda.synchronize(d)
 
 
-def train_depth(layers: int, C, check, devices) -> dict:
-    """Train ``layers`` of yi-9b over a (1, len(devices)) mesh of
-    ``devices``; the numbers and checks of the module docstring."""
+def train_depth(arch: str, layers: Optional[int], C, check,
+                devices) -> dict:
+    """Train ``layers`` of ``arch`` (None: all) over a (1, len(devices))
+    mesh of ``devices``; the numbers and checks of the module
+    docstring."""
     from repro_torch import kernels as ops
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.train import (TrainConfig, init_train_state,
                                    make_train_step)
     dev = devices[0]
-    model = C.train_model(layers)
+    _, bsz, seq = C.MESH_TRAIN_CELLS[arch]
+    model = C.train_model(layers, arch=arch)
     cfg = model.cfg
-    assert cfg.n_layers == layers
+    layers = cfg.n_layers
     r = {"arch": cfg.name, "layers": layers,
-         "config_layers": get_config(C.TRAIN_ARCH).n_layers,
-         "devices": [str(d) for d in devices], "batch": C.TRAIN_BATCH,
-         "seq": C.TRAIN_SEQ, "remat": model.flags.remat,
-         "steps": C.MESH_TRAIN_STEPS}
+         "config_layers": get_config(arch).n_layers,
+         "devices": [str(d) for d in devices], "batch": bsz, "seq": seq,
+         "remat": model.flags.remat, "steps": C.MESH_TRAIN_STEPS}
     mesh = make_production_mesh(devices=devices)
     t0 = time.perf_counter()
     state = init_train_state(model, torch.Generator(dev).manual_seed(C.SEED),
@@ -78,7 +83,7 @@ def train_depth(layers: int, C, check, devices) -> dict:
     r["params"] = sum(math.prod(x.shape) for x in
                       _leaves(state.params))
     r.update(C.state_shares(state, mesh))
-    batch = C.train_batch(cfg, 0, dev)
+    batch = C.train_batch(cfg, 0, dev, bsz, seq)
     step = make_train_step(model, TrainConfig(opt=C.train_opt()))
     for d in devices:
         torch.cuda.reset_peak_memory_stats(d)
@@ -99,7 +104,7 @@ def train_depth(layers: int, C, check, devices) -> dict:
     r.update(losses=losses, step_ms=ms, rendezvous_per_step=rdv,
              grad_norm=float(met["grad_norm"]),
              ms_per_step=float(np.median(ms[1:] or ms)))
-    r["tokens_per_s"] = C.TRAIN_BATCH * C.TRAIN_SEQ / r["ms_per_step"] * 1e3
+    r["tokens_per_s"] = bsz * seq / r["ms_per_step"] * 1e3
     print(json.dumps(r), flush=True)
     shares = r["shard_state_gb"]
     check(all(abs(g - shares[0]) < 1e-9 for g in shares)
@@ -134,7 +139,8 @@ def _leaves(tree):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--layers", type=int, nargs="+", default=[48])
+    ap.add_argument("--arch", default="yi-9b")
+    ap.add_argument("--layers", type=int, nargs="+", default=[None])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "mesh_train_cards.json"))
     args = ap.parse_args()
@@ -159,8 +165,8 @@ def main() -> int:
     with C.watchdog(WATCHDOG_S, "mesh_train_cards"):
         for layers in args.layers:
             try:
-                out[f"layers_{layers}"] = train_depth(layers, C, check,
-                                                      devices)
+                r = train_depth(args.arch, layers, C, check, devices)
+                out[f"layers_{r['layers']}"] = r
             except Exception:      # recorded; the next depth still runs
                 check(False, f"{layers} layers: {traceback.format_exc()}")
                 gc.collect()

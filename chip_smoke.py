@@ -140,7 +140,23 @@ the port's main path through the tasking runtime:
     prefill ms, decode ms a step, rendezvous, peak; the allocation back;
   * phase 22, phase 20's checks under its watchdog for recurrentgemma-9b
     at full width cut to 6 of its 38 layers (4 x 2048) and
-    whisper-large-v3 at full depth (8 x 448 over 1500 seeded frames).
+    whisper-large-v3 at full depth (8 x 448 over 1500 seeded frames);
+  * phase 23, the dry-run against the card: yi-9b's decode_32k (4
+    layers, one shard), train_4k (1 layer, 32 microbatches), prefill_32k
+    (1 layer, batch 16 of 32: flash) and decode_32k at the opt level (1
+    layer, the cache's slots over the model axis of eight shards of the
+    card), olmoe-1b-7b's decode_32k (1 layer, four shards) and
+    mamba2-370m's prefill_32k (1 layer: ssd_chunk), each at full width
+    and its cell's own sequence, lowered on meta
+    shards in a child process that sees no card (started with phase 1,
+    so that it runs beside the earlier phases) and run once on the card
+    under the same counter (``repro_torch.opcount``): the counts must be
+    equal (FLOPs, bytes, collective bytes by kind, operators and kernel
+    launches by name; the prefill cells launched their kernels), the
+    arguments' bytes the placed state's, the predicted peak within 10%
+    and the predicted temporaries within 2% of the card's for the
+    one-shard cells, the step no faster than its roofline bound (time
+    over bound printed).
     Beside phase 2, ``window_attention`` on bf16
     operands against its products on float32 copies at a gemma3 and a
     recurrentgemma local layer's prefill shapes, both timed; phase 2's
@@ -302,6 +318,39 @@ MESH_TRAIN_CELLS = {TRAIN_ARCH: (TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ),
                     RG_ARCH: (6, 4, 2048), WHISPER_ARCH: (None, 8, 448)}
 COMPRESS_SHARDS, COMPRESS_TOL = 4, 1e-6
 ELASTIC_TRAIN_RTOL = 1e-4
+# phase 23: the dry-run (launch.dryrun) against the card. Each cell at full
+# width and its own sequence, depth cut by ``probe`` (periods): (label,
+# arch, shape, shards of the card, probe, over_decompose, batch (None: the
+# shape's), opt level). (b) trains yi-9b's 256 x 4096 batch in 32
+# microbatches: at 8 (JAX's od8) the dry-run predicts 9.8 GB of state and
+# 145 GB of temporaries, which no card holds; at 32, 39 GB. The prefill
+# cells take the kernels: (d) mamba2-370m's ssd_chunk at the shape's batch
+# (32 x 32768: 68 GB predicted), (e) yi-9b's flash at batch 16 of the
+# shape's 32 (104 GB predicted at 32, 54 at 16). (f) is the opt level's
+# decode with the cache's slots split over the model axis of (1, 8) shards
+# (yi-9b's 4 kv heads do not divide 8). The counts on meta must equal the
+# card's exactly, and each cell of DRYRUN_KERNELS must launch its kernel;
+# for the one-shard cells of DRYRUN_PEAK_CHECKED the predicted peak
+# (arguments + temporaries) must lie within DRYRUN_PEAK_TOL of the card's
+# max_memory_allocated over the step, and the predicted temporaries within
+# DRYRUN_TEMP_TOL of that peak less the card's arguments (2%: the
+# readings on an H100 were -0.65% for (a) and -0.09% for (b)); (c)'s and
+# (f)'s shards share the card and take turns, so their temporaries overlap
+# in ways a shard's peak does not predict: printed only. The step's time
+# must not beat its roofline bound at the card's row of
+# launch.roofline.PEAKS.
+DRYRUN_CELLS = (("a", "yi_9b", "decode_32k", 1, 4, 1, None, "baseline"),
+                ("b", "yi_9b", "train_4k", 1, 1, 32, None, "baseline"),
+                ("c", "olmoe_1b_7b", "decode_32k", 4, 1, 1, None,
+                 "baseline"),
+                ("d", "mamba2_370m", "prefill_32k", 1, 1, 1, None,
+                 "baseline"),
+                ("e", "yi_9b", "prefill_32k", 1, 1, 1, 16, "baseline"),
+                ("f", "yi_9b", "decode_32k", 8, 1, 1, None, "opt"))
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_TEMP_TOL = 0.02
+DRYRUN_PEAK_CHECKED = ("a", "b", "d", "e")
+DRYRUN_KERNELS = {"d": "ssd_chunk", "e": "flash_attention"}
 # the EP check after each: one full-width MoE layer's moe_ep over a (1, 4)
 # mesh of shards sharing the card, on x [4, 2048, D] (seq-sharded, 512
 # positions a shard), at capacity factors E/k (no drops), 1.25 (the
@@ -426,16 +475,6 @@ SSM_PREFILL_REL_TOL = {"bf16": 5e-2, "f32": 1e-4}
 GREEDY_MIN_AGREEMENT = 0.9
 GREEDY_MAX_SHORTFALL = 0.25
 
-# Published peaks (NVIDIA data sheets, dense): float32 outside the tensor
-# cores, bf16 tensor cores, HBM bandwidth. Matched on the name nvidia-smi
-# gives; the SXM part is the default H100.
-PEAKS = {  # name fragment: (fp32 FLOP/s, bf16 FLOP/s, bytes/s)
-    "H100 PCIe": (51.2e12, 756e12, 2.0e12),
-    "H100 NVL": (60e12, 835e12, 3.9e12),
-    "H100": (67e12, 989e12, 3.35e12),
-}
-
-
 class SmokeFailure(RuntimeError):
     pass
 
@@ -446,10 +485,15 @@ def check(ok: bool, what: str) -> None:
 
 
 def peaks(name: str):
-    for frag, p in PEAKS.items():
-        if frag in name:
-            return frag, p
-    raise SmokeFailure(f"no published peaks for card {name!r}")
+    """The card's row of the shared table of published peaks
+    (``launch.roofline.PEAKS``): its name fragment and (fp32 FLOP/s, bf16
+    FLOP/s, HBM bytes/s)."""
+    from repro_torch.launch.roofline import peaks as table
+    try:
+        frag, r = table(name)
+    except KeyError as e:
+        raise SmokeFailure(str(e)) from None
+    return frag, (r.fp32, r.bf16, r.hbm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -522,7 +566,8 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def bound(nbytes: float, nops: float, op_rate: float, mem_rate: float):
-    """Least time (ms) for the work, and which of the two bounds it."""
+    """Least time (ms) for the work (a kernel's ``cost(...)``: its bytes
+    and operations), and which of the two bounds it."""
     t_bytes, t_ops = nbytes / mem_rate * 1e3, nops / op_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -601,6 +646,8 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_flash) -> dict:
     """Phase 2: each kernel against its plain version at main-path shapes.
     Returns the per-kernel numbers for the JSON line. ``earlier_flash`` is
     the library of the earlier head-dim-256 flash design."""
+    from repro_torch.kernels import jacobi3d as JC
+    from repro_torch.kernels import matmul as MM
     F = torch.nn.functional
     dev = torch.device("cuda")
     res = {}
@@ -628,8 +675,8 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_flash) -> dict:
     lib_out = F.conv3d(u_pad[None, None], w)[0, 0]
     lib_err = (lib_out - got).abs().max().item()
     del lib_out, got
-    nb = 4 * ((n + 2) ** 3 + n ** 3)
-    b_ms, b_by = bound(nb, 6 * n ** 3, fp32, mem_rate)
+    work = JC.cost(u_pad)
+    b_ms, b_by = bound(work.bytes, work.flops, fp32, mem_rate)
     res["jacobi3d"] = dict(
         shape=[n + 2] * 3, max_abs_err=err, tol=0.0,
         ms=time_ms(lambda: ops.jacobi3d(u_pad), 10),
@@ -650,8 +697,8 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_flash) -> dict:
     err = (got - plain).abs().max().item()
     check(torch.equal(got, plain), f"jacobi3d_faces != plain (max err {err})")
     up = F.pad(u, (1,) * 6)
-    nb = 4 * (2 * c ** 3 + 6 * c * c)
-    b_ms, b_by = bound(nb, 6 * c ** 3, fp32, mem_rate)
+    work = JC.faces_cost(u, *faces)
+    b_ms, b_by = bound(work.bytes, work.flops, fp32, mem_rate)
     res["jacobi3d_faces"] = dict(
         shape=[c] * 3, max_abs_err=err, tol=0.0,
         ms=time_ms(lambda: ops.jacobi3d_faces(u, *faces), 20),
@@ -682,8 +729,8 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_flash) -> dict:
             del a, b, got, want
         a, b = main
         m = DGEMM_N
-        b_ms, b_by = bound(3 * m * m * a.element_size(), 2 * m ** 3, rate,
-                           mem_rate)
+        work = MM.cost(a, b)
+        b_ms, b_by = bound(work.bytes, work.flops, rate, mem_rate)
         res[key] = dict(
             shape=[m, m, m], dtype=str(dtype),
             max_abs_err=errs[f"{m}x{m}x{m}"], tol=tol,
@@ -764,6 +811,7 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
     mesh, q [4, 2048, 2, 5, 128]; each arm also through the GQA entry at
     FLASH_SHAPES, one launch a call. The library yardstick is
     scaled_dot_product_attention on the same, broadcast, heads."""
+    from repro_torch.kernels import flash_attention as FA
     F = torch.nn.functional
     dev = torch.device("cuda")
     edge_errs = {"bf16": {}, "f32": {}}
@@ -813,12 +861,9 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
         q = torch.randn((b, s, kh, g, d), generator=gen, device=dev)
         k = torch.randn((b, s, kh, d), generator=gen, device=dev)
         v = torch.randn((b, s, kh, d), generator=gen, device=dev)
-        # causal work: S(S+1)/2 scored pairs per head, 4*D flops each
-        flops = bh * s * (s + 1) / 2 * 4 * d
         cases.append(
             ("flash_attention" + sfx, torch.bfloat16, bf16, FLASH_TOL["bf16"],
-             (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain,
-             flops))
+             (q, k, v), ops.flash_attention_gqa, ops.flash_attention_plain))
         if sfx in ("_gemma3", "_pixtral", "_olmoe", "_llama4",
                    "_llama4_shard"):
             continue
@@ -838,10 +883,10 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
                     c[:, :, None])[:, :, 0, 0])
         cases.append(
             ("flash_attention_f32" + sfx, torch.float32, fp32,
-             FLASH_TOL["f32"], *f32_case, flops))
+             FLASH_TOL["f32"], *f32_case))
         del f32_case
     del q, k, v
-    for key, dtype, rate, tol, args, kernel, plain, flops in cases:
+    for key, dtype, rate, tol, args, kernel, plain in cases:
         args = tuple(x.to(dtype).contiguous() for x in args)
         got = kernel(*args).float()
         want = plain(*args).float()
@@ -861,9 +906,10 @@ def flash_checks(ops, gen, fp32, bf16, mem_rate, earlier) -> dict:
         else:
             qs, ks, vs = (x[None] for x in args)
         qs, ks, vs = (x.contiguous() for x in (qs, ks, vs))
-        nbytes = sum(x.numel() for x in args + (args[0],)) * \
-            args[0].element_size()
-        b_ms, b_by = bound(nbytes, flops, rate, mem_rate)
+        # causal work: S(S+1)/2 scored pairs per head, 4*D flops each;
+        # q, k and v read once, the output written once
+        work = FA.cost(args[0], args[1], causal=True)
+        b_ms, b_by = bound(work.bytes, work.flops, rate, mem_rate)
         res[key] = dict(
             shape=list(args[0].shape), dtype=str(dtype), max_abs_err=err,
             tol=tol, ms=time_ms(functools.partial(kernel, *args), 5),
@@ -970,18 +1016,6 @@ def ssd_inputs(gen, bc, q, h, p, n, model_like: bool, mixed: bool = False):
     return x, dt, A, B, C
 
 
-def ssd_work(bc, q, h, p, n):
-    """(bytes, flops) of one ssd_chunk call: each input read once and each
-    output written once; the products C·Bᵀ over the causal half, w·xdt
-    over it, and the states contraction (the elementwise decay and
-    exponentials, about 1/p of these, are not counted)."""
-    pairs = q * (q + 1) / 2
-    flops = 2 * bc * (pairs * n + h * pairs * p + h * q * p * n)
-    nbytes = 4 * (2 * bc * q * h * p + bc * q * h + h + 2 * bc * q * n
-                  + bc * h * p * n)
-    return nbytes, flops
-
-
 def ssd_checks(ops, gen, fp32, mem_rate) -> dict:
     """ssd_chunk against its plain version at every shape of SSD_SHAPES,
     with test-style and model-style dt and A; times at the main path's
@@ -1009,8 +1043,10 @@ def ssd_checks(ops, gen, fp32, mem_rate) -> dict:
             main_err = max((y - wy).abs().max().item(),
                            (st - wst).abs().max().item())
         del args, y, st, wy, wst
+    from repro_torch.kernels import ssd as SS
     args = ssd_inputs(gen, *SSD_MAIN, True)
-    b_ms, b_by = bound(*ssd_work(*SSD_MAIN), fp32, mem_rate)
+    work = SS.cost(*args)
+    b_ms, b_by = bound(work.bytes, work.flops, fp32, mem_rate)
     return dict(
         shape=list(SSD_MAIN), dtype="torch.float32", max_abs_err=main_err,
         tol=f"{SSD_TOL} x max|plain|", rel_err_by_shape=worst,
@@ -3679,6 +3715,183 @@ def mesh_train_phase(ops, card: str, arch: str = TRAIN_ARCH,
     return r
 
 
+# -- phase 23: the dry-run against the card ----------------------------------
+
+def dryrun_meta(out_path: str) -> None:
+    """The meta half of phase 23, run in a process of its own that sees no
+    card (``start_dryrun_meta``): each cell of DRYRUN_CELLS lowered on
+    meta shards and counted; its counts, result and seconds written to
+    ``out_path`` as JSON."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    from repro_torch.launch import dryrun as D
+    out = {}
+    for label, arch, shape, chips, probe, od, batch, level in DRYRUN_CELLS:
+        cell = D.build_cell(arch, shape, chips=chips, probe=probe,
+                            over_decompose=od, batch=batch, opt_level=level)
+        counter, secs = D.count_step(cell)
+        res = D.result_of(cell, counter, secs, 0.0, level)
+        out[label] = {"counts": counter.summary(), "meta_s": secs,
+                      "result": {k: v for k, v in res.items()
+                                 if k not in ("ops", "kernels")}}
+        del cell, counter
+        gc.collect()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def start_dryrun_meta():
+    """Start ``dryrun_meta`` in a child process with no card visible (the
+    meta runs are CPU work: they overlap the earlier phases); returns
+    (the process, its output file, its log file). ``finish_dryrun_meta``
+    waits for it; an exit before that stops it."""
+    import atexit
+    fd, out = tempfile.mkstemp(suffix=".json", prefix="dryrun_meta_")
+    os.close(fd)
+    log = tempfile.TemporaryFile()
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-meta", out],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), stdout=log,
+        stderr=subprocess.STDOUT)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if os.path.exists(out):
+            os.unlink(out)
+    atexit.register(stop)
+    return proc, out, log
+
+
+def finish_dryrun_meta(meta) -> dict:
+    proc, out, log = meta
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=600)
+    log.seek(0)
+    tail = log.read().decode(errors="replace")[-4000:]
+    check(rc == 0, f"phase 23: the meta lowering exited {rc}: {tail}")
+    with open(out) as f:
+        res = json.load(f)
+    os.unlink(out)
+    res["_waited_s"] = time.perf_counter() - t0
+    return res
+
+
+def dryrun_phase(card: str, meta: dict) -> dict:
+    """Phase 23: each cell of DRYRUN_CELLS built on the card (weights from
+    SEED, a zero cache, seeded tokens, decode lengths of the full context)
+    over its shards of cuda:0 and stepped once under the same counter as
+    the meta run: the counts must be equal; the arguments' bytes equal the
+    placed state's; the predicted peak against the card's; then one step
+    without the counter, timed, against the roofline bound."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    dev = torch.device("cuda", 0)
+    _, rates = R.peaks(torch.cuda.get_device_name(0))
+    out = {"card": card, "meta_waited_s": meta.pop("_waited_s")}
+    for label, arch, shape, chips, probe, od, batch, level in DRYRUN_CELLS:
+        t_cell = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_allocated()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        cell = D.build_cell(arch, shape, chips=chips, probe=probe,
+                            over_decompose=od, batch=batch, opt_level=level,
+                            device=dev, gen=gen)
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - mem0
+        args0 = D.shard_bytes(list(cell.args.values()))
+        torch.cuda.reset_peak_memory_stats()
+        counter, counted_s = D.count_step(cell)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - mem0
+        got = json.loads(json.dumps(counter.summary()))
+        want = meta[label]["counts"]
+        pred = meta[label]["result"]
+        r = {"cell": [arch, shape, f"(1, {chips})", f"probe={probe}",
+                      f"od={od}", f"batch={cell.shape.global_batch}",
+                      level],
+             "counts_equal": got == want,
+             "flops_per_device": D.device0(counter)["flops"],
+             "bytes_per_device": D.device0(counter)["bytes"],
+             "collective_bytes_per_device":
+                 D.device0(counter)["collectives"],
+             "ops_dispatched": pred["ops_dispatched"],
+             "kernels": {k: v["launches"] for k, v in
+                         D.device0(counter)["kernels"].items()},
+             "argument_size_in_bytes": pred["argument_size_in_bytes"],
+             "card_argument_bytes": args0, "card_placed_bytes": placed,
+             "temp_size_in_bytes": pred["temp_size_in_bytes"],
+             "predicted_peak_bytes": pred["argument_size_in_bytes"]
+             + pred["temp_size_in_bytes"],
+             "card_peak_bytes": peak, "meta_s": meta[label]["meta_s"],
+             "counted_card_s": counted_s}
+        if not r["counts_equal"]:
+            r["count_diff"] = count_diff(want, got)
+        del counter
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell.run()
+        torch.cuda.synchronize()
+        r["step_s"] = time.perf_counter() - t0
+        terms = {"compute": r["flops_per_device"] / rates.bf16,
+                 "memory": r["bytes_per_device"] / rates.hbm,
+                 "collective": sum(r["collective_bytes_per_device"]
+                                   .values()) / rates.link}
+        r["bound_s"] = max(terms.values())
+        r["bottleneck"] = max(terms, key=terms.get)
+        r["time_over_bound"] = r["step_s"] / r["bound_s"]
+        r["peak_rel_err"] = (r["predicted_peak_bytes"] - peak) / peak
+        card_temp = peak - args0
+        r["card_temp_bytes"] = card_temp
+        r["temp_rel_err"] = (r["temp_size_in_bytes"] - card_temp) / card_temp
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["cell_s"] = time.perf_counter() - t_cell
+        out[label] = r
+    print(f"dryrun vs card, phase 23 ({card}): " + json.dumps(out))
+    for label, *_ in DRYRUN_CELLS:
+        r = out[label]
+        check(r["counts_equal"], f"phase 23 ({label}): the meta counts "
+              f"differ from the card's: {r.get('count_diff')}")
+        check(r["argument_size_in_bytes"] == r["card_argument_bytes"],
+              f"phase 23 ({label}): argument_size_in_bytes "
+              f"{r['argument_size_in_bytes']} against the card's "
+              f"{r['card_argument_bytes']}")
+        if label in DRYRUN_KERNELS:
+            check(r["kernels"].get(DRYRUN_KERNELS[label], 0) > 0,
+                  f"phase 23 ({label}): {DRYRUN_KERNELS[label]} was not "
+                  f"launched: {r['kernels']}")
+        if label in DRYRUN_PEAK_CHECKED:
+            check(abs(r["peak_rel_err"]) <= DRYRUN_PEAK_TOL,
+                  f"phase 23 ({label}): predicted peak "
+                  f"{r['predicted_peak_bytes']} B, the card's "
+                  f"{r['card_peak_bytes']} B")
+            check(abs(r["temp_rel_err"]) <= DRYRUN_TEMP_TOL,
+                  f"phase 23 ({label}): predicted temporaries "
+                  f"{r['temp_size_in_bytes']} B, the card's "
+                  f"{r['card_temp_bytes']} B (its peak less its "
+                  f"arguments)")
+            check(r["step_s"] >= r["bound_s"], f"phase 23 ({label}): the "
+                  f"step took {r['step_s']} s, under its bound "
+                  f"{r['bound_s']} s")
+    return out
+
+
+def count_diff(want: dict, got: dict, path: str = "") -> list:
+    """Where two count summaries differ (the first 20 places)."""
+    diffs = []
+    for k in sorted(set(want) | set(got), key=str):
+        a, b = want.get(k), got.get(k)
+        if isinstance(a, dict) and isinstance(b, dict):
+            diffs += count_diff(a, b, f"{path}/{k}")
+        elif a != b:
+            diffs.append(f"{path}/{k}: meta {a}, card {b}")
+    return diffs[:20]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3693,6 +3906,8 @@ def main() -> int:
     from repro_torch.apps.jacobi3d import run_reference, run_tasked
     from repro_torch.core import Runtime, RuntimeConfig
     from repro_torch.kernels import _build, ops
+    # phase 23's meta half, on the host's cores while the card works
+    meta = start_dryrun_meta()
 
     # -- phase 1: card and build --------------------------------------------
     card = subprocess.run(
@@ -3944,6 +4159,11 @@ def main() -> int:
         with watchdog(MESH_TRAIN_WATCHDOG_S, f"phase 22 ({arch})"):
             mesh_train_phase(ops, card, arch, 22)
         mark(f"22 {arch}")
+
+    # -- phase 23: the dry-run's counts against the card's (prints its line
+    # before its checks) ----------------------------------------------------
+    dryrun_phase(card, finish_dryrun_meta(meta))
+    mark("23 dry-run")
     print("phase seconds: " + json.dumps(
         {name: round(t - t0_, 1) for (_, t0_), (name, t)
          in zip(marks, marks[1:])} | {"total": round(
@@ -3975,4 +4195,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-meta"]:
+        dryrun_meta(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""Configuration dataclasses for models (the port's copy of
-``repro/configs/base.py``, without the dry-run shapes and cells).
+"""Configuration dataclasses for models and the dry-run's shape cells
+(the port's copy of ``repro/configs/base.py``).
 
 Every ported architecture has one module in this package exporting
 ``CONFIG`` (the exact published configuration) and ``smoke_config()`` (a
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 # ---------------------------------------------------------------------------
 # Layer kinds used in the per-period layer pattern.
@@ -149,6 +149,24 @@ class ModelConfig:
             - self.d_ff)
         return int(base + delta)
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # 'train' | 'prefill' | 'decode'
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
 ARCH_IDS = (
     "recurrentgemma_9b",
     "gemma3_27b",
@@ -193,3 +211,20 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """The shape cells defined for an architecture (33 over the pool)."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.supports_long_context:
+        shapes.append(LONG_500K)
+    return tuple(shapes)
+
+
+def all_cells() -> Sequence[Tuple[str, ShapeConfig]]:
+    cells = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in shapes_for(cfg):
+            cells.append((arch, shape))
+    return cells

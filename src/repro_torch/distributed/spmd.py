@@ -61,6 +61,15 @@ makes a laid-out zero value (a cache), ``map_shards`` a value of the same
 layout from each block, and ``reshard`` lays a ``Sharded`` value out anew
 (``models.sharding.constrain``). ``shard_map`` takes a
 placed leaf as it is. ``current_mesh`` tells a body it runs in one.
+
+Counting. Under the dry-run's active counter (``repro_torch.opcount``)
+each shard's thread counts its work under its index, and each collective
+adds its payload bytes on each shard under the JAX package's names:
+``psum``, ``pmean`` and ``pmax`` (and the adjoints that reduce)
+``all-reduce``, ``all_gather`` ``all-gather``, ``all_to_all``
+``all-to-all`` and ``ppermute`` ``collective-permute``. A mesh of
+``meta`` devices runs a step's shapes without storage: no streams, no
+events, the card's operators otherwise.
 """
 from __future__ import annotations
 
@@ -73,6 +82,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import opcount
 from repro_torch.core import sanitizer
 
 AxisNames = Union[None, str, Tuple[str, ...]]
@@ -324,9 +334,10 @@ def place(tree, shardings, *, consume: bool = False, share: bool = True):
 
 def shares(x: Sharded) -> bool:
     """Whether two shards of ``x`` hold one tensor (``place``'s replicas
-    on one device)."""
-    ptrs = [t.data_ptr() for t in x.shards if t.numel()]
-    return len(set(ptrs)) != len(ptrs)
+    on one device): by storage identity, which a ``meta`` tensor has too
+    (its ``data_ptr()`` is 0)."""
+    held = [t.untyped_storage()._cdata for t in x.shards if t.numel()]
+    return len(set(held)) != len(held)
 
 
 def unshare(x: Sharded) -> Sharded:
@@ -601,6 +612,7 @@ def ppermute(x: torch.Tensor, axis_name: str,
         if not (0 <= s < n and 0 <= d < n) or d in src_of:
             raise ValueError(f"bad permutation {list(perm)} over {n} shards")
         src_of[d] = s
+    opcount.collective("collective-permute", x.numel() * x.element_size())
     posted = _exchange(x)
     if me not in src_of:
         return torch.zeros_like(x)
@@ -611,6 +623,7 @@ def _reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
     """``op`` over the shards along ``axis_name``, folded in coordinate
     order on every shard, so that all get the same bits."""
     n = axis_size(axis_name)
+    opcount.collective("all-reduce", x.numel() * x.element_size())
     posted = _exchange(x)
     me = axis_index(axis_name)
     acc = None
@@ -661,6 +674,7 @@ def _all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
     width = shape[concat_axis]
     shape[concat_axis] *= n
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    opcount.collective("all-to-all", x.numel() * x.element_size())
     posted = _exchange(x)
     for c in range(n):
         src = posted[_peer(axis_name, c)]
@@ -699,6 +713,7 @@ def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
 def _all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     n = axis_size(axis_name)
     me = axis_index(axis_name)
+    opcount.collective("all-gather", x.numel() * x.element_size())
     posted = _exchange(x)
     out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
     for c in range(n):
@@ -790,6 +805,7 @@ def _run_shards(mesh: Mesh, job: Callable[[int], tuple],
             with contextlib.ExitStack() as stack:
                 stack.enter_context(
                     torch.autograd.set_multithreading_enabled(False))
+                stack.enter_context(opcount.shard_scope(i))
                 if stream is not None:
                     stack.enter_context(torch.cuda.device(dev))
                     stack.enter_context(torch.cuda.stream(stream))

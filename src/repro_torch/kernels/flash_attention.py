@@ -39,7 +39,9 @@ kernel takes a head depends on D:
     output columns and recompute the full-D scores in 64-wide chunks.
 
 Every D launches one kernel and counts one launch. It is bound by
-operations: see the note in the CUDA source.
+operations: see the note in the CUDA source. On the ``meta`` device
+either entry point checks what the card's does and returns an empty
+output, recording the launch and its ``cost`` with the dry-run's counter.
 """
 from __future__ import annotations
 
@@ -47,7 +49,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch import opcount
+from repro_torch.kernels import Cost, aligned16, count_launch
 
 NEG_INF = -1e30
 TILE = 64            # the kernels' kv tile
@@ -102,16 +105,38 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def _check(q, k, v, what):
+def cost(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True) -> Cost:
+    """One call's work, q [BH,S,D] or [B,S,KH,G,D] and k [BH,T,D] or
+    [B,T,KH,D]: 4·D FLOPs per scored pair (q·k and p·v), the pairs of each
+    head S·T, or under the causal mask (top-left) Σ_i min(i + 1, T); q, k
+    and v read once and the output written once."""
+    if q.dim() == 3:
+        b, s, d = q.shape
+        kh = g = 1
+    else:
+        b, s, kh, g, d = q.shape
+    t = k.shape[1]
+    if causal:
+        m = min(s, t)
+        pairs = m * (m + 1) // 2 + (s - m) * t
+    else:
+        pairs = s * t
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return Cost(b * kh * g * pairs * 4 * d, nbytes)
+
+
+def _check(q, k, v, what, device: str = "cuda"):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _ENTRY:
         raise ValueError(f"{what}: dtypes {q.dtype}, {k.dtype}, {v.dtype}; "
                          f"the kernel takes float32 or bfloat16, all alike")
-    if not (q.device == k.device == v.device) or q.device.type != "cuda":
+    if not (q.device == k.device == v.device) or q.device.type != device:
         raise ValueError(f"{what}: operands on {q.device}, {k.device}, "
                          f"{v.device}; the kernel needs one CUDA device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: operands must be contiguous")
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+    if not (aligned16(q) and aligned16(k) and aligned16(v)) or (
+            device == "cuda" and (q.data_ptr() % 16 or k.data_ptr() % 16
+                                  or v.data_ptr() % 16)):
         raise ValueError(f"{what}: operands must be 16-byte aligned")
     if k.shape != v.shape:
         raise ValueError(f"{what}: k{tuple(k.shape)} != v{tuple(v.shape)}")
@@ -124,8 +149,11 @@ def _launch(q, k, v, b, s, t, kh, g, d, causal, what) -> torch.Tensor:
         raise ValueError(f"{what}: S={s}, T={t} must be positive")
     if b * kh * g > 65535:
         raise ValueError(f"{what}: {b * kh * g} heads exceed the grid")
-    from repro_torch.kernels import _build
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        opcount.kernel("flash_attention", *cost(q, k, causal=causal))
+        return out
+    from repro_torch.kernels import _build
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -134,7 +162,14 @@ def _launch(q, k, v, b, s, t, kh, g, d, causal, what) -> torch.Tensor:
             b, s, t, kh, g, d, int(causal), ctypes.c_float(d ** -0.5),
             stream), what)
     count_launch("flash_attention")
+    opcount.kernel("flash_attention", *cost(q, k, causal=causal))
     return out
+
+
+def _device(q: torch.Tensor) -> str:
+    """The route a non-CPU tensor takes: the kernel ("cuda"), or on the
+    meta device its stand-in ("meta")."""
+    return "meta" if q.device.type == "meta" else "cuda"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -144,7 +179,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q[:, :, None, None], k[:, :, None],
                                      v[:, :, None], causal=causal)[:, :, 0, 0]
-    _check(q, k, v, "flash_attention")
+    _check(q, k, v, "flash_attention", _device(q))
     bh, s, d = q.shape
     bh2, t, d2 = k.shape
     if bh2 != bh or d2 != d:
@@ -159,7 +194,7 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query head ``kh·G + g`` attends with KV head ``kh``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
-    _check(q, k, v, "flash_attention_gqa")
+    _check(q, k, v, "flash_attention_gqa", _device(q))
     b, s, kh, g, d = q.shape
     b2, t, kh2, d2 = k.shape
     if (b2, kh2, d2) != (b, kh, d):

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import Cost, count_launch
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 
@@ -42,6 +42,21 @@ def _sweep(up: torch.Tensor) -> torch.Tensor:
     s += up[1:-1, 1:-1, :-2]
     s += up[1:-1, 1:-1, 2:]
     return s / _six(s)
+
+
+def cost(u_pad: torch.Tensor) -> Cost:
+    """One ``jacobi3d`` call's work: 6 FLOPs a point (five adds and the
+    division); the padded slab read once and the interior written once."""
+    x, y, z = (n - 2 for n in u_pad.shape)
+    return Cost(6 * x * y * z, (u_pad.numel() + x * y * z)
+                * u_pad.element_size())
+
+
+def faces_cost(u: torch.Tensor, *faces: torch.Tensor) -> Cost:
+    """One ``jacobi3d_faces`` call's work: 6 FLOPs a point; the chunk and
+    its six faces read once, the chunk's update written once."""
+    return Cost(6 * u.numel(), (2 * u.numel() + sum(f.numel() for f in faces))
+                * u.element_size())
 
 
 def jacobi3d_plain(u_pad: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import Cost, count_launch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -36,6 +36,14 @@ def _entry(dtype: torch.dtype, k: int, n: int) -> str:
     if dtype == torch.float32:
         return "matmul_f32"
     return "matmul_bf16" if k % 8 == 0 and n % 8 == 0 else "matmul_bf16_fma"
+
+
+def cost(a: torch.Tensor, b: torch.Tensor) -> Cost:
+    """One call's work: 2·M·N·K FLOPs; a and b read once, the [M, N]
+    product written once."""
+    m, k = a.shape
+    n = b.shape[1]
+    return Cost(2 * m * n * k, (m * k + k * n + m * n) * a.element_size())
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,8 @@ keep the direct masked form. It needs a float32 workspace of
 ``BC·(H·Q·(3 + ⌈Q/64⌉) + H + 64·Q·⌈Q/64⌉)`` floats (62 MB at the
 mamba2-370m prefill's 128 chunks of 256), which the wrapper allocates per
 call; that is the only limit beside memory. It is bound by operations.
+On the ``meta`` device the wrapper checks and allocates what the card's
+does and records the launch and its ``cost`` with the dry-run's counter.
 """
 from __future__ import annotations
 
@@ -32,7 +34,10 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch import opcount
+from repro_torch.kernels import Cost, aligned16, count_launch
+
+_TILE = 64           # the kernels' row tile (``kT`` in csrc/ssd.cu)
 
 
 def cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -51,6 +56,26 @@ def _shapes(x, dt, A, B, C) -> Tuple[int, int, int, int, int]:
             raise ValueError(f"ssd_chunk: {name}{tuple(t.shape)}, want "
                              f"{want[name]} for x{tuple(x.shape)}")
     return bc, q, h, p, n
+
+
+def cost(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+         B: torch.Tensor, C: torch.Tensor) -> Cost:
+    """One call's work: the products C·Bᵀ over the causal half, w·xdt over
+    it and the states contraction (the elementwise decay and exponentials,
+    about 1/p of these, are not counted); each input read once and each
+    output (y, states) written once, float32."""
+    bc, q, h, p, n = _shapes(x, dt, A, B, C)
+    pairs = q * (q + 1) // 2
+    flops = 2 * bc * (pairs * n + h * pairs * p + h * q * p * n)
+    nbytes = 4 * (2 * bc * q * h * p + bc * q * h + h + 2 * bc * q * n
+                  + bc * h * p * n)
+    return Cost(flops, nbytes)
+
+
+def workspace_floats(bc: int, q: int, h: int) -> int:
+    """The kernel's workspace (``ssd_workspace_floats`` in csrc/ssd.cu)."""
+    t = -(-q // _TILE)
+    return bc * (h * q * (3 + t) + h + q * t * _TILE)
 
 
 def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -88,7 +113,8 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if any(t.dtype != torch.float32 for t in args):
         raise ValueError(f"ssd_chunk: dtypes {[t.dtype for t in args]}; the "
                          f"kernel takes float32")
-    if any(t.device != x.device for t in args) or x.device.type != "cuda":
+    route = "meta" if x.device.type == "meta" else "cuda"
+    if any(t.device != x.device for t in args) or x.device.type != route:
         raise ValueError(f"ssd_chunk: operands on "
                          f"{[str(t.device) for t in args]}; the kernel needs "
                          f"one CUDA device")
@@ -96,14 +122,18 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd_chunk: operands must be contiguous")
     # the kernel reads rows as float4: a view that starts off a 16-byte
     # boundary is copied first (a fresh tensor starts on one)
-    x, dt, A, B, C = (t if t.data_ptr() % 16 == 0 else t.clone()
-                      for t in args)
+    x, dt, A, B, C = (t if aligned16(t) else t.clone() for t in args)
     if min(q, h, p, n) < 1:
         raise ValueError(f"ssd_chunk: empty dimension in (q, h, p, n) = "
                          f"{(q, h, p, n)}")
-    from repro_torch.kernels import _build
     y = torch.empty((bc, q, h, p), dtype=torch.float32, device=x.device)
     st = torch.empty((bc, h, p, n), dtype=torch.float32, device=x.device)
+    if route == "meta":
+        torch.empty(workspace_floats(bc, q, h), dtype=torch.float32,
+                    device=x.device)
+        opcount.kernel("ssd_chunk", *cost(x, dt, A, B, C))
+        return y, st
+    from repro_torch.kernels import _build
     lib = _build.library("ssd")
     floats = ctypes.c_longlong(0)
     _build.check(lib.ssd_workspace_floats(bc, q, h, ctypes.addressof(floats)),
@@ -116,4 +146,5 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             C.data_ptr(), y.data_ptr(), st.data_ptr(), work.data_ptr(), bc,
             q, h, p, n, stream), "ssd_chunk")
     count_launch("ssd_chunk")
+    opcount.kernel("ssd_chunk", *cost(x, dt, A, B, C))
     return y, st

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.distributed.spmd import P, Mesh, NamedSharding
+from repro_torch.distributed.spmd import _axes as spmd_axes
 from repro_torch.models.sharding import resolve_spec
 
 
@@ -199,7 +200,8 @@ def cache_specs(abs_cache, mesh: Mesh, cfg, *, seq_shard: bool = False,
       rglru state: [..., B, lru]
     Batch shards over the data axes when divisible; otherwise
     (``seq_shard``) the attention T dim shards over 'data' (long-context
-    decode); ``seq_axis`` shards T over that axis where it is still free.
+    decode); ``seq_axis`` shards T over that axis where it is still free
+    (where the batch took it, a spec would name it twice).
     """
     from repro_torch.configs.base import RGLRU, SSD
 
@@ -232,6 +234,7 @@ def cache_specs(abs_cache, mesh: Mesh, cfg, *, seq_shard: bool = False,
                 parts[t_dim] = "data"
             if seq_axis is not None and parts[t_dim] is None \
                     and seq_axis in mesh.shape \
+                    and seq_axis not in spmd_axes(parts[b_dim]) \
                     and shape[t_dim] % mesh.shape[seq_axis] == 0:
                 parts[t_dim] = seq_axis
             if shape[k_dim] % msize == 0 and msize > 1 \

@@ -72,8 +72,8 @@ class Engine:
     already placed stay where they are), each prefill makes its cache by
     ``cache_specs``, and every step is one ``shard_map`` over them. The
     tokens it returns are whole tensors on the first shard's device.
-    Under ``Flags.seq_shard_kv`` it keeps the one-device weights and only
-    the global layers' decode runs over the mesh, as before."""
+    Under ``Flags.seq_shard_kv`` the weights are placed the same way and
+    the cache's slots split over that axis."""
 
     def __init__(self, model, params, batch: int, max_len: int):
         self.model = model

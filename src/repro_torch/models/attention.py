@@ -15,7 +15,11 @@
   ``local_attn`` layers.
 - ``decode_attention``: one new token against a KV cache, with a
   sequence-sharded variant (``seq_sharded_decode``: logsumexp partials
-  combined over a mesh axis of ``distributed.spmd``).
+  combined over a mesh axis of ``distributed.spmd``). Inside a
+  ``shard_map`` body whose cache blocks hold a slice of the slots
+  (``sharding.kv_seq_axis``: ``Flags.seq_shard_kv`` with the weights
+  placed) every attention layer writes and reads its shard's slots and
+  combines the partials over that axis (``_seq_split_decode``).
 
 The JAX package computes the blockwise, window and decode paths outside
 any Pallas kernel, and so they are plain torch here, with float32 scores.
@@ -39,7 +43,8 @@ import torch.nn.functional as F
 from repro_torch.distributed import spmd
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_gqa
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import active_mesh, constrain, is_split
+from repro_torch.models.sharding import (active_mesh, constrain, is_split,
+                                         kv_seq_axis)
 
 
 def attn_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
@@ -74,8 +79,9 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     values is exact in float32, so both compute one function, up to the
     order of the float32 sums. ``aten::bmm.dtype`` has no derivative in
     torch, so where autograd records, the card's product goes through
-    ``_BmmF32``, whose backward multiplies on the operands' dtype too."""
-    if a.is_cuda:
+    ``_BmmF32``, whose backward multiplies on the operands' dtype too.
+    A ``meta`` tensor (the dry-run) takes the card's route."""
+    if a.device.type in ("cuda", "meta"):
         if L.records(a, b):
             return _BmmF32.apply(a, b)
         return torch.bmm(a, b, out_dtype=torch.float32)
@@ -319,6 +325,95 @@ def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def cache_slots(block: torch.Tensor) -> int:
+    """The slots of a KV cache block [..., B, T, K, D] over the whole
+    mesh: T, times the shards splitting it inside a body whose cache is
+    split along the slots (``sharding.kv_seq_axis``)."""
+    axis = kv_seq_axis(block)
+    return block.shape[-3] * (spmd.axis_size(axis) if axis else 1)
+
+
+def _slot_offset(block: torch.Tensor) -> int:
+    """The first slot of this shard's slice of ``block``'s slots (0 for a
+    whole block)."""
+    axis = kv_seq_axis(block)
+    return spmd.axis_index(axis) * block.shape[-3] if axis else 0
+
+
+def _cache_heads(a: torch.Tensor, block: torch.Tensor) -> torch.Tensor:
+    """``a`` [B,S,K',D] with the kv heads ``block`` [B,T,K,D] holds: all
+    of them gathered over the model axis where the weights split them and
+    the block does not (a cache split along its slots keeps every kv
+    head)."""
+    if a.shape[2] == block.shape[2]:
+        return a
+    g = spmd.all_gather(a, L.TP_AXIS)                    # [tp,B,S,K',D]
+    b, s, _, d = a.shape
+    return g.permute(1, 2, 0, 3, 4).reshape(b, s, -1, d)
+
+
+def write_prefix(block: torch.Tensor, vals: torch.Tensor) -> None:
+    """Write ``vals`` [B,w,K,D], the cache's slots ``[0, w)``, into
+    ``block`` [B,T,K,D]: all of them, or inside a body whose cache is split
+    along the slots the part that falls in this shard's slice."""
+    vals = _cache_heads(vals, block)
+    w = vals.shape[1]
+    if kv_seq_axis(block) is None:
+        block[:, :w] = vals
+        return
+    lo = _slot_offset(block)
+    hi = min(lo + block.shape[1], w)
+    if hi > lo:
+        block[:, :hi - lo] = vals[:, lo:hi]
+
+
+def _write_slot(block: torch.Tensor, slot: torch.Tensor,
+                vals: torch.Tensor) -> None:
+    """Write ``vals`` [B,K,D] at slot ``slot[b]`` of ``block`` [B,T,K,D]
+    for each row b, with tensor indices only (no host sync); inside a
+    body whose cache is split along the slots only the rows whose slot
+    falls in this shard's slice change."""
+    rows = torch.arange(block.shape[0], device=block.device)
+    vals = _cache_heads(vals[:, None], block)[:, 0]
+    if kv_seq_axis(block) is None:
+        block[rows, slot] = vals
+        return
+    t_loc = block.shape[1]
+    local = slot - _slot_offset(block)
+    inside = (local >= 0) & (local < t_loc)
+    idx = local.clamp(0, t_loc - 1)
+    block[rows, idx] = torch.where(inside[:, None, None], vals,
+                                   block[rows, idx])
+
+
+def _seq_split_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, valid: torch.Tensor,
+                      own) -> torch.Tensor:
+    """Decode attention inside a ``shard_map`` body whose cache blocks hold
+    a slice of the slots along a mesh axis: partials of this shard's
+    slots combined by logsumexp over the axis
+    (``decode_attention_partial``). q [B,1,H',D] holds the query heads of
+    the shard's weights. Where the slots split over the model axis and
+    the weights split the heads, each shard's slots serve every query
+    head: the heads are gathered first and the shard's own taken back
+    after, for its row-parallel ``wo``. Returns [B,1,H',D]."""
+    axis = kv_seq_axis(k_cache)
+    b, _, h, d = q.shape
+    gather = axis == L.TP_AXIS and is_split("heads")
+    if gather:
+        q = spmd.all_gather(q, axis).permute(1, 2, 0, 3, 4).reshape(
+            b, 1, -1, d)
+    else:
+        k_cache, v_cache = own(k_cache), own(v_cache)
+    qd = _split_gqa(q, k_cache.shape[2])[:, 0]                # [B,K,G,D]
+    out = decode_attention_partial(qd, k_cache, v_cache, valid=valid,
+                                   axis_name=axis).reshape(b, -1, d)
+    if gather:
+        r = spmd.axis_index(axis)
+        out = out[:, r * h:(r + 1) * h]
+    return out[:, None]
+
+
 def seq_sharded_decode(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, *, valid: torch.Tensor,
                        axis: str = "data") -> torch.Tensor:
@@ -407,7 +502,6 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                     lengths: Optional[torch.Tensor] = None,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
                     causal: bool = True,
-                    seq_shard_axis: Optional[str] = None,
                     use_rope: bool = True,
                     kv_override: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None,
@@ -438,8 +532,7 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     takes a prefill's causal attention with T = S and S % 128 == 0 and no
     mask; the rest goes the blockwise way, and so does train mode, which
     never takes the forward-only kernel (the JAX model trains with
-    ``use_pallas`` off). ``seq_shard_axis`` sends a global
-    layer's decode through ``seq_sharded_decode``.
+    ``use_pallas`` off).
 
     Inside a ``shard_map`` body whose weights split ``heads``
     (``sharding.is_split``) the layer runs on its shard's blocks: the
@@ -493,7 +586,7 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
             if local:
                 # ring buffer: slot j holds the position p with p % t == j;
                 # the roll aligns the last w positions to their slots
-                t = window if cache is None else cache["k"].shape[1]
+                t = window if cache is None else cache_slots(cache["k"])
                 w = min(t, s)
                 k, v = (torch.roll(a[:, s - w:], s % w, dims=1)
                         for a in (k, v))
@@ -502,8 +595,8 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
             if cache is None:
                 new_cache = {"k": k, "v": v}
             else:
-                cache["k"][:, :w] = k
-                cache["v"][:, :w] = v
+                write_prefix(cache["k"], k)
+                write_prefix(cache["v"], v)
                 new_cache = cache
     elif mode == "decode":
         if lengths is None or (cache is None and kv_override is None):
@@ -517,25 +610,33 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         qd = _split_gqa(q, n_kv_heads)[:, 0]                          # [B,K,G,D]
         if kv_override is not None:
             t = k.shape[1]
-            valid = torch.ones((b, t), dtype=torch.bool, device=x.device) \
-                if kv_valid is None else kv_valid[None, :].expand(b, t)
-            out = decode_attention(qd, own(k), own(v), valid=valid)[:, None]
+            if kv_valid is None:
+                valid = torch.ones((b, t), dtype=torch.bool, device=x.device)
+            else:
+                off = _slot_offset(k)
+                valid = kv_valid[None, off:off + t].expand(b, t)
+            if kv_seq_axis(k) is not None:
+                out = _seq_split_decode(q, k, v, valid, own)
+            else:
+                out = decode_attention(qd, own(k), own(v),
+                                       valid=valid)[:, None]
             new_cache = None
         else:
-            t = cache["k"].shape[1]
+            t = cache_slots(cache["k"])
             slot = pos % t if local else pos
-            rows = torch.arange(b, device=x.device)
-            cache["k"][rows, slot] = k[:, 0]
-            cache["v"][rows, slot] = v[:, 0]
-            iota = torch.arange(t, device=x.device)[None, :]
+            _write_slot(cache["k"], slot, k[:, 0])
+            _write_slot(cache["v"], slot, v[:, 0])
+            iota = torch.arange(cache["k"].shape[1], device=x.device)
+            if kv_seq_axis(cache["k"]) is not None:
+                iota = iota + _slot_offset(cache["k"])
+            iota = iota[None, :]
             if local:
                 valid = iota < torch.clamp(pos + 1, max=t)[:, None]
             else:
                 valid = iota <= pos[:, None]
-            if seq_shard_axis is not None and not local:
-                out = seq_sharded_decode(qd, cache["k"], cache["v"],
-                                         valid=valid,
-                                         axis=seq_shard_axis)[:, None]
+            if kv_seq_axis(cache["k"]) is not None:
+                out = _seq_split_decode(q, cache["k"], cache["v"], valid,
+                                        own)
             else:
                 out = decode_attention(qd, own(cache["k"]), own(cache["v"]),
                                        valid=valid)[:, None]

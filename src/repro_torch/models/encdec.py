@@ -208,14 +208,14 @@ def _dec_block(p, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
             flash_block=flags.flash_block)
         new_cross = {"k": ck, "v": cv}
         if cache is not None:
-            t, slots = ck.shape[1], cache["cross"]["k"].shape[1]
+            t, slots = ck.shape[1], A.cache_slots(cache["cross"]["k"])
             if t != slots:
                 raise ValueError(
                     f"frames pad to {t} positions; the cross cache has "
                     f"{slots} slots (encoder_seq {cfg.encoder_seq} rounded "
                     f"up to {FRAME_BLOCK}), which decode reads in full")
-            cache["cross"]["k"].copy_(ck)
-            cache["cross"]["v"].copy_(cv)
+            A.write_prefix(cache["cross"]["k"], ck)
+            A.write_prefix(cache["cross"]["v"], cv)
             new_cross = cache["cross"]
     x = x + mix
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -257,7 +257,7 @@ def encdec_apply(params, batch: Dict[str, torch.Tensor], *,
         # the cross cache's slots past encoder_seq are masked, whatever
         # length the prefill's frames had; from constants only, so that a
         # CUDA graph can capture the step
-        slots = cache["decoder"]["cross"]["k"].shape[2]
+        slots = A.cache_slots(cache["decoder"]["cross"]["k"])
         enc_valid = torch.arange(slots, device=tokens.device) \
             < cfg.encoder_seq
         pe = p["pos_embed"][lengths.long()][:, None]                # [B,1,D]

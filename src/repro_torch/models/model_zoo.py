@@ -13,6 +13,10 @@ encoder-decoder (``models.encdec``), dispatched on ``cfg.enc_dec``.
   apply(params, batch, mode, cache) -> (hidden, cache) in prefill and
                                      decode; (hidden, None, aux_loss) in
                                      train
+  init_abstract()                 -> ``init``'s tree on the meta device
+  input_specs(shape)              -> a step's inputs at a dry-run shape
+                                     (``configs.ShapeConfig``), as meta
+                                     tensors
   init_cache(batch, cache_len, device) -> the cache tree: {"k", "v"} at
                                      capacity (a local layer's ring at
                                      min(window, cache_len)), the SSD or
@@ -30,7 +34,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -54,6 +58,11 @@ class Model:
         if self.cfg.enc_dec:
             return ED.encdec_init(gen, self.cfg, self.flags, device)
         return T.lm_init(gen, self.cfg, self.flags, device)
+
+    def init_abstract(self) -> T.ParamTree:
+        """``init``'s tree on the meta device: every leaf's shape and
+        dtype, no storage (the dry-run's)."""
+        return self.init(None, "meta")
 
     def axes(self) -> Dict:
         """The logical axes of ``init``'s tree (``launch.mesh.
@@ -93,6 +102,31 @@ class Model:
             logits = (x @ T._tree(params)["unembed"]).float()
             return L.softmax_cross_entropy(logits, labels)
         return T.chunked_ce_loss(params, x, labels, self.cfg, self.flags)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+        """The inputs of one step at ``shape``, as meta tensors (nothing
+        allocated): int32 ``tokens`` and ``labels`` (train), ``tokens``
+        (prefill) or ``tokens`` [B,1] and ``lengths`` [B] (decode), with
+        bf16 ``vision_embeds`` or ``frames`` outside decode where the
+        frontend takes them."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def spec(shp, dtype=torch.int32):
+            return torch.empty(shp, dtype=dtype, device="meta")
+        if shape.kind == "train":
+            specs = {"tokens": spec((b, s)), "labels": spec((b, s))}
+        elif shape.kind == "prefill":
+            specs = {"tokens": spec((b, s))}
+        else:   # decode: one new token against a cache of length s
+            specs = {"tokens": spec((b, 1)), "lengths": spec((b,))}
+        if cfg.frontend == "vision" and shape.kind != "decode":
+            specs["vision_embeds"] = spec(
+                (b, cfg.frontend_tokens, cfg.d_model), torch.bfloat16)
+        if cfg.enc_dec and shape.kind != "decode":
+            specs["frames"] = spec((b, cfg.encoder_seq, cfg.d_model),
+                                   torch.bfloat16)
+        return specs
 
 
 def build_model(cfg: ModelConfig, flags: Flags = DEFAULT_FLAGS) -> Model:

@@ -65,6 +65,8 @@ class _Ctx(threading.local):
         self.mesh: Optional[Mesh] = None
         self.rules: Dict[str, MeshAxes] = dict(DEFAULT_RULES)
         self.split: FrozenSet[str] = frozenset()
+        # storage identity of a cache block -> the axis splitting its T
+        self.kv_seq: Dict[int, str] = {}
 
 
 _CTX = _Ctx()
@@ -201,6 +203,32 @@ def is_split(name: str) -> bool:
     product over it is a partial sum, a lookup along it a masked one);
     False outside ``split_weights``."""
     return name in _CTX.split
+
+
+@contextlib.contextmanager
+def split_cache(blocks: Dict[str, Sequence]):
+    """Opened inside a ``shard_map`` body whose KV cache blocks hold only
+    their shard's slice of the slots (``launch.mesh.cache_specs(...,
+    seq_axis=)``): ``blocks`` maps the mesh axis splitting the slots to
+    the shard's blocks it splits. While open, ``kv_seq_axis`` answers for
+    those blocks and every view of them (a layer's slice of a stacked
+    cache), by storage identity."""
+    prev = _CTX.kv_seq
+    _CTX.kv_seq = {t.untyped_storage()._cdata: axis
+                   for axis, ts in blocks.items() for t in ts}
+    try:
+        yield
+    finally:
+        _CTX.kv_seq = prev
+
+
+def kv_seq_axis(t) -> Optional[str]:
+    """The mesh axis over which the KV cache block ``t`` (or a view of it)
+    holds a slice of the slots, inside a body that ``split_cache`` told;
+    None for a whole block, and outside a body."""
+    if not _CTX.kv_seq:
+        return None
+    return _CTX.kv_seq.get(t.untyped_storage()._cdata)
 
 
 def named_sharding(mesh: Mesh, *logical_axes: Optional[str],

@@ -74,10 +74,11 @@ class Flags:
     intra-chunk form (one group) from the hand-written CUDA kernel (its
     plain version on a CPU tensor) instead of the einsum path in prefill;
     the JAX model never calls its Pallas kernel, whose function is the
-    same. ``seq_shard_kv`` names the mesh axis over which global layers
-    decode with the KV cache
-    sequence-sharded (``attention.seq_sharded_decode`` over the mesh of
-    ``models.sharding.use_sharding``). ``moe_mode`` takes an MoE layer
+    same. ``seq_shard_kv`` names the mesh axis over which the
+    serving steps split every attention cache's slots when the weights are
+    placed (``serve.serve_step.init_mesh_cache``); each layer then decodes
+    over its shard's slots and combines the partials over that axis
+    (``attention._seq_split_decode``). ``moe_mode`` takes an MoE layer
     through ``moe.moe_ep`` ("ep": expert-parallel over the active mesh,
     the dense oracle without one) or ``moe.moe_dense`` ("dense").
 
@@ -248,7 +249,7 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
         mix, new_cache = A.attention_layer(
             p["attn"], h, kind=kind, window=cfg.window,
             rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads, mode=mode,
-            lengths=lengths, cache=cache, seq_shard_axis=flags.seq_shard_kv,
+            lengths=lengths, cache=cache,
             use_kernel=flags.use_flash_kernel,
             flash_block=flags.flash_block)
     x = x + mix
@@ -276,15 +277,19 @@ def remat_call(remat: str, fn, *args):
     (``Flags``): as it is for "none" or where autograd records nothing
     (grad mode off, or no tensor of ``args`` requires grad), else through
     ``torch.utils.checkpoint`` (non-reentrant), with the "dots" policy
-    selecting what the forward keeps."""
+    selecting what the forward keeps. The layers draw no random numbers,
+    so no generator's state is stashed for the recomputation (the card's
+    would be, the ``meta`` device's not: the dry-run's counts would
+    differ)."""
     if remat == "none" or not L.records(args):
         return fn(*args)
     from torch.utils import checkpoint as C
     if remat == "full":
-        return C.checkpoint(fn, *args, use_reentrant=False)
+        return C.checkpoint(fn, *args, use_reentrant=False,
+                            preserve_rng_state=False)
     if remat == "dots":
         return C.checkpoint(
-            fn, *args, use_reentrant=False,
+            fn, *args, use_reentrant=False, preserve_rng_state=False,
             context_fn=lambda: C.create_selective_checkpoint_contexts(
                 _keep_dots))
     raise ValueError(f"remat {remat!r}: none, full or dots")
@@ -562,7 +567,8 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
             new_layers.setdefault(cpath, []).append(c_out)
         else:
             for k, v in c_out.items():
-                if v.data_ptr() != c_in[k].data_ptr():
+                # a layer that wrote its cache view in place returns it
+                if v is not c_in[k]:
                     c_in[k].copy_(v)
     x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
     if train:

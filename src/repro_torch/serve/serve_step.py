@@ -8,13 +8,18 @@ weights' ``requires_grad``. Under an active mesh
 and the cache by ``cache_specs`` (``place_params``, ``init_mesh_cache``):
 every layer runs on its shard's blocks and reduces explicitly (the JAX
 package's GSPMD layout written out), and the greedy token comes from the
-vocab-sharded logits. ``tasked_decode_loop`` drives the same decode
-step through the port's task runtime: every step is one hetero task over the model state (weights read,
-cache, tokens and lengths read and written), followed by
+vocab-sharded logits. Under ``Flags.seq_shard_kv`` the cache's slots
+split over that axis (``cache_specs(..., seq_axis=)``), and each
+attention layer writes and reads its shard's slots, combining the
+decode's partials over the axis (``models.attention``).
+``tasked_decode_loop`` drives the same decode step through the port's
+task runtime: every step is one hetero task over the model state
+(weights read, cache, tokens and lengths read and written), followed by
 ``Runtime.step_boundary()``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -23,7 +28,7 @@ from repro_torch.distributed import spmd
 from repro_torch.models.layers import TP_AXIS
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.sharding import (active_mesh, is_split, split_axes,
-                                         split_weights)
+                                         split_cache, split_weights)
 from repro_torch.models.transformer import ParamTree
 
 _NOT_PORTED = "not ported (see ROADMAP.md)"
@@ -32,14 +37,8 @@ _NOT_PORTED = "not ported (see ROADMAP.md)"
 def serving_mesh(model: Model, mesh: Optional[spmd.Mesh] = None
                  ) -> Optional[spmd.Mesh]:
     """The mesh a step of ``model`` runs over: ``mesh``, else the active
-    one; None without either, and under ``Flags.seq_shard_kv``, whose
-    global layers decode through ``attention.seq_sharded_decode`` over the
-    active mesh as before (placing the whole model under it is not
-    ported: ROADMAP.md)."""
-    mesh = mesh or active_mesh()
-    if mesh is None or model.flags.seq_shard_kv is not None:
-        return None
-    return mesh
+    one; None without either."""
+    return mesh or active_mesh()
 
 
 def place_params(model: Model, params, mesh: spmd.Mesh):
@@ -53,10 +52,12 @@ def place_params(model: Model, params, mesh: spmd.Mesh):
 def init_mesh_cache(model: Model, batch: int, cache_len: int,
                     mesh: spmd.Mesh) -> Dict[str, Any]:
     """``model.init_cache`` laid out on ``mesh`` by ``launch.mesh.
-    cache_specs``: zero blocks, each shard's its own."""
+    cache_specs`` (the slots split over ``Flags.seq_shard_kv``'s axis
+    where it names one): zero blocks, each shard's its own."""
     from repro_torch.launch.mesh import cache_specs
     abstract = model.init_cache(batch, cache_len, "meta")
-    specs = cache_specs(abstract, mesh, model.cfg)
+    specs = cache_specs(abstract, mesh, model.cfg,
+                        seq_axis=model.flags.seq_shard_kv)
 
     def zeros(a, sh):
         if isinstance(a, dict):
@@ -102,12 +103,18 @@ def _mesh_step(model: Model, mesh: spmd.Mesh, mode: str, params, batch,
     logits_spec = spmd.P(bax, None, TP_AXIS) if "vocab" in split \
         else spmd.P(bax)
 
+    slot_axes = [_slot_axis(name, t) for name, t in c_named]
+
     @torch.no_grad()        # grad mode is per thread: the shards' own
     def body(*leaves):
         p = _unflatten([n for n, _ in p_named], leaves[:n_p])
         c = _unflatten([n for n, _ in c_named], leaves[n_p:n_p + n_c])
         b = dict(zip(b_names, leaves[n_p + n_c:]))
-        with split_weights(split):
+        split_slots: Dict[str, list] = {}
+        for ax, t in zip(slot_axes, leaves[n_p:n_p + n_c]):
+            if ax is not None:
+                split_slots.setdefault(ax, []).append(t)
+        with split_weights(split), split_cache(split_slots):
             x, c_out = model.apply(p, b, mode=mode, cache=c)
             last = model.unembed(p, x[:, -1:])
             out = (_greedy(last), *(t for _, t in flatten(c_out)))
@@ -121,6 +128,23 @@ def _mesh_step(model: Model, mesh: spmd.Mesh, mode: str, params, batch,
         *(t for _, t in p_named + c_named), *(batch[k] for k in b_names))
     new_cache = _unflatten([n for n, _ in c_named], res[1:1 + n_c])
     return (res[0], new_cache) + ((res[-1],) if logits else ())
+
+
+def _slot_axis(name: str, leaf: spmd.Sharded) -> Optional[str]:
+    """The mesh axis splitting a KV cache leaf's slots ([..., B, T, K, D],
+    ``cache_specs(..., seq_axis=)``) over more than one shard, else
+    None."""
+    if name.rsplit(".", 1)[-1] not in ("k", "v"):
+        return None
+    t_dim = len(leaf.shape) - 3
+    part = leaf.spec[t_dim] if t_dim < len(leaf.spec) else None
+    axes = spmd._axes(part)
+    if not axes or math.prod(leaf.mesh.shape[a] for a in axes) == 1:
+        return None
+    if len(axes) > 1:
+        raise NotImplementedError("a cache whose slots split over two mesh "
+                                  "axes is not ported (see ROADMAP.md)")
+    return axes[0]
 
 
 def make_prefill_step(model: Model, mesh: Optional[spmd.Mesh] = None,
@@ -252,3 +276,14 @@ def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
         runtime.step_boundary()
     runtime.barrier(timeout=timeout)
     return tok_obj, len_obj, c_objs
+
+
+def abstract_params(model: Model) -> Dict[str, Any]:
+    """The weights of ``model`` as a nested dict of meta tensors."""
+    return model.init_abstract().tree()
+
+
+def abstract_cache(model: Model, batch: int, cache_len: int
+                   ) -> Dict[str, Any]:
+    """``model.init_cache(batch, cache_len)`` on the meta device."""
+    return model.init_cache(batch, cache_len, "meta")

@@ -256,23 +256,32 @@ def test_greedy_decode_past_the_window_matches_jax(models):
 
 def test_seq_shard_kv_decode_matches_jax_under_use_sharding():
     """``Flags.seq_shard_kv="data"`` on a 2-shard mesh (8 layers, with the
-    remainder): global layers decode through ``seq_sharded_decode``; the
+    remainder), batch 3, which ``data`` does not divide: the Engine places
+    the weights and splits every attention cache's slots over ``data``
+    (each shard holds T / 2 of them), so the global layers decode over
+    their shard's slots and combine the partials across ``data``; the
     tokens equal the JAX Engine's under ``use_sharding`` and the unsharded
     run's."""
     cfg, jm, jp, tm, tp = _models(8)
     tcfg = tm.cfg
-    toks = _tokens(3, (2, 20))
+    toks = _tokens(3, (3, 20))
     jm2 = jbuild_smoke(cfg, seq_shard_kv="data")
     jmesh = JMesh(np.array(jax.devices()[:2]).reshape(2, 1),
                   ("data", "model"))
     with juse_sharding(jmesh):
-        want = np.asarray(JEngine(jm2, jp, 2, 44).generate(
+        want = np.asarray(JEngine(jm2, jp, 3, 44).generate(
             jnp.asarray(toks), 25))
     tm2 = tbuild_smoke(tcfg, seq_shard_kv="data")
     with use_sharding(make_smoke_mesh(2, 1, devices=[CPU] * 2)):
-        got = TEngine(tm2, tp, 2, 44).generate(torch.from_numpy(toks), 25)
+        eng = TEngine(tm2, tp, 3, 44)
+        nxt, cache = eng.prefill(torch.from_numpy(toks))
+        for name, leaf in flatten(cache):
+            t_dim = len(leaf.shape) - 3
+            assert all(s.shape[t_dim] * 2 == leaf.shape[t_dim]
+                       for s in leaf.shards), name
+        got = torch.cat([nxt, eng.decode(cache, nxt, 20, 24)], dim=1)
     np.testing.assert_array_equal(got.numpy(), want)
-    plain = TEngine(tm, tp, 2, 44).generate(torch.from_numpy(toks), 25)
+    plain = TEngine(tm, tp, 3, 44).generate(torch.from_numpy(toks), 25)
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
 
 

@@ -146,8 +146,10 @@ the port's main path through the tasking runtime:
     (1 layer, batch 16 of 32: flash) and decode_32k at the opt level (1
     layer, the cache's slots over the model axis of eight shards of the
     card), olmoe-1b-7b's decode_32k (1 layer, four shards) and
-    mamba2-370m's prefill_32k (1 layer: ssd_chunk), each at full width
-    and its cell's own sequence, lowered on meta
+    mamba2-370m's prefill_32k (1 layer: ssd_chunk), and yi-9b's
+    train_4k on the multi-pod mesh (2, 1, 1) under the compress_pod
+    variant (1 layer, batch 4, the int8 error-feedback reduction over
+    pod), each at full width and its cell's own sequence, lowered on meta
     shards in a child process that sees no card (started with phase 1,
     so that it runs beside the earlier phases) and run once on the card
     under the same counter (``repro_torch.opcount``): the counts must be
@@ -156,7 +158,19 @@ the port's main path through the tasking runtime:
     arguments' bytes the placed state's, the predicted peak within 10%
     and the predicted temporaries within 2% of the card's for the
     one-shard cells, the step no faster than its roofline bound (time
-    over bound printed).
+    over bound printed);
+  * phase 24, the multi-pod mesh: yi-9b at full width, 1 layer in
+    float32, drawn straight onto a (pod, data, model) = (2, 2, 2) mesh
+    of eight shards of the card with ZeRO-1 (the moments and master
+    split over data) and residuals over pod, trained 2 steps with
+    ``compress_pod_grads`` (each pod's gradient averaged inside the pod,
+    then int8 blocks of 256 along the whole leaf's last axis, error
+    feedback, all-gathered over pod): the losses, gradient norms,
+    parameters, moments, master and residuals against the same seeded
+    weights on one card, each pod's gradient through
+    ``compressed_mean_stacked_tree`` then AdamW; ms a step, rendezvous,
+    the int8 payload and residual bytes a shard, the card's peak, no
+    kernel launch, the allocation back.
     Beside phase 2, ``window_attention`` on bf16
     operands against its products on float32 copies at a gemma3 and a
     recurrentgemma local layer's prefill shapes, both timed; phase 2's
@@ -318,10 +332,55 @@ MESH_TRAIN_CELLS = {TRAIN_ARCH: (TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ),
                     RG_ARCH: (6, 4, 2048), WHISPER_ARCH: (None, 8, 448)}
 COMPRESS_SHARDS, COMPRESS_TOL = 4, 1e-6
 ELASTIC_TRAIN_RTOL = 1e-4
+# phase 24: yi-9b at full width, MULTIPOD_LAYERS layer(s), trained over a
+# (pod, data, model) = MULTIPOD_MESH mesh of shards of the card with
+# compress_pod_grads on and ZeRO-1 placed, MULTIPOD_STEPS steps on
+# SyntheticLM's batches of MULTIPOD_BATCH x MULTIPOD_SEQ, against the same
+# seeded weights on one card without a mesh: each pod's gradient (of its
+# half of the batch) through compressed_mean_stacked_tree (the oracle of
+# phase 18), then AdamW. In float32: in bf16 the two paths' gradients
+# differ by rounding, and an int8 rounding flips wherever that moves a
+# scaled value across a half step, so that the residuals could not be
+# compared element by element. At 1 layer the state is 0.70 B parameters
+# (the two embeddings 0.52 B): on the card about 11 GB of parameters (four
+# replicas of each model shard), 17 GB of moments and master (two pods,
+# halved by ZeRO-1), 11 GB of residuals (two data replicas) and 11 GB of
+# float32 gradients (my arithmetic); 2 layers would pass 60 GB. Held:
+# the loss of each step within MULTIPOD_LOSS_RTOL and its gradient norm
+# within MULTIPOD_NORM_RTOL. After the first step each residual element
+# in units of its 256-block's scale in the reference: at most
+# MULTIPOD_OFF_SHARE of them off by more than MULTIPOD_RES_BLOCK_TOL and
+# not a tie, and none farther than MULTIPOD_RES_WORST from agreement or a
+# tie (a scaled value within noise of a half step rounds either way in
+# the two paths, and the two residuals are then each other's negatives).
+# After each step each leaf's change of the parameters and master from
+# the drawn weights within MULTIPOD_PARAM_RTOL relative L2, its m and v
+# within MULTIPOD_MOMENT_RTOL; after the last each residual leaf within
+# MULTIPOD_RES_RTOL. A tie moves Adam's update of its element, which
+# moves the next step's gradients and ties: the later checks bound that
+# drift. Each limit lies between the readings of the sound step and of
+# faults planted in the mesh's compressed mean, at this size on an H100
+# (tools/phase24_faults.py; PERF.md): sound, 2.4e-6 of the elements off
+# and not ties, the worst at 0.088 (unembed; every other leaf 2.2e-3),
+# parameters 4.0e-3, moments 7.4e-4, residuals 0.13; each shard
+# quantizing with its own blocks (wi, wg) 4.1e-2 and 1.45, parameters
+# 6.8e-2, moments 8.1e-3; JAX's blocks with each part's own maximum
+# 1.4e-3 and 0.50, parameters 1.3e-2; the carried residual not added,
+# residuals 1.39 and parameters 0.51 after step 2; the pods' residuals
+# swapped 0.62 and 220
+MULTIPOD_MESH = (2, 2, 2)
+MULTIPOD_LAYERS, MULTIPOD_BATCH, MULTIPOD_SEQ, MULTIPOD_STEPS = 1, 8, 512, 2
+MULTIPOD_LOSS_RTOL, MULTIPOD_NORM_RTOL = 1e-5, 1e-4
+MULTIPOD_RES_BLOCK_TOL, MULTIPOD_OFF_SHARE, MULTIPOD_RES_WORST = \
+    1e-2, 1e-5, 0.25
+MULTIPOD_PARAM_RTOL, MULTIPOD_MOMENT_RTOL, MULTIPOD_RES_RTOL = \
+    7e-3, 3e-3, 0.4
+MULTIPOD_WATCHDOG_S = 600
 # phase 23: the dry-run (launch.dryrun) against the card. Each cell at full
 # width and its own sequence, depth cut by ``probe`` (periods): (label,
 # arch, shape, shards of the card, probe, over_decompose, batch (None: the
-# shape's), opt level). (b) trains yi-9b's 256 x 4096 batch in 32
+# shape's), opt level, variant of launch.dryrun.VARIANTS: compress_pod
+# lowers on the multi-pod mesh). (b) trains yi-9b's 256 x 4096 batch in 32
 # microbatches: at 8 (JAX's od8) the dry-run predicts 9.8 GB of state and
 # 145 GB of temporaries, which no card holds; at 32, 39 GB. The prefill
 # cells take the kernels: (d) mamba2-370m's ssd_chunk at the shape's batch
@@ -338,15 +397,26 @@ ELASTIC_TRAIN_RTOL = 1e-4
 # (f)'s shards share the card and take turns, so their temporaries overlap
 # in ways a shard's peak does not predict: printed only. The step's time
 # must not beat its roofline bound at the card's row of
-# launch.roofline.PEAKS.
-DRYRUN_CELLS = (("a", "yi_9b", "decode_32k", 1, 4, 1, None, "baseline"),
-                ("b", "yi_9b", "train_4k", 1, 1, 32, None, "baseline"),
+# launch.roofline.PEAKS. (g) is yi-9b's train_4k over (pod, data, model) =
+# (2, 1, 1) shards of the card with the compress_pod variant (the int8
+# error-feedback reduction over pod, the vocabulary replicated), od 1 (JAX
+# compresses a step of one microbatch only) and a batch of 4 for the
+# shape's 256 (each pod's shard holds a whole 1-layer state and its
+# residuals, 12.6 GB, and the two shards' temporaries add up on one card).
+DRYRUN_CELLS = (("a", "yi_9b", "decode_32k", 1, 4, 1, None, "baseline",
+                 "baseline"),
+                ("b", "yi_9b", "train_4k", 1, 1, 32, None, "baseline",
+                 "baseline"),
                 ("c", "olmoe_1b_7b", "decode_32k", 4, 1, 1, None,
-                 "baseline"),
+                 "baseline", "baseline"),
                 ("d", "mamba2_370m", "prefill_32k", 1, 1, 1, None,
+                 "baseline", "baseline"),
+                ("e", "yi_9b", "prefill_32k", 1, 1, 1, 16, "baseline",
                  "baseline"),
-                ("e", "yi_9b", "prefill_32k", 1, 1, 1, 16, "baseline"),
-                ("f", "yi_9b", "decode_32k", 8, 1, 1, None, "opt"))
+                ("f", "yi_9b", "decode_32k", 8, 1, 1, None, "opt",
+                 "baseline"),
+                ("g", "yi_9b", "train_4k", 2, 1, 1, 4, "baseline",
+                 "compress_pod"))
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_TEMP_TOL = 0.02
 DRYRUN_PEAK_CHECKED = ("a", "b", "d", "e")
@@ -3535,13 +3605,14 @@ def watchdog(seconds: float, what: str):
 
 
 def state_shares(state, mesh) -> dict:
-    """Each shard's bytes of a placed ``TrainState`` (GB) and what the
-    leaves' specs give it: a leaf's bytes over the shards of the axes
-    that split it."""
+    """Each shard's bytes of a placed ``TrainState`` (GB, its residuals
+    included) and what the leaves' specs give it: a leaf's bytes over the
+    shards of the axes that split it."""
     from repro_torch.train.optimizer import tree_leaves
     o = state.opt
     leaves = (tree_leaves(state.params) + tree_leaves(o.m)
-              + tree_leaves(o.v) + tree_leaves(o.master) + [o.step])
+              + tree_leaves(o.v) + tree_leaves(o.master) + [o.step]
+              + (tree_leaves(state.ef) if state.ef is not None else []))
     held = [0] * mesh.size
     want = 0
     for x in leaves:
@@ -3715,6 +3786,302 @@ def mesh_train_phase(ops, card: str, arch: str = TRAIN_ARCH,
     return r
 
 
+# -- phase 24: the multi-pod mesh: compressed gradients, ZeRO-1 -------------
+
+def compressed_payload(state) -> dict:
+    """Shard 0's bytes a step of ``compressed_pmean``'s all-gathers over
+    ``pod`` (``compression.payload_bytes``) and of its residual blocks."""
+    from repro_torch.train.compression import payload_bytes
+    from repro_torch.train.optimizer import tree_leaves
+    q, scales = payload_bytes(state.params)
+    res = sum(r.shards[0].numel() * 4 for r in tree_leaves(state.ef))
+    return {"int8_bytes": q, "scale_bytes": scales,
+            "residual_bytes_a_shard": res}
+
+
+def multipod_reference(model, batches, dev) -> dict:
+    """Phase 24's oracle: the seeded state on one card without a mesh,
+    ``MULTIPOD_STEPS`` steps, each pod's gradient (of its half of the
+    batch) through ``compressed_mean_stacked_tree``, then AdamW: the
+    metrics of each step; on the host the drawn parameters, the first
+    batch's gradient (uncompressed, the whole batch), the scales of each
+    pod's 256-blocks in the first step and the state after each
+    step."""
+    from repro_torch.train import init_train_state, make_grad_fn
+    from repro_torch.train.compression import (compressed_mean_stacked_tree,
+                                               quantize_int8)
+    from repro_torch.train.optimizer import (adamw_update, global_norm,
+                                             tree_map)
+    pods = MULTIPOD_MESH[0]
+    state = init_train_state(model, torch.Generator(device=dev)
+                             .manual_seed(SEED), dev, ef_pods=pods)
+
+    def host(tree):
+        return tree_map(lambda t: t.to("cpu", copy=True), tree)
+    grad_fn = make_grad_fn(model)
+    out = {"params0": host(state.params),
+           "grads0": host(grad_fn(state.params, batches[0])[0]),
+           "losses": [], "grad_norms": [], "states": []}
+    half = MULTIPOD_BATCH // pods
+    def block_scales(g, r):
+        x = g.float() + r
+        return quantize_int8(x[:, None] if x.dim() == 1 else x)[1].cpu()
+    for i, batch in enumerate(batches):
+        per = [grad_fn(state.params, {k: v[p * half:(p + 1) * half]
+                                      for k, v in batch.items()})
+               for p in range(pods)]
+        out["losses"].append(sum(float(m["ce"] + m["aux"])
+                                 for _, m in per) / pods)
+        stacked = tree_map(lambda *g: torch.stack(g), *[g for g, _ in per])
+        del per
+        if i == 0:
+            out["scales0"] = tree_map(block_scales, stacked, state.ef)
+        mean, state.ef = compressed_mean_stacked_tree(stacked, state.ef)
+        del stacked
+        out["grad_norms"].append(float(global_norm(mean)))
+        state, _ = adamw_update(train_opt(), state, mean)
+        del mean
+        o = state.opt
+        out["states"].append({"params": host(state.params), "m": host(o.m),
+                              "v": host(o.v), "master": host(o.master),
+                              "ef": host(state.ef)})
+    del state, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def residual_ties(placed, ref, scales, dev) -> dict:
+    """Phase 24's first-step check: each residual element of the mesh
+    (``placed``, a tree of ``Sharded``) against the reference's (``ref``,
+    on the host), in units of its 256-block's scale in the reference
+    (``scales``): those off by more than ``MULTIPOD_RES_BLOCK_TOL``, and
+    among them those that are not ties (the two residuals not each
+    other's negatives within that bound); the largest distance of any
+    element from agreement or a tie, over all leaves and a leaf. Pod by
+    pod, to hold one pod's slice of a leaf at a time."""
+    from repro_torch.train.compression import BLOCK
+    from repro_torch.train.optimizer import tree_flatten
+    off = not_ties = total = 0
+    worst = {}
+    for (k, x), (_, w), (_, sc) in zip(tree_flatten(placed),
+                                       tree_flatten(ref),
+                                       tree_flatten(scales), strict=True):
+        full, w = x.full(dev), w.to(dev)
+        worst["/".join(k)] = 0.0
+        for p in range(full.shape[0]):
+            s = sc[p].to(dev).repeat_interleave(BLOCK, -1)
+            got = full[p].reshape(s.shape[:-1] + (-1,))
+            want = w[p].reshape(got.shape)
+            s = s[..., :got.shape[-1]]
+            d, t = (got - want).abs(), (got + want).abs()
+            bad = d > MULTIPOD_RES_BLOCK_TOL * s
+            off += int(bad.sum())
+            not_ties += int((bad & (t > MULTIPOD_RES_BLOCK_TOL * s)).sum())
+            total += bad.numel()
+            pos = s > 0
+            if bool(pos.any()):
+                worst["/".join(k)] = max(worst["/".join(k)], float(
+                    (torch.minimum(d, t)[pos] / s[pos]).max()))
+            del s, got, want, d, t, bad, pos
+        del full, w
+    return {"elements": total, "off": off, "not_ties": not_ties,
+            "share_off": off / total, "worst": max(worst.values()),
+            "worst_by_leaf": worst}
+
+
+def state_rel_l2(state, ref: dict, params0: dict, dev) -> dict:
+    """The relative L2 distance of each part of the mesh's state from the
+    reference's (``ref``: host trees; the parameters and master by their
+    change from ``params0``, the drawn weights), all leaves together and
+    leaf by leaf."""
+    from repro_torch.train.optimizer import tree_flatten
+    o = state.opt
+    rel, leaf = {}, {}
+    for part, tree in (("params", state.params), ("m", o.m), ("v", o.v),
+                       ("master", o.master), ("ef", state.ef)):
+        num = den = 0.0
+        leaf[part] = {}
+        for (k, x), (_, w) in zip(tree_flatten(tree),
+                                  tree_flatten(ref[part]), strict=True):
+            got, want = x.full(dev).float(), w.to(dev).float()
+            if part in ("params", "master"):
+                p0 = params0[k].to(dev)
+                got, want = got - p0, want - p0
+                del p0
+            n = float((got - want).square().sum())
+            d = float(want.square().sum())
+            leaf[part]["/".join(k)] = (n / max(d, 1e-30)) ** 0.5
+            num, den = num + n, den + d
+            del got, want
+        rel[part] = (num / max(den, 1e-30)) ** 0.5
+    return {"rel_l2": rel, "leaf_rel_l2": leaf}
+
+
+def grad_rel_l2(grads, ref, dev) -> float:
+    """The relative L2 distance of the mesh's uncompressed gradients
+    (``Sharded``) from one card's (host), all leaves together."""
+    from repro_torch.train.optimizer import tree_flatten
+    num = den = 0.0
+    for (_, x), (_, w) in zip(tree_flatten(grads), tree_flatten(ref),
+                              strict=True):
+        got, want = x.full(dev).float(), w.to(dev).float()
+        num += float((got - want).square().sum())
+        den += float(want.square().sum())
+        del got, want
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def multipod_phase(ops, card: str) -> dict:
+    """Phase 24: ``multipod_run``, its line printed, then
+    ``multipod_checks``."""
+    r = multipod_run(ops, card)
+    multipod_checks(r)
+    return r
+
+
+def multipod_run(ops, card: str) -> dict:
+    """Phase 24's run: yi-9b at full width, ``MULTIPOD_LAYERS`` layer(s) in
+    float32, drawn from the seed straight onto a ``MULTIPOD_MESH`` mesh
+    of shards of the card (``init_train_state(..., mesh=, zero=True,
+    ef_pods=2)``: ZeRO-1 over ``data``, residuals over ``pod``), trained
+    ``MULTIPOD_STEPS`` steps with ``compress_pod_grads``; the loss,
+    gradient norm, parameters, moments, master and residuals held to
+    ``multipod_reference`` (the constants' comment), ms a step,
+    rendezvous, the int8 payload over ``pod`` and the residuals' bytes a
+    shard, the card's peak, the kernel launches, the allocation before
+    and after; printed as one line."""
+    from repro_torch.distributed import spmd
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_mesh_grad_fn, make_train_step)
+    from repro_torch.train.optimizer import tree_flatten
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = allocated_without_workspaces()
+    check(mem0 < MEMORY_BEFORE_SERVE, f"phase 24: {mem0} B still allocated "
+          f"on the card before the weights load")
+    model = train_model(MULTIPOD_LAYERS, torch.float32)
+    cfg = model.cfg
+    batches = [train_batch(cfg, i, dev, MULTIPOD_BATCH, MULTIPOD_SEQ)
+               for i in range(MULTIPOD_STEPS)]
+    r = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": "float32",
+         "mesh": dict(zip(("pod", "data", "model"), MULTIPOD_MESH)),
+         "batch": MULTIPOD_BATCH, "seq": MULTIPOD_SEQ,
+         "steps": MULTIPOD_STEPS, "remat": model.flags.remat}
+    t0 = time.perf_counter()
+    ref = multipod_reference(model, batches, dev)
+    r["reference_s"] = time.perf_counter() - t0
+
+    mesh = spmd.Mesh([dev] * math.prod(MULTIPOD_MESH), MULTIPOD_MESH,
+                     ("pod", "data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(model, torch.Generator(device=dev)
+                             .manual_seed(SEED), dev, ef_pods=MULTIPOD_MESH[0],
+                             mesh=mesh, zero=True)
+    torch.cuda.synchronize()
+    r["draw_s"] = time.perf_counter() - t0
+    r["params"] = sum(math.prod(x.shape) for _, x in
+                      tree_flatten(state.params))
+    r.update(compressed_payload(state))
+    r.update(state_shares(state, mesh))
+    r["state_gb_on_card"] = torch.cuda.memory_allocated() / 1e9
+    params0 = dict(tree_flatten(ref["params0"]))
+    grads, _ = make_mesh_grad_fn(model)(state.params, batches[0])
+    r["uncompressed_grad_rel_l2"] = grad_rel_l2(grads, ref["grads0"], dev)
+    del grads
+    step = make_train_step(model, TrainConfig(opt=train_opt(),
+                                              compress_pod_grads=True))
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    losses, norms, ms, rdv = [], [], [], []
+    for i, batch in enumerate(batches):
+        with counted_rendezvous() as count:
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rdv.append(count[0])
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        if i == 0:
+            launches = dict(ops.LAUNCHES)
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            r["first_step_ties"] = residual_ties(
+                state.ef, ref["states"][0]["ef"], ref["scales0"], dev)
+        r.setdefault("after_step", []).append(state_rel_l2(
+            state, ref["states"][i], params0, dev))
+    r["launches"] = launches
+    r.update(losses=losses, grad_norms=norms, step_ms=ms,
+             rendezvous_per_step=rdv, ms_per_step=ms[-1],
+             reference_losses=ref["losses"],
+             reference_grad_norms=ref["grad_norms"])
+    r["tokens_per_s"] = MULTIPOD_BATCH * MULTIPOD_SEQ / ms[-1] * 1e3
+    del state, step, batches, met, ref, params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = allocated_without_workspaces()
+    r.update(allocated_at_start_mb=mem0 / 2**20,
+             allocated_at_end_mb=mem1 / 2**20,
+             phase_s=time.perf_counter() - t_phase)
+    print(f"train {cfg.name} on a {MULTIPOD_MESH} multi-pod mesh, compressed "
+          f"and ZeRO-1, phase 24 ({card}): " + json.dumps(r))
+    return r
+
+
+def multipod_checks(r: dict) -> None:
+    """Phase 24's checks of ``multipod_run``'s readings (the constants'
+    comment)."""
+    losses, norms = r["losses"], r["grad_norms"]
+    shares = r["shard_state_gb"]
+    check(all(abs(g - shares[0]) < 1e-9 for g in shares)
+          and abs(sum(shares) - r["spec_state_gb"] * len(shares))
+          <= 1e-6 * sum(shares),
+          f"phase 24: the shards hold {shares} GB of state, their specs "
+          f"give {r['spec_state_gb']} GB each")
+    for got, want in zip(losses, r["reference_losses"]):
+        check(math.isfinite(got) and abs(got - want)
+              <= MULTIPOD_LOSS_RTOL * abs(want),
+              f"phase 24: losses {losses} vs the reference's "
+              f"{r['reference_losses']}, relative {MULTIPOD_LOSS_RTOL}")
+    for got, want in zip(norms, r["reference_grad_norms"]):
+        check(abs(got - want) <= MULTIPOD_NORM_RTOL * want,
+              f"phase 24: gradient norms {norms} vs the reference's "
+              f"{r['reference_grad_norms']}, relative {MULTIPOD_NORM_RTOL}")
+    ties = r["first_step_ties"]
+    check(ties["not_ties"] <= MULTIPOD_OFF_SHARE * ties["elements"]
+          and ties["worst"] <= MULTIPOD_RES_WORST,
+          f"phase 24: after the first step {ties['not_ties']} of "
+          f"{ties['elements']} residual elements are off the reference's "
+          f"by more than {MULTIPOD_RES_BLOCK_TOL} of their block's scale "
+          f"and not ties (at most {MULTIPOD_OFF_SHARE} of them), the worst "
+          f"{ties['worst']} of its block's scale from agreement or a tie "
+          f"(at most {MULTIPOD_RES_WORST})")
+    for i, after in enumerate(r["after_step"]):
+        for part in ("params", "m", "v", "master"):
+            tol = MULTIPOD_PARAM_RTOL if part in ("params", "master") \
+                else MULTIPOD_MOMENT_RTOL
+            leaf, rel = max(after["leaf_rel_l2"][part].items(),
+                            key=lambda kv: kv[1])
+            check(rel <= tol, f"phase 24: {part} of {leaf} after step "
+                  f"{i + 1} at relative L2 {rel} from the reference's "
+                  f"(tolerance {tol})")
+    worst = max(r["after_step"][-1]["leaf_rel_l2"]["ef"].items(),
+                key=lambda kv: kv[1])
+    check(worst[1] <= MULTIPOD_RES_RTOL, f"phase 24: the residual of "
+          f"{worst[0]} after {MULTIPOD_STEPS} steps at relative L2 "
+          f"{worst[1]} from the reference's (tolerance {MULTIPOD_RES_RTOL})")
+    check(not any(r["launches"].values()),
+          f"phase 24: the train steps launched hand-written kernels "
+          f"{r['launches']}")
+    mem0, mem1 = (r[k] * 2**20 for k in ("allocated_at_start_mb",
+                                         "allocated_at_end_mb"))
+    check(abs(mem1 - mem0) <= MEMORY_SLACK,
+          f"phase 24: {mem1} B allocated after, {mem0} B before")
+
+
 # -- phase 23: the dry-run against the card ----------------------------------
 
 def dryrun_meta(out_path: str) -> None:
@@ -3726,9 +4093,12 @@ def dryrun_meta(out_path: str) -> None:
         __file__)), "src"))
     from repro_torch.launch import dryrun as D
     out = {}
-    for label, arch, shape, chips, probe, od, batch, level in DRYRUN_CELLS:
+    for (label, arch, shape, chips, probe, od, batch, level,
+         variant) in DRYRUN_CELLS:
         cell = D.build_cell(arch, shape, chips=chips, probe=probe,
-                            over_decompose=od, batch=batch, opt_level=level)
+                            over_decompose=od, batch=batch, opt_level=level,
+                            multi_pod=variant == "compress_pod",
+                            **D.VARIANTS[variant])
         counter, secs = D.count_step(cell)
         res = D.result_of(cell, counter, secs, 0.0, level)
         out[label] = {"counts": counter.summary(), "meta_s": secs,
@@ -3790,7 +4160,8 @@ def dryrun_phase(card: str, meta: dict) -> dict:
     dev = torch.device("cuda", 0)
     _, rates = R.peaks(torch.cuda.get_device_name(0))
     out = {"card": card, "meta_waited_s": meta.pop("_waited_s")}
-    for label, arch, shape, chips, probe, od, batch, level in DRYRUN_CELLS:
+    for (label, arch, shape, chips, probe, od, batch, level,
+         variant) in DRYRUN_CELLS:
         t_cell = time.perf_counter()
         gc.collect()
         torch.cuda.empty_cache()
@@ -3798,7 +4169,9 @@ def dryrun_phase(card: str, meta: dict) -> dict:
         gen = torch.Generator(device=dev).manual_seed(SEED)
         cell = D.build_cell(arch, shape, chips=chips, probe=probe,
                             over_decompose=od, batch=batch, opt_level=level,
-                            device=dev, gen=gen)
+                            device=dev, gen=gen,
+                            multi_pod=variant == "compress_pod",
+                            **D.VARIANTS[variant])
         torch.cuda.synchronize()
         placed = torch.cuda.memory_allocated() - mem0
         args0 = D.shard_bytes(list(cell.args.values()))
@@ -3809,9 +4182,10 @@ def dryrun_phase(card: str, meta: dict) -> dict:
         got = json.loads(json.dumps(counter.summary()))
         want = meta[label]["counts"]
         pred = meta[label]["result"]
-        r = {"cell": [arch, shape, f"(1, {chips})", f"probe={probe}",
-                      f"od={od}", f"batch={cell.shape.global_batch}",
-                      level],
+        r = {"cell": [arch, shape, str(tuple(cell.mesh.shape.values())),
+                      f"probe={probe}", f"od={od}",
+                      f"batch={cell.shape.global_batch}", level,
+                      variant],
              "counts_equal": got == want,
              "flops_per_device": D.device0(counter)["flops"],
              "bytes_per_device": D.device0(counter)["bytes"],
@@ -4159,6 +4533,13 @@ def main() -> int:
         with watchdog(MESH_TRAIN_WATCHDOG_S, f"phase 22 ({arch})"):
             mesh_train_phase(ops, card, arch, 22)
         mark(f"22 {arch}")
+
+    # -- phase 24: yi-9b (1 layer, float32) trained over a (2, 2, 2)
+    # multi-pod mesh of shards of the card, compressed over pod and ZeRO-1
+    # over data, against one card (prints its line before its checks) ----
+    with watchdog(MULTIPOD_WATCHDOG_S, "phase 24 (the multi-pod mesh)"):
+        multipod_phase(ops, card)
+    mark("24 multi-pod")
 
     # -- phase 23: the dry-run's counts against the card's (prints its line
     # before its checks) ----------------------------------------------------

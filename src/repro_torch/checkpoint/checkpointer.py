@@ -18,8 +18,9 @@ a shrunk or grown world (elastic rescale path). A state placed on a mesh
 shard's block copied straight into the host array, so no card ever holds
 more than its own blocks; the files are those of the same state on one
 device, and ``restore(..., shardings=)`` places each leaf onto any mesh by
-a matching tree of ``spmd.NamedSharding`` (``launch.mesh.opt_specs``), as
-JAX's mesh-agnostic restore does. A state may be nested
+a matching tree of ``spmd.NamedSharding`` (``launch.mesh.opt_specs``: a
+ZeRO-1 layout and the compressed step's residuals too, from an abstract
+state with them), as JAX's mesh-agnostic restore does. A state may be nested
 dicts, sequences and dataclasses (``train.TrainState``: leaves
 ``params__...``, ``opt__step``, ``opt__m__...``); its reference for a
 restore may be a state of ``meta``-device tensors

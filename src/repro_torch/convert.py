@@ -289,13 +289,15 @@ def train_state_from_jax(state, device="cpu"):
         ef=None if state.ef is None else _plain(state.ef, device))
 
 
-def train_state_placed_from_jax(state, model, mesh):
+def train_state_placed_from_jax(state, model, mesh, zero: bool = False):
     """A JAX ``TrainState`` of numpy leaves (``train_state_from_jax``'s
-    input) placed on ``mesh`` by ``launch.mesh.place_train_state``: each
-    leaf moved from the host onto the shards' devices one at a time."""
+    input, its residuals ``ef`` included) placed on ``mesh`` by
+    ``launch.mesh.place_train_state`` (``zero``: the moments and master
+    split over ``data`` as well): each leaf moved from the host onto the
+    shards' devices one at a time."""
     from repro_torch.launch.mesh import place_train_state
     return place_train_state(train_state_from_jax(state, "cpu"),
-                             model.axes(), mesh, consume=True)
+                             model.axes(), mesh, consume=True, zero=zero)
 
 
 def train_state_to_numpy(state):

@@ -1,7 +1,7 @@
 """Single-controller SPMD: the port's stand-in for ``jax.sharding.Mesh``,
 ``jax.shard_map`` and the ``jax.lax`` collectives (``ppermute``, ``psum``,
 ``pmax``, ``pmean``, ``all_to_all``, ``all_gather``, ``axis_index``,
-``axis_size``).
+``axis_size``; ``axes_index`` for several axes taken as one).
 
 A ``Mesh`` names the device of each shard; a device may repeat, so one card
 can hold several shards, as the JAX tests hold forced host devices.
@@ -595,6 +595,16 @@ def axis_size(axis_name: str) -> int:
     return _ctx().mesh.shape[axis_name]
 
 
+def axes_index(axes: Sequence[str]) -> Tuple[int, int]:
+    """This shard's coordinate along ``axes`` taken as one (major first,
+    as a spec entry names them) and their number of shards."""
+    index, size = 0, 1
+    for a in axes:
+        index = index * axis_size(a) + axis_index(a)
+        size *= axis_size(a)
+    return index, size
+
+
 def ppermute(x: torch.Tensor, axis_name: str,
              perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Shard ``src`` sends ``x`` to ``dst`` along ``axis_name`` for each
@@ -629,7 +639,9 @@ def _reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
     acc = None
     for c in range(n):
         v = x if c == me else _receive(posted[_peer(axis_name, c)], x.device)
-        acc = v.clone() if acc is None else op(acc, v)
+        # into the one copy made: a gradient's reduction holds no more
+        acc = v.clone() if acc is None else op(acc, v, out=acc)
+        del v
     return acc
 
 

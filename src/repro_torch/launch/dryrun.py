@@ -9,7 +9,13 @@ reads XLA's cost and memory analyses. The port runs eagerly: the cell's
 step runs once, at full width and at the cell's own batch and sequence,
 over ``launch.mesh.make_production_mesh(devices=[meta] * chips)`` (the
 ``(1, chips)`` mesh of one node; 8 cards, one HGX H100 node, by default),
-under the exact counter of ``repro_torch.opcount``. ``meta`` tensors have
+under the exact counter of ``repro_torch.opcount``; ``--data D`` gives the
+mesh back the data axis JAX's (16, 16) has, ``(D, chips / D)``, so that
+ZeRO-1 splits the optimizer state over it, and ``--multi-pod`` lowers on
+``(2, D, chips / (2 D))`` (``("pod", "data", "model")``), where the
+``compress_pod`` variant averages the gradients over ``pod`` by the int8
+error-feedback reduction (its int8 all-gather counted under JAX's
+``all-gather``). ``meta`` tensors have
 shapes and no storage, so every cell runs on a machine without a card, and
 they take the card's route through the model (the kernels' ``meta`` arms,
 the card's products): the counts are the card's, which ``chip_smoke.py``
@@ -34,7 +40,9 @@ axis) for a decode cell whose kv heads the model axis does not divide. The
 JAX level's sequence-parallel activation rule (``act_seq``) has no
 counterpart: the port's step runs as a ``shard_map`` body, which lays out
 no activation. ``VARIANTS`` keeps the JAX package's named stacks that
-change the port's step.
+change the port's step. A result's file is tagged by its mesh:
+``{arch}__{shape}__tp{chips}__{level}`` on ``(1, chips)``, ``pod2`` and
+``dp{D}`` before ``tp`` on the others.
 """
 from __future__ import annotations
 
@@ -54,7 +62,7 @@ from repro_torch.configs import (SHAPES_BY_NAME, canon, get_config,
 from repro_torch.distributed import spmd
 from repro_torch.launch import roofline as R
 from repro_torch.launch.mesh import (cache_specs, make_production_mesh,
-                                     opt_specs, param_specs)
+                                     param_specs, place_train_state)
 from repro_torch.models import build_model
 from repro_torch.models.sharding import use_sharding
 from repro_torch.models.transformer import Flags
@@ -85,8 +93,7 @@ def _flags_for(seq_shard: bool) -> Flags:
 
 
 # Named stacks of ``build_cell``'s keywords, the JAX package's that change
-# the port's step (its sequence-parallel ones and the cross-pod gradient
-# compression have no counterpart here)
+# the port's step (its sequence-parallel ones have no counterpart here)
 VARIANTS: Dict[str, Dict[str, Any]] = {
     "baseline": {},
     # over-decomposition (microbatch pipeline)
@@ -100,6 +107,11 @@ VARIANTS: Dict[str, Dict[str, Any]] = {
     # mamba2: smaller SSD chunk (halves the decay-matrix traffic)
     "ssd_chunk128": dict(ssd_chunk=128),
     "loss_chunk512": dict(extra_flags={"loss_chunk": 512}),
+    # int8 + EF compression of the cross-pod gradient reduction (with
+    # --multi-pod; train/compression.py). The vocabulary replicated, as
+    # JAX's variant keeps it (an XLA limitation there), so that the specs
+    # and counts compare with JAX's
+    "compress_pod": dict(train_compress=True, extra_rules={"vocab": None}),
 }
 
 
@@ -120,6 +132,7 @@ class Cell:
     run: Callable[[], Any]
     args: Dict[str, Any]
     donated: Dict[str, Any]
+    rules: Optional[Dict[str, Any]] = None
     out: Any = None
 
 
@@ -136,20 +149,26 @@ def _sizes(cfg, probe: Optional[int], ssd_chunk: Optional[int]):
 
 
 def build_cell(arch: str, shape_name: str, *, chips: int = 8,
-               multi_pod: bool = False, opt_level: str = "baseline",
-               over_decompose: int = 1,
+               multi_pod: bool = False, data: int = 1,
+               opt_level: str = "baseline", over_decompose: int = 1,
                extra_flags: Optional[Dict[str, Any]] = None,
+               extra_rules: Optional[Dict[str, Any]] = None,
                probe: Optional[int] = None,
                cache_seq_axis: Optional[str] = None,
-               ssd_chunk: Optional[int] = None, batch: Optional[int] = None,
+               ssd_chunk: Optional[int] = None, train_compress: bool = False,
+               batch: Optional[int] = None,
                smoke: bool = False, device="meta",
                gen: Optional[torch.Generator] = None) -> Optional[Cell]:
     """The cell's model, placed state and step over ``chips`` shards of
     ``device`` (the dry-run's ``meta``; on a card with ``gen``, weights
     drawn from it, a zero cache, seeded tokens and lengths of the full
-    context). None for a shape the architecture skips. ``smoke`` takes
-    the reduced configuration at the same shapes; ``batch`` cuts the
-    shape's global batch."""
+    context), on ``make_production_mesh(multi_pod=, data=)`` under the
+    logical rules and ``extra_rules``; a train cell's optimizer state
+    ZeRO-1 placed, with residuals and the compressed step where
+    ``train_compress`` and the mesh has a ``pod`` axis, as JAX's.
+    None for a shape the architecture skips. ``smoke`` takes the reduced
+    configuration at the same shapes; ``batch`` cuts the shape's global
+    batch."""
     cfg = (get_smoke_config if smoke else get_config)(arch)
     cfg = _sizes(cfg, probe, ssd_chunk)
     shape = SHAPES_BY_NAME[shape_name]
@@ -158,7 +177,7 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
     if batch is not None:
         shape = dataclasses.replace(shape, global_batch=batch)
     device = torch.device(device)
-    mesh = make_production_mesh(multi_pod=multi_pod,
+    mesh = make_production_mesh(multi_pod=multi_pod, data=data,
                                 devices=[device] * chips)
     seq_shard = (shape.kind == "decode"
                  and shape.global_batch % mesh.shape["data"] != 0)
@@ -175,20 +194,24 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
     inputs = model.input_specs(shape)
     if device.type != "meta":
         inputs = _real_inputs(inputs, cfg, shape, device, gen)
-    with use_sharding(mesh):
+    with use_sharding(mesh, extra_rules):
         if shape.kind == "train":
+            compress = train_compress and "pod" in mesh.shape
+            pods = mesh.shape["pod"] if compress else 0
             if device.type == "meta":
-                state = abstract_train_state(model)
-                state = _place_state(state, opt_specs(state, model.axes(),
-                                                      mesh))
+                state = place_train_state(
+                    abstract_train_state(model, ef_pods=pods),
+                    model.axes(), mesh, zero=True)
             else:
-                state = init_train_state(model, gen, device, mesh=mesh)
+                state = init_train_state(model, gen, device, ef_pods=pods,
+                                         mesh=mesh, zero=True)
             step = make_train_step(model, TrainConfig(
-                over_decompose=over_decompose))
+                over_decompose=over_decompose, compress_pod_grads=compress))
             cell = Cell(arch, shape_name, cfg, shape, mesh,
                         over_decompose, seq_shard, probe,
                         lambda: step(state, inputs),
-                        {"state": state, "batch": inputs}, {"state": state})
+                        {"state": state, "batch": inputs}, {"state": state},
+                        extra_rules)
         else:
             if device.type == "meta":
                 abstract = abstract_params(model)
@@ -207,7 +230,7 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
                             over_decompose, seq_shard, probe,
                             lambda: fn(params, inputs, cache),
                             {"params": params, "batch": inputs,
-                             "cache": cache}, {"cache": cache})
+                             "cache": cache}, {"cache": cache}, extra_rules)
             else:
                 fn = make_decode_step(model, mesh)
                 cell = Cell(arch, shape_name, cfg, shape, mesh,
@@ -215,7 +238,8 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
                             lambda: fn(params, cache, inputs["tokens"],
                                        inputs["lengths"]),
                             {"params": params, "cache": cache,
-                             "batch": inputs}, {"cache": cache})
+                             "batch": inputs}, {"cache": cache},
+                            extra_rules)
     return cell
 
 
@@ -236,21 +260,6 @@ def _real_inputs(specs: Dict[str, torch.Tensor], cfg, shape, device,
             out[k] = (torch.randn(v.shape, generator=gen, device=device)
                       * 0.02).to(v.dtype)
     return out
-
-
-def _place_state(state, specs):
-    """A meta ``TrainState`` placed by ``specs`` (``opt_specs``): every
-    shard a block of its own, as the step updates them in place."""
-    from repro_torch.train.optimizer import AdamWState, TrainState
-
-    def put(tree, sh):
-        return spmd.place(tree, sh, share=False)
-    opt = state.opt
-    return TrainState(
-        params=put(state.params, specs.params),
-        opt=AdamWState(step=put({"s": opt.step}, {"s": specs.opt.step})["s"],
-                       m=put(opt.m, specs.opt.m), v=put(opt.v, specs.opt.v),
-                       master=put(opt.master, specs.opt.master)))
 
 
 def _zeros(abstract, specs, device):
@@ -301,7 +310,8 @@ def count_step(cell: Cell) -> Tuple[opcount.Counter, float]:
     gc.freeze()
     t0 = time.perf_counter()
     try:
-        with use_sharding(cell.mesh), opcount.counting(counter):
+        with use_sharding(cell.mesh, cell.rules), \
+                opcount.counting(counter):
             cell.out = cell.run()
     finally:
         gc.unfreeze()
@@ -332,22 +342,24 @@ def device0(counter: opcount.Counter, shard: int = 0) -> Dict[str, Any]:
 
 
 def lower_cell(arch: str, shape_name: str, *, chips: int = 8,
-               multi_pod: bool = False, opt_level: str = "baseline",
-               over_decompose: int = 1,
+               multi_pod: bool = False, data: int = 1,
+               opt_level: str = "baseline", over_decompose: int = 1,
                extra_flags: Optional[Dict[str, Any]] = None,
+               extra_rules: Optional[Dict[str, Any]] = None,
                probe: Optional[int] = None,
                cache_seq_axis: Optional[str] = None,
-               ssd_chunk: Optional[int] = None,
+               ssd_chunk: Optional[int] = None, train_compress: bool = False,
                smoke: bool = False) -> Dict[str, Any]:
     """probe=0: 0-layer model; probe=k: model with exactly k periods (the
     JAX package's probes; here the counts are exact at any depth, so a
     probe only cuts a run's size)."""
     t0 = time.perf_counter()
     cell = build_cell(arch, shape_name, chips=chips, multi_pod=multi_pod,
-                      opt_level=opt_level, over_decompose=over_decompose,
-                      extra_flags=extra_flags, probe=probe,
+                      data=data, opt_level=opt_level,
+                      over_decompose=over_decompose, extra_flags=extra_flags,
+                      extra_rules=extra_rules, probe=probe,
                       cache_seq_axis=cache_seq_axis, ssd_chunk=ssd_chunk,
-                      smoke=smoke)
+                      train_compress=train_compress, smoke=smoke)
     if cell is None:
         return {"arch": arch, "shape": shape_name, "skipped": True,
                 "reason": "full-attention arch skips long_500k (see DESIGN)"}
@@ -409,8 +421,13 @@ def result_of(cell: Cell, counter: opcount.Counter, run_s: float,
 
 
 def result_path(results_dir: str, arch: str, shape: str, chips: int,
-                opt: str, probe: Optional[int] = None) -> str:
-    tag = f"{arch}__{shape}__tp{chips}__{opt}"
+                opt: str, probe: Optional[int] = None, *,
+                multi_pod: bool = False, data: int = 1) -> str:
+    """A result's file: its mesh tagged ``tp{chips}`` on ``(1, chips)``,
+    with ``pod2`` and ``dp{data}`` before it on the other meshes."""
+    mesh = (("pod2" if multi_pod else "")
+            + (f"dp{data}" if data != 1 else "") + f"tp{chips}")
+    tag = f"{arch}__{shape}__{mesh}__{opt}"
     if probe is not None:
         tag += f"__probe{probe}"
     return os.path.join(results_dir, tag + ".json")
@@ -421,7 +438,11 @@ def main():
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True)
     ap.add_argument("--chips", type=int, default=8)
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="lower on (2, data, chips / (2 data))")
+    ap.add_argument("--data", type=int, default=1,
+                    help="the data axis (ZeRO-1 splits the optimizer "
+                         "state over it)")
     ap.add_argument("--opt-level", default="baseline",
                     choices=["baseline", "opt"])
     ap.add_argument("--over-decompose", type=int, default=1)
@@ -433,6 +454,7 @@ def main():
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     kw: Dict[str, Any] = dict(chips=args.chips, multi_pod=args.multi_pod,
+                              data=args.data,
                               opt_level=args.opt_level,
                               over_decompose=args.over_decompose,
                               probe=args.probe, smoke=args.smoke)

@@ -5,10 +5,12 @@ parameter, optimizer-state, batch and cache specs, each a tree of
 ``spmd.NamedSharding`` (the batch specs are ``P``s, as in the JAX
 package) that ``spmd.place`` puts a tree on. The rules are JAX's line for
 line, the divisibility fallback included. ``place_train_state`` puts a
-``TrainState`` on a mesh by ``opt_specs(..., zero=False)``, the moments
-and master by their parameters' specs, as the JAX driver's state lies
-under GSPMD; ZeRO-1 (``zero=True``) is placed by the JAX package's dry-run
-alone and waits for ROADMAP.md item 7.
+``TrainState`` on a mesh by ``opt_specs``: the moments and master by
+their parameters' specs, as the JAX driver's state lies under GSPMD, or
+with ``zero=True`` split over the data axis as well (ZeRO-1, as the JAX
+dry-run places them); the error-feedback residuals of the compressed
+cross-pod step lie over ``pod`` by their leading dim and as their
+parameters inside a pod (``ef_specs``).
 """
 from __future__ import annotations
 
@@ -32,20 +34,32 @@ def _cards(n: int, what: str) -> list:
 
 
 def make_production_mesh(*, multi_pod: bool = False,
-                         devices: Optional[Sequence] = None) -> Mesh:
+                         devices: Optional[Sequence] = None,
+                         data: int = 1) -> Mesh:
     """The serving and training mesh of one node: ``("data", "model") =
-    (1, n)`` over its n cards (every CUDA card by default, or ``devices``,
-    which may repeat one), so that tensor and expert parallelism stay
-    inside the node's NVLink domain. The JAX package's (16, 16) and (2, 16,
-    16) name 256 and 512 TPU chips; a mesh across nodes (``multi_pod``) is
-    not ported (ROADMAP.md)."""
-    if multi_pod:
-        raise NotImplementedError("a multi-pod mesh (across nodes) is not "
-                                  "ported (see ROADMAP.md)")
+    (data, n / data)`` over its n cards (every CUDA card by default, or
+    ``devices``, which may repeat one), ``data`` 1 unless asked, so that
+    tensor and expert parallelism stay inside the node's NVLink domain;
+    with ``multi_pod``, ``("pod", "data", "model") = (2, data, n / (2 *
+    data))``. The JAX package's (16, 16) and (2, 16, 16) name 256 and 512
+    TPU chips, its ``pod`` axis an axis of one GSPMD mesh; here ``pod`` is
+    an axis of the single-controller ``Mesh`` over one node's cards, as
+    every other axis is. A mesh across processes is not ported
+    (ROADMAP.md)."""
     if devices is None:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         devices = _cards(max(n, 1), "the production mesh")
-    return Mesh(devices, (1, len(devices)), ("data", "model"))
+    pods = 2 if multi_pod else 1
+    n = len(devices)
+    if n % (pods * data):
+        raise ValueError(f"{n} devices do not split into {pods} pod(s) "
+                         f"of data {data}: a multi-pod mesh needs an even "
+                         f"number of them" if multi_pod else
+                         f"{n} devices do not split over data {data}")
+    if multi_pod:
+        return Mesh(devices, (2, data, n // (2 * data)),
+                    ("pod", "data", "model"))
+    return Mesh(devices, (data, n // data), ("data", "model"))
 
 
 def make_smoke_mesh(data: int = 1, model: int = 1,
@@ -112,10 +126,22 @@ def zero_shard(spec: P, shape: Tuple[int, ...], mesh: Mesh,
     return spec
 
 
+def ef_specs(abs_ef, axes_tree, mesh: Mesh):
+    """Shardings for the error-feedback residuals of the compressed
+    cross-pod step (``TrainState.ef``: [pods, ...] a leaf): the leading
+    dim over ``pod`` (replicated on a mesh without one), the rest as the
+    parameter's spec, so that each shard holds its pod's residual of its
+    parameter block."""
+    lead = "pod" if "pod" in mesh.shape else None
+    return _map(lambda x, ax: NamedSharding(mesh, P(lead, *resolve_spec(
+        ax, shape=tuple(x.shape[1:]), mesh=mesh))), abs_ef, axes_tree)
+
+
 def opt_specs(abs_state, axes_tree, mesh: Mesh, zero: bool = True):
     """Shardings for a ``train.TrainState``: params get their natural
     specs; m, v and master additionally ZeRO-1 sharding over the data
-    axis; the step is replicated."""
+    axis; the step is replicated; residuals, where the state has them, by
+    ``ef_specs``."""
     from repro_torch.train.optimizer import AdamWState, TrainState
     p_specs = param_specs(abs_state.params, axes_tree, mesh)
 
@@ -126,29 +152,28 @@ def opt_specs(abs_state, axes_tree, mesh: Mesh, zero: bool = True):
         return NamedSharding(mesh, spec)
 
     opt = abs_state.opt
+    ef = abs_state.ef
     return TrainState(
         params=p_specs,
         opt=AdamWState(step=NamedSharding(mesh, P()),
                        m=_map(zspec, opt.m, axes_tree),
                        v=_map(zspec, opt.v, axes_tree),
-                       master=_map(zspec, opt.master, axes_tree)))
+                       master=_map(zspec, opt.master, axes_tree)),
+        ef=None if ef is None else ef_specs(ef, axes_tree, mesh))
 
 
 def place_train_state(state, axes_tree, mesh: Mesh, *,
-                      consume: bool = False):
-    """A ``train.TrainState`` (plain tensors on one device) placed on
-    ``mesh`` by ``opt_specs(state, axes_tree, mesh, zero=False)``: every
-    leaf a ``spmd.Sharded`` whose shards each hold a tensor of their own
-    (the step updates them in place), the moments and master laid out as
-    their parameters, the step replicated. With ``consume`` each leaf is
-    dropped from ``state`` as it is placed. The error-feedback residuals
-    of the compressed path are not placed (ROADMAP.md)."""
+                      consume: bool = False, zero: bool = False):
+    """A ``train.TrainState`` (plain tensors on one device, or on a meta
+    device) placed on ``mesh`` by ``opt_specs(state, axes_tree, mesh,
+    zero=zero)``: every leaf a ``spmd.Sharded`` whose shards each hold a
+    tensor of their own (the step updates them in place), the moments and
+    master laid out as their parameters (``zero``: split over ``data``
+    as well), the step replicated, the residuals by ``ef_specs``. With
+    ``consume`` each leaf is dropped from ``state`` as it is placed."""
     from repro_torch.distributed.spmd import place
     from repro_torch.train.optimizer import AdamWState, TrainState
-    if state.ef is not None:
-        raise NotImplementedError("placing compress_pod_grads residuals is "
-                                  "not ported (see ROADMAP.md)")
-    specs = opt_specs(state, axes_tree, mesh, zero=False)
+    specs = opt_specs(state, axes_tree, mesh, zero=zero)
 
     def put(tree, sh):
         return place(tree, sh, consume=consume, share=False)
@@ -158,7 +183,9 @@ def place_train_state(state, axes_tree, mesh: Mesh, *,
                           step=put({"s": opt.step}, {"s": specs.opt.step})["s"],
                           m=put(opt.m, specs.opt.m),
                           v=put(opt.v, specs.opt.v),
-                          master=put(opt.master, specs.opt.master)))
+                          master=put(opt.master, specs.opt.master)),
+                      ef=None if state.ef is None else put(state.ef,
+                                                           specs.ef))
 
 
 def _data_axes(mesh: Mesh) -> Tuple[str, ...]:

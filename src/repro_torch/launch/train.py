@@ -11,8 +11,11 @@ whole state, or with ``--production-mesh`` the state is drawn straight
 onto ``launch.mesh.make_production_mesh`` (every card; two CPU shards with
 ``--device cpu``) and each step trains tensor-parallel over it
 (``train.train_step``), as the JAX driver's jitted step does under
-``use_sharding``, every family alike; a mesh across nodes
-(``--multi-pod``) is not ported (ROADMAP.md).
+``use_sharding``, every family alike. ``--multi-pod`` trains on
+``make_production_mesh(multi_pod=True)``, ``("pod", "data", "model") =
+(2, 1, n / 2)`` over the node's cards (four CPU shards with ``--device
+cpu``), data-parallel over ``pod``, with no compression, as the JAX
+driver sets none.
 Fault tolerance: checkpoints every ``--ckpt-every`` steps (async,
 rotated), automatic resume from the latest committed step (onto the mesh
 by its specs), stateless data pipeline keyed by (seed, step).
@@ -22,6 +25,8 @@ by its specs), stateless data pipeline keyed by (seed, step).
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch whisper-large-v3 --smoke --device cpu --production-mesh \
         --steps 4 --seq-len 32
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \
+        --device cpu --production-mesh --multi-pod --steps 2
 """
 from __future__ import annotations
 
@@ -75,9 +80,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    if args.multi_pod:
-        raise SystemExit("a multi-pod mesh (across nodes) is not ported "
-                         "(see ROADMAP.md)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA card: pass --device cpu to run on the host")
     device = torch.device(args.device)
@@ -86,8 +88,10 @@ def main(argv=None):
     model = build_smoke(cfg) if args.smoke else build_model(cfg)
     mesh = None
     if args.production_mesh:
+        shards = 4 if args.multi_pod else 2
         mesh = make_production_mesh(
-            devices=[device] * 2 if device.type == "cpu" else None)
+            multi_pod=args.multi_pod,
+            devices=[device] * shards if device.type == "cpu" else None)
     with use_sharding(mesh):
         return _train(args, cfg, model, device, mesh)
 

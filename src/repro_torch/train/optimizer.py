@@ -7,10 +7,9 @@ back into the parameters. Every leaf lives where its parameter does: on
 one device, or on a mesh (``launch.mesh.place_train_state``) by its
 parameter's spec, where ``train.train_step`` runs the update on each
 shard's blocks (``adamw_apply``) with the norm of the whole gradient
-(``train_step._placed_norm``). ZeRO-1 (the moments and master split over
-the data axes as well, ``launch.mesh.opt_specs(zero=True)``) is placed by
-the JAX package's dry-run only, not by its drivers; it waits for
-ROADMAP.md item 7.
+(``train_step._placed_norm``); under ZeRO-1 (the moments and master
+split over the data axis as well, ``launch.mesh.opt_specs(zero=True)``)
+on each shard's slice of them.
 
 Trees are nested dicts of tensors. The update runs under ``torch.no_grad``
 and writes the state's tensors in place, as the JAX drivers donate the

@@ -20,7 +20,16 @@ backwards are their exact adjoints (``distributed.spmd``), so each shard
 seeds its backward with 1 / (the shards the loss is replicated over,
 the non-data axes): the gradient of a split leaf's block is then exact
 as it stands, a replicated leaf's is the ``psum`` of the shards' parts,
-and the data axes' shards average theirs (``pmean``).
+and the data axes' shards average theirs (``pmean``). Where the moments
+and master lie split over ``data`` as well (ZeRO-1, ``init_train_state(...,
+zero=True)``), each shard updates its slice of them from its slice of the
+averaged gradient and the new parameter block is all-gathered over
+``data`` from the slices: AdamW is elementwise, so the result is the
+unsplit step's, bit for bit. With ``compress_pod_grads`` on a mesh with a
+``pod`` axis the gradients are averaged inside each pod (over ``model``
+and ``data``) and then over ``pod`` by the int8 error-feedback reduction
+of ``train.compression``, each shard with its pod's residual of its
+block, the quantization blocks the whole leaf's.
 
 Under an active mesh (``models.sharding.use_sharding``) whose data axes
 (``pod``, ``data``) span more than one shard, a state that is not placed
@@ -28,7 +37,8 @@ is trained data-parallel: each shard takes its slice of the batch inside
 ``spmd.shard_map`` with the whole parameters and the gradients and
 metrics are averaged with ``spmd.pmean``. ``compress_pod_grads``
 replaces the reduction over ``pod`` with the int8 error-feedback one of
-``train.compression`` (on that path only).
+``train.compression`` on this path too. As in the JAX step, compression
+applies to a step of one microbatch (``over_decompose`` 1).
 
 Gradients come from ``torch.autograd.grad`` on detached copies of the
 parameter leaves that require grad, so the state's tensors never carry
@@ -209,16 +219,63 @@ def _shard_grads(loss_fn, leaves, paths, batch, od: int, seed: float):
     return acc, metrics
 
 
+def _last_split(spec, ndim: int) -> Tuple[str, ...]:
+    """The mesh axes (major first) that split a leaf's last dim under
+    ``spec``."""
+    if ndim == 0 or len(spec) < ndim or spec[ndim - 1] is None:
+        return ()
+    entry = spec[ndim - 1]
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _zero_split(pspec, zspec, mesh: spmd.Mesh):
+    """Where the optimizer state's spec ``zspec`` (``launch.mesh.
+    zero_shard``) splits a dim its parameter's ``pspec`` leaves whole
+    over mesh axes of more than one shard: (that dim, those axes, major
+    first); None where the two lay out the same blocks."""
+    n = max(len(pspec), len(zspec))
+    pp = tuple(pspec) + (None,) * (n - len(pspec))
+    zz = tuple(zspec) + (None,) * (n - len(zspec))
+    for dim, (a, b) in enumerate(zip(pp, zz)):
+        if a == b:
+            continue
+        if a is not None:
+            raise ValueError(f"an optimizer spec {zspec} does not refine "
+                             f"its parameter's {pspec}")
+        axes = _named_axes((b,))
+        if math.prod(mesh.shape[x] for x in axes) > 1:
+            return dim, axes
+    return None
+
+
+def _zero_slice(g: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    """Inside a body: this shard's ZeRO-1 slice of ``g`` along ``dim``."""
+    index, parts = spmd.axes_index(axes)
+    size = g.shape[dim] // parts
+    return g.narrow(dim, index * size, size)
+
+
+def _zero_gather(t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+    """Inside a body: the shards' ZeRO-1 slices ``t`` joined along
+    ``dim`` (all-gathers over ``axes``, minor first)."""
+    for a in reversed(axes):
+        t = spmd.all_gather(t, a).movedim(0, dim).flatten(dim, dim + 1)
+    return t
+
+
 def _mesh_run(model: Model, state, batch: Dict[str, torch.Tensor], od: int,
-              opt: Optional[AdamWConfig]):
+              opt: Optional[AdamWConfig], compress: bool = False):
     """One ``shard_map`` over the mesh the placed ``state.params`` lie on
     (module docstring). With ``opt`` (a ``TrainState``) the body updates
     the state's blocks in place and returns (state, metrics); without
     (``state`` a tree of placed parameters) it returns (the gradients, a
     tree of ``spmd.Sharded`` laid out as the parameters, and ``{"ce",
-    "aux", "grad_norm"}``). The metrics are tensors on shard 0's
-    device."""
+    "aux", "grad_norm"}``). ``compress``: the gradients are averaged over
+    ``pod`` by ``compression.compressed_pmean`` with the state's
+    residuals, after the reduction inside each pod. The metrics are
+    tensors on shard 0's device."""
     from repro_torch.launch.mesh import batch_specs
+    from repro_torch.train.compression import compressed_pmean
     params = state.params if opt is not None else state
     pflat = tree_flatten(params)
     if not all(isinstance(x, spmd.Sharded) for _, x in pflat):
@@ -228,42 +285,76 @@ def _mesh_run(model: Model, state, batch: Dict[str, torch.Tensor], od: int,
     mesh = pflat[0][1].mesh
     specs = [x.spec for _, x in pflat]
     placed = [x for _, x in pflat]
+    npar = len(paths)
+    zero = [None] * npar
     if opt is not None:
         o = state.opt
-        placed += tree_leaves(o.m) + tree_leaves(o.v) + \
-            tree_leaves(o.master) + [o.step]
-        if any(spmd.shares(x) for x in placed):
-            raise ValueError("a placed state whose shards share a tensor "
-                             "would be updated once a shard: place it "
-                             "with share=False (launch.mesh."
-                             "place_train_state)")
+        ms = tree_leaves(o.m)
+        for part in (o.v, o.master):
+            if [x.spec for x in tree_leaves(part)] != [x.spec for x in ms]:
+                raise ValueError("a placed state's moments and master lie "
+                                 "by different specs")
+        zero = [_zero_split(p, m.spec, mesh) for p, m in zip(specs, ms)]
+        placed += ms + tree_leaves(o.v) + tree_leaves(o.master) + [o.step]
+    if compress:
+        if "pod" not in mesh.shape:
+            raise ValueError("compress_pod_grads needs a mesh with a pod "
+                             "axis (launch.mesh.make_production_mesh("
+                             "multi_pod=True))")
+        if state.ef is None:
+            raise ValueError("compress_pod_grads needs EF residuals: "
+                             "init_train_state(..., ef_pods=mesh.shape"
+                             "['pod'])")
+        ef = tree_leaves(state.ef)
+        if [tuple(x.spec) for x in ef] != [("pod", *s) for s in specs]:
+            raise ValueError("the residuals lie otherwise than "
+                             "launch.mesh.ef_specs places them")
+        placed += ef
+    if opt is not None and any(spmd.shares(x) for x in placed):
+        raise ValueError("a placed state whose shards share a tensor "
+                         "would be updated once a shard: place it "
+                         "with share=False (launch.mesh."
+                         "place_train_state)")
     names = sorted(batch)
     bspec = batch_specs("train", mesh, batch["tokens"].shape[0])["batch"]
     split = split_axes(model.axes(), params)
     data_axes = _batch_axes(mesh)
+    # compressed: the mean inside each pod, then the compressed one over
+    # pod (JAX compresses each pod's reduced gradient)
+    in_pod = tuple(a for a in data_axes if a != "pod") if compress \
+        else data_axes
     # the loss is the same on the shards along every other axis
     seed = 1.0 / math.prod(n for a, n in mesh.shape.items()
                            if a not in _DATA_AXES)
     loss_fn = make_loss_fn(model)
-    npar = len(paths)
+    first_ef = 4 * npar + 1
 
     def body(*args):
         leaves = args[:npar]
         b = dict(zip(names, args[len(placed):]))
         with split_weights(split):
             grads, m = _shard_grads(loss_fn, leaves, paths, b, od, seed)
-            out = []
-            for g, spec in zip(grads, specs):
+            # each leaf's reduced gradient replaces its own, which is
+            # dropped as soon as its float32 copy is made
+            for i, spec in enumerate(specs):
+                g, grads[i] = grads[i], None
                 named = _named_axes(spec)
                 for a, size in mesh.shape.items():
                     if size > 1 and a not in named and a not in _DATA_AXES:
                         g = spmd.psum(g.float(), a)
-                if data_axes:
-                    g = spmd.pmean(g.float(), data_axes)
-                out.append(g)
-            grads = out
-            if data_axes:
-                m = {k: spmd.pmean(v, data_axes) for k, v in m.items()}
+                if in_pod:
+                    g = spmd.pmean(g.float(), in_pod)
+                grads[i] = g
+                del g
+            if in_pod:
+                m = {k: spmd.pmean(v, in_pod) for k, v in m.items()}
+            if compress:
+                res = args[first_ef:first_ef + npar]
+                for i, (g, spec, r) in enumerate(zip(grads, specs, res)):
+                    grads[i], new = compressed_pmean(
+                        g, "pod", r[0], _last_split(spec, g.dim()))
+                    r.copy_(new[None])
+                m = {k: spmd.pmean(v, "pod") for k, v in m.items()}
             gnorm = _placed_norm(grads, specs, mesh)
         metrics = (m["ce"], m["aux"], gnorm)
         if opt is None:
@@ -271,7 +362,21 @@ def _mesh_run(model: Model, state, batch: Dict[str, torch.Tensor], od: int,
         mo, vo, wo = (args[npar * k:npar * (k + 1)] for k in (1, 2, 3))
         step = args[4 * npar]
         new_step = step + 1
-        lr = adamw_apply(opt, new_step, gnorm, grads, mo, vo, wo, leaves)
+        # ZeRO-1: each shard updates its slice; the parameter's block is
+        # gathered back from the slices
+        gs, ps = [], []
+        for g, p, z in zip(grads, leaves, zero):
+            if z is None:
+                gs.append(g)
+                ps.append(p)
+            else:
+                gs.append(_zero_slice(g, *z))
+                ps.append(torch.empty(gs[-1].shape, dtype=p.dtype,
+                                      device=p.device))
+        lr = adamw_apply(opt, new_step, gnorm, gs, mo, vo, wo, ps)
+        for p, t, z in zip(leaves, ps, zero):
+            if z is not None:
+                p.copy_(_zero_gather(t, *z))
         step.copy_(new_step)
         return (*metrics, lr)
 
@@ -363,11 +468,9 @@ def make_train_step(model: Model, tcfg: TrainConfig
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if _is_placed(state.params):
-            if tcfg.compress_pod_grads:
-                raise NotImplementedError(
-                    "compress_pod_grads with a placed state is not ported "
-                    "(see ROADMAP.md): it runs on the data-parallel path")
-            return _mesh_run(model, state, batch, od, tcfg.opt)
+            # as in JAX, compression applies to a step of one microbatch
+            return _mesh_run(model, state, batch, od, tcfg.opt,
+                             compress=tcfg.compress_pod_grads and od == 1)
         new_ef = state.ef
         if tcfg.compress_pod_grads and od == 1:
             grads, metrics, new_ef = compressed_grads(state, batch)
@@ -449,34 +552,49 @@ def runtime_allreduce(group, grad_trees, average: bool = True):
 
 def init_train_state(model: Model, gen: Optional[torch.Generator],
                      device="cuda", ef_pods: int = 0,
-                     mesh: Optional[spmd.Mesh] = None) -> TrainState:
+                     mesh: Optional[spmd.Mesh] = None,
+                     zero: bool = False) -> TrainState:
     """Parameters from ``model.init(gen, device)`` (plain tensors: the
     ``ParamTree``'s leaves detached), the AdamW state, and with
     ``ef_pods`` zero float32 error-feedback residuals [ef_pods, ...] per
     leaf. With ``mesh`` the parameters are drawn straight onto it
     (``Model.init(..., mesh=)``: the same values) and every leaf of the
-    state is placed by its parameter's spec, the step replicated; each
-    shard makes its own moments and master, so that no device ever holds
-    more than its blocks."""
+    state is placed as ``launch.mesh.place_train_state(..., zero=zero)``
+    places it: the moments and master by their parameters' specs, with
+    ``zero`` split over ``data`` as well (ZeRO-1), the residuals by
+    ``ef_specs``, the step replicated. Each shard makes only its own
+    blocks (its slice of the master from its block of the parameter), so
+    that no device ever holds more than them."""
     if mesh is not None:
-        if ef_pods:
-            raise NotImplementedError("compress_pod_grads with a placed "
-                                      "state is not ported (see ROADMAP.md)")
+        from repro_torch.launch.mesh import ef_specs, zero_shard
         # each shard updates its blocks in place: no two share a tensor
         params = tree_map(spmd.unshare, model.init(gen, device, mesh=mesh))
 
+        def zspec(p):
+            return spmd.P(*zero_shard(p.spec, p.shape, mesh)) if zero \
+                else p.spec
+
         def zeros(p):
-            return spmd.map_shards(lambda t: torch.zeros(
-                t.shape, dtype=torch.float32, device=t.device), p)
+            return spmd.zeros(p.shape, torch.float32,
+                              spmd.NamedSharding(mesh, zspec(p)))
+
+        def master(p):
+            return spmd.map_shards(lambda t: t.to(torch.float32, copy=True),
+                                   spmd.reshard(p, zspec(p)))
         step = spmd.place({"s": torch.zeros((), dtype=torch.int32,
                                             device=device)},
                           {"s": spmd.NamedSharding(mesh, spmd.P())},
                           share=False)["s"]
+        ef = None
+        if ef_pods:
+            abs_ef = tree_map(lambda p: torch.empty(
+                (ef_pods,) + tuple(p.shape), device="meta"), params)
+            ef = tree_map(lambda x, sh: spmd.zeros(x.shape, torch.float32,
+                                                   sh),
+                          abs_ef, ef_specs(abs_ef, model.axes(), mesh))
         return TrainState(params=params, opt=AdamWState(
-            step=step, m=tree_map(zeros, params),
-            v=tree_map(zeros, params),
-            master=tree_map(lambda p: spmd.map_shards(
-                lambda t: t.to(torch.float32, copy=True), p), params)))
+            step=step, m=tree_map(zeros, params), v=tree_map(zeros, params),
+            master=tree_map(master, params)), ef=ef)
     params = tree_map(lambda p: p.detach(), model.init(gen, device).tree())
     ef = None
     if ef_pods:
@@ -486,8 +604,9 @@ def init_train_state(model: Model, gen: Optional[torch.Generator],
     return TrainState(params=params, opt=init_opt_state(params), ef=ef)
 
 
-def abstract_train_state(model: Model) -> TrainState:
+def abstract_train_state(model: Model, ef_pods: int = 0) -> TrainState:
     """The ``TrainState`` of ``model`` on the ``meta`` device: every leaf's
-    shape and dtype, no storage. ``Checkpointer.restore`` takes it as the
-    structure and dtypes to restore into (with ``device=`` for where)."""
-    return init_train_state(model, None, "meta")
+    shape and dtype, no storage (with ``ef_pods``, the residuals too).
+    ``Checkpointer.restore`` takes it as the structure and dtypes to
+    restore into (with ``device=`` for where)."""
+    return init_train_state(model, None, "meta", ef_pods=ef_pods)

@@ -54,6 +54,7 @@ from repro_torch.models.layers import layer_norm as tlayer_norm
 from repro_torch.models.sharding import use_sharding
 from repro_torch.serve import serve_step as TSS
 from repro_torch.train import abstract_train_state
+from repro_torch.train.compression import payload_bytes
 
 META = torch.device("meta")
 CELLS = [(arch, shape.name) for arch, shape in tbase.all_cells()]
@@ -252,29 +253,26 @@ def test_dryrun_machinery_smoke():
     json.dumps(r)
 
 
-def test_multi_pod_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        dryrun.lower_cell("yi_9b", "decode_32k", multi_pod=True)
-
-
 # the smoke cell each variant changes and its shards (yi-9b's smoke kv
-# heads, 2, do not divide 4: its decode can split the slots)
+# heads, 2, do not divide 4: its decode can split the slots;
+# compress_pod on the multi-pod mesh (2, 1, 2))
 VARIANT_CELLS = {"od2": ("yi_9b", "train_4k", 1),
                  "od4": ("yi_9b", "train_4k", 1),
                  "od8": ("yi_9b", "train_4k", 1),
                  "dots": ("yi_9b", "train_4k", 1),
                  "loss_chunk512": ("yi_9b", "train_4k", 1),
                  "kvseq_model": ("yi_9b", "decode_32k", 4),
-                 "ssd_chunk128": ("mamba2_370m", "prefill_32k", 1)}
+                 "ssd_chunk128": ("mamba2_370m", "prefill_32k", 1),
+                 "compress_pod": ("yi_9b", "train_4k", 4, True)}
 
 
-def _variant_counts(arch, shape, chips, variant):
+def _variant_counts(arch, shape, chips, multi_pod=False, *, variant):
     """One step's counts at batch 8, one attention block (fewer ops to
     count; the variants change neither)."""
     kw = dict(dryrun.VARIANTS[variant])
     kw["extra_flags"] = {"flash_block": 4096, **kw.get("extra_flags", {})}
     cell = dryrun.build_cell(arch, shape, chips=chips, probe=1, smoke=True,
-                             batch=8, **kw)
+                             batch=8, multi_pod=multi_pod, **kw)
     return dryrun.count_step(cell)[0].summary()
 
 
@@ -284,8 +282,100 @@ def test_each_variant_changes_the_step(variant):
     does: its counts differ from the baseline's."""
     assert set(VARIANT_CELLS) == set(dryrun.VARIANTS) - {"baseline"}
     cell = VARIANT_CELLS[variant]
-    assert _variant_counts(*cell, variant) != \
-        _variant_counts(*cell, "baseline")
+    assert _variant_counts(*cell, variant=variant) != \
+        _variant_counts(*cell, variant="baseline")
+
+
+def test_multi_pod_compress_pod_lowers_yi_train_on_meta():
+    """``--multi-pod --data 2 --variant compress_pod``: yi-9b's
+    ``train_4k`` at full width, probe 1 (batch 8, one attention block)
+    lowers on (2, 2, 2) meta shards with residuals placed; the all-gather
+    bytes exceed the uncompressed step's (the same mesh and rules) by the
+    int8 payload and its scales exactly; the tag names the mesh."""
+    kw = dict(multi_pod=True, data=2, probe=1, batch=8,
+              extra_flags={"flash_block": 4096})
+    cell = dryrun.build_cell("yi_9b", "train_4k",
+                             **dryrun.VARIANTS["compress_pod"], **kw)
+    plain = dryrun.build_cell("yi_9b", "train_4k",
+                              extra_rules={"vocab": None}, **kw)
+    assert cell.mesh.shape == {"pod": 2, "data": 2, "model": 2}
+    state = cell.args["state"]
+    assert plain.args["state"].ef is None
+    assert all(tuple(r.spec)[0] == "pod" for r in _tree_leaves(state.ef))
+    assert not any(state.params["embed"].spec)         # vocab replicated
+    got = dryrun.result_of(cell, *dryrun.count_step(cell), 0.0, "baseline")
+    want = dryrun.result_of(plain, *dryrun.count_step(plain), 0.0,
+                            "baseline")
+    assert got["mesh"] == {"pod": 2, "data": 2, "model": 2}
+    assert got["collective_bytes_per_device"]["all-gather"] - \
+        want["collective_bytes_per_device"]["all-gather"] == \
+        sum(payload_bytes(state.params))
+    assert got["argument_size_in_bytes"] - want["argument_size_in_bytes"] \
+        == 4 * sum(int(np.prod(p.shards[0].shape))
+                   for p in _tree_leaves(state.params))
+    assert dryrun.result_path("r", "yi_9b", "train_4k", 8, "baseline",
+                              multi_pod=True, data=2) == \
+        "r/yi_9b__train_4k__pod2dp2tp8__baseline.json"
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["2x4", "2x2x2"])
+def test_data_axis_places_zero1_as_jaxs_opt_specs(multi_pod):
+    """``--data 2`` over 8 meta shards, (2, 4) and with ``--multi-pod``
+    (2, 2, 2): every parameter, moment and master leaf of yi-9b's train
+    cell lies by JAX's ``opt_specs(zero=True)`` on an abstract JAX mesh
+    of that shape (leaf for leaf through ``convert``'s layout mapping)."""
+    from jax.sharding import AbstractMesh
+    from repro.launch.mesh import opt_specs as jopt_specs
+    from repro.train import abstract_train_state as jabstract_train_state
+    shape, names = ((2, 2, 2), ("pod", "data", "model")) if multi_pod \
+        else ((2, 4), ("data", "model"))
+    jm = jbuild_model(jget_config("yi_9b"))
+    _, axes = unbox(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0))))
+    jspecs = jopt_specs(jabstract_train_state(jm), axes,
+                        AbstractMesh(shape, names), zero=True)
+    cell = dryrun.build_cell("yi_9b", "train_4k", multi_pod=multi_pod,
+                             data=2, probe=None)
+    assert cell.mesh.shape == dict(zip(names, shape))
+    state = cell.args["state"]
+    split = 0
+    for part in ("params", "m", "v", "master"):
+        tree = state.params if part == "params" else getattr(state.opt, part)
+        jtree = jspecs.params if part == "params" else \
+            getattr(jspecs.opt, part)
+        want = lm_tree_from_jax(jax.tree.map(
+            lambda ns: tuple(ns.spec), jtree,
+            is_leaf=lambda x: hasattr(x, "spec")))
+        got = _map(tree, lambda x: tuple(x.spec))
+        assert got == want, part
+        split += sum("data" in str(s) for s in _tree_leaves(got))
+    assert split > 0
+
+
+def test_default_tag_and_result_keys_are_unchanged():
+    """Without ``--data`` and ``--multi-pod`` a cell lowers on (1, chips)
+    under its former tag, with the former result keys."""
+    assert dryrun.result_path("r", "yi_9b", "decode_32k", 8, "opt") == \
+        "r/yi_9b__decode_32k__tp8__opt.json"
+    assert dryrun.result_path("r", "a", "s", 4, "baseline", probe=1,
+                              data=1) == "r/a__s__tp4__baseline__probe1.json"
+    r = dryrun.lower_cell("yi_9b", "decode_32k", chips=2, smoke=True,
+                          probe=1)
+    assert r["mesh"] == {"data": 1, "model": 2}
+    assert sorted(r) == sorted(RESULT_KEYS)
+
+
+# the keys of a default cell's result, which the multi-pod options leave
+# as they were
+RESULT_KEYS = (
+    "arch", "shape", "mesh", "chips", "opt_level", "over_decompose",
+    "seq_shard_kv", "probe", "n_layers", "period", "setup_s", "run_s",
+    "card", "constants", "flops_per_device", "bytes_per_device",
+    "flops_per_device_max", "bytes_per_device_max",
+    "argument_size_in_bytes", "output_size_in_bytes", "alias_size_in_bytes",
+    "temp_size_in_bytes", "collective_bytes_per_device",
+    "collective_total_bytes", "ops_dispatched", "ops", "kernels",
+    "t_compute", "t_memory", "t_collective", "bottleneck",
+    "step_time_bound_s", "model_flops_per_device", "model_vs_hlo_flops")
 
 
 @pytest.mark.parametrize("n", [2, 4])

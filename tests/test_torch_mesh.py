@@ -215,8 +215,13 @@ def test_resolve_spec_and_zero_shard_at_production_shapes(standin, arch):
 def test_production_mesh_keeps_jaxs_axis_names():
     mesh = TLM.make_production_mesh(devices=[CPU] * 4)
     assert mesh.shape == {"data": 1, "model": 4}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM.make_production_mesh(multi_pod=True)
+    mesh = TLM.make_production_mesh(multi_pod=True, devices=[CPU] * 4)
+    assert mesh.shape == {"pod": 2, "data": 1, "model": 2}
+    mesh = TLM.make_production_mesh(multi_pod=True, devices=[CPU] * 8,
+                                    data=2)
+    assert mesh.shape == {"pod": 2, "data": 2, "model": 2}
+    with pytest.raises(ValueError, match="even"):
+        TLM.make_production_mesh(multi_pod=True, devices=[CPU] * 3)
 
 
 # ---------------------------------------------------------------------------

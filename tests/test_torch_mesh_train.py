@@ -110,6 +110,10 @@ def _full(tree):
     return [(k, _value(v)) for k, v in tree_flatten(tree)]
 
 
+def _leaves(tree):
+    return [x for _, x in tree_flatten(tree)]
+
+
 def _states(model, mesh):
     """The one-device state and the same state drawn onto ``mesh``."""
     one = init_train_state(model, torch.Generator().manual_seed(0), CPU)
@@ -511,7 +515,10 @@ def test_placed_state_checkpoint_restores_on_any_mesh(tmp_path):
     leaf by ``opt_specs(zero=False)``, each shard a tensor of its own)
     and on one device, every leaf bit for bit; the moments and master
     lie as their parameters, and a step from the restored (1, 4) state
-    equals one from the (1, 2) state."""
+    equals one from the (1, 2) state. A ZeRO-1 state with residuals
+    trained a compressed step on (2, 2, 2) restores onto (1, 2) and onto
+    (2, 2, 2) bit for bit, and steps on from the latter as it would
+    have."""
     cfg = tconfigs.get_smoke_config("llama4_scout_17b_a16e")
     model = tbuild_smoke(cfg)
     _, placed = _states(model, _tmesh(1, 2))
@@ -538,6 +545,31 @@ def test_placed_state_checkpoint_restores_on_any_mesh(tmp_path):
     assert abs(float(m4["loss"]) - float(m2["loss"])) <= \
         LOSS_TOL * float(m2["loss"])
     _assert_states_close(on4, placed)
+    # a ZeRO-1 state with residuals, stepped compressed on (2, 2, 2),
+    # restores onto (1, 2) (no pod axis: the residuals' leading dim
+    # replicated) and back onto (2, 2, 2), every leaf bit for bit
+    mesh8 = spmd.Mesh([CPU] * 8, (2, 2, 2), ("pod", "data", "model"))
+    zstate = init_train_state(model, torch.Generator().manual_seed(0), CPU,
+                              mesh=mesh8, zero=True, ef_pods=2)
+    zstep = make_train_step(model, TrainConfig(opt=OPT,
+                                               compress_pod_grads=True))
+    zstate, _ = zstep(zstate, _batch(cfg))
+    ck.save(2, zstate, block=True)
+    abstract = abstract_train_state(model, ef_pods=2)
+    for mesh, zero in ((_tmesh(1, 2), False), (mesh8, True)):
+        got = ck.restore(2, abstract, shardings=TLM.opt_specs(
+            abstract, model.axes(), mesh, zero=zero))
+        for part in ("params", "m", "v", "master", "ef"):
+            g = got.params if part == "params" else (
+                got.ef if part == "ef" else getattr(got.opt, part))
+            w = zstate.params if part == "params" else (
+                zstate.ef if part == "ef" else getattr(zstate.opt, part))
+            for (k, a), (_, b) in zip(_full(g), _full(w), strict=True):
+                assert torch.equal(a, b), (part, k)
+        assert all(x.mesh is mesh for x in _leaves(got.ef))
+    again, _ = zstep(got, _batch(cfg, seed=1))
+    zstate, _ = zstep(zstate, _batch(cfg, seed=1))
+    _assert_states_close(again, zstate)
 
 
 def test_each_shard_holds_its_share_of_the_state():
@@ -609,10 +641,30 @@ def test_train_main_on_a_production_mesh_of_cpu_shards(capsys, tmp_path):
 
 
 def test_what_does_not_train_on_a_mesh_says_so():
-    """A multi-pod mesh raises with a pointer to ``ROADMAP.md``."""
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        ttrain.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
-                     "--production-mesh", "--multi-pod", "--steps", "1"])
+    """A multi-pod mesh over an odd number of cards, and the compressed
+    cross-pod step on a placed state over a mesh without a ``pod`` axis,
+    raise with what they need."""
+    with pytest.raises(ValueError, match="even"):
+        TLM.make_production_mesh(multi_pod=True, devices=[CPU] * 3)
+    model = tbuild_smoke(tconfigs.get_smoke_config("yi_9b"))
+    _, placed = _states(model, _tmesh(1, 2))
+    with pytest.raises(ValueError, match="pod axis"):
+        make_train_step(model, TrainConfig(opt=OPT, compress_pod_grads=True))(
+            placed, _batch(model.cfg))
+
+
+def test_train_main_on_a_multi_pod_mesh_of_cpu_shards(capsys):
+    """``launch.train --production-mesh --multi-pod --device cpu`` trains
+    over ``("pod", "data", "model") = (2, 1, 2)`` CPU shards, data-parallel
+    over ``pod``, uncompressed as the JAX driver: finite losses."""
+    state = ttrain.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
+                         "--production-mesh", "--multi-pod", "--seq-len",
+                         "32", "--log-every", "1", "--steps", "2"])
+    out = capsys.readouterr().out
+    assert "step     2 loss=" in out and "nan" not in out
+    assert state.params["embed"].mesh.shape == {"pod": 2, "data": 1,
+                                                "model": 2}
+    assert state.ef is None
 
 
 def test_a_state_whose_shards_share_tensors_is_refused():

@@ -147,13 +147,15 @@ def test_train_driver_runs_and_resumes(tmp_path, capsys):
 
 
 def test_train_driver_refuses_what_it_does_not_run():
-    """A mesh across nodes raises with a pointer to ``ROADMAP.md``. RG-LRU
-    and the encoder-decoder, which it refused on the production mesh
-    until they trained tensor-parallel, now take a step there, their
-    state placed."""
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    """A batch that does not split into the asked microbatches raises.
+    (The multi-pod mesh, refused until it was ported, trains:
+    ``test_torch_mesh_train.py``.) RG-LRU and the encoder-decoder, which
+    it refused on the production mesh until they trained tensor-parallel,
+    now take a step there, their state placed."""
+    with pytest.raises(ValueError, match="microbatches"):
         ltrain.main(["--arch", "yi-9b", "--smoke", "--device", "cpu",
-                     "--production-mesh", "--multi-pod"])
+                     "--production-mesh", "--multi-pod", "--steps", "1",
+                     "--seq-len", "32", "--over-decompose", "3"])
     for arch in ("recurrentgemma-9b", "whisper-large-v3"):
         state = ltrain.main(["--arch", arch, "--smoke", "--device", "cpu",
                              "--production-mesh", "--steps", "1",

@@ -376,6 +376,27 @@ MULTIPOD_RES_BLOCK_TOL, MULTIPOD_OFF_SHARE, MULTIPOD_RES_WORST = \
 MULTIPOD_PARAM_RTOL, MULTIPOD_MOMENT_RTOL, MULTIPOD_RES_RTOL = \
     7e-3, 3e-3, 0.4
 MULTIPOD_WATCHDOG_S = 600
+# phase 25: sequence parallelism (the rule act_seq -> model, written out in
+# the Megatron form: each shard holds its slice of the sequence between the
+# layers, gathers it before a column-parallel product, reduce-scatters
+# after a row-parallel one) on a (1, SP_SHARDS) production mesh of shards
+# of the card: yi-9b at full width cut to SP_LAYERS layers, bf16 weights
+# from SEED, DEFAULT_FLAGS (the flash kernel in prefill). A prefill of
+# SP_BATCH x SP_SEQ tokens without and with the rule: each one's last
+# logits within MESH_LOGITS_TOL (relative L2) of one card's prefill on the
+# same weights, the two within SP_AGREE_RTOL of each other (bf16: the
+# reduce-scatter sums the same float32 partials as the psum, but the
+# products run on S / 4 rows where they ran on S), SP_LAYERS x SP_SHARDS
+# flash launches either way, reduce-scatter bytes with the rule and no
+# all-reduce of a [B, S, D] activation. One train step's gradients on
+# SyntheticLM's batch without and with the rule: the first loss within
+# SP_LOSS_RTOL, each leaf's cosine at least TRAIN_COS_MIN and its norm
+# within MESH_TRAIN_NORM_RTOL, as phase 20's; then SP_TRAIN_STEPS timed
+# steps each way (the first of them a warm-up). Under a watchdog.
+SP_SHARDS, SP_LAYERS, SP_BATCH, SP_SEQ = 4, 4, 4, 2048
+SP_AGREE_RTOL, SP_LOSS_RTOL = 1e-2, 1e-4
+SP_TRAIN_STEPS = 3
+SP_WATCHDOG_S = 300
 # phase 23: the dry-run (launch.dryrun) against the card. Each cell at full
 # width and its own sequence, depth cut by ``probe`` (periods): (label,
 # arch, shape, shards of the card, probe, over_decompose, batch (None: the
@@ -389,20 +410,28 @@ MULTIPOD_WATCHDOG_S = 600
 # decode with the cache's slots split over the model axis of (1, 8) shards
 # (yi-9b's 4 kv heads do not divide 8). The counts on meta must equal the
 # card's exactly, and each cell of DRYRUN_KERNELS must launch its kernel;
-# for the one-shard cells of DRYRUN_PEAK_CHECKED the predicted peak
-# (arguments + temporaries) must lie within DRYRUN_PEAK_TOL of the card's
-# max_memory_allocated over the step, and the predicted temporaries within
-# DRYRUN_TEMP_TOL of that peak less the card's arguments (2%: the
-# readings on an H100 were -0.65% for (a) and -0.09% for (b)); (c)'s and
-# (f)'s shards share the card and take turns, so their temporaries overlap
-# in ways a shard's peak does not predict: printed only. The step's time
-# must not beat its roofline bound at the card's row of
-# launch.roofline.PEAKS. (g) is yi-9b's train_4k over (pod, data, model) =
+# for the cells of DRYRUN_PEAK_CHECKED the predicted peak (every shard's
+# arguments + the counter's peak of every shard's live bytes together,
+# ``opcount.Counter.peak_all``: on one shard its own) must lie within
+# DRYRUN_PEAK_TOL of the card's max_memory_allocated over the step, and
+# the predicted temporaries within DRYRUN_TEMP_TOL of that peak less the
+# shards' arguments on the card (2%: the readings on an H100 were -0.65%
+# for (a) and -0.09% for (b)), and the step's time must not beat its
+# roofline bound at the card's row of launch.roofline.PEAKS. (c)'s and
+# (f)'s shards share the card and their temporaries overlap in ways the
+# counter does not follow: printed only. (g) is yi-9b's train_4k over (pod, data, model) =
 # (2, 1, 1) shards of the card with the compress_pod variant (the int8
 # error-feedback reduction over pod, the vocabulary replicated), od 1 (JAX
 # compresses a step of one microbatch only) and a batch of 4 for the
 # shape's 256 (each pod's shard holds a whole 1-layer state and its
 # residuals, 12.6 GB, and the two shards' temporaries add up on one card).
+# (h) and (i) are the opt level's prefills, sequence-parallel over (1, 4)
+# shards of the card (the rule act_seq -> model): yi-9b's through flash at
+# batch 8, mamba2-370m's through ssd_chunk at batch 4 (each shard runs the
+# replicated SSD layer whole: a shard's temporaries are about (d)'s at an
+# eighth of its batch). Their shards share the card and take turns in the
+# same order on meta and on the card, so the counter's peak of all shards'
+# bytes together predicts the card's.
 DRYRUN_CELLS = (("a", "yi_9b", "decode_32k", 1, 4, 1, None, "baseline",
                  "baseline"),
                 ("b", "yi_9b", "train_4k", 1, 1, 32, None, "baseline",
@@ -416,11 +445,16 @@ DRYRUN_CELLS = (("a", "yi_9b", "decode_32k", 1, 4, 1, None, "baseline",
                 ("f", "yi_9b", "decode_32k", 8, 1, 1, None, "opt",
                  "baseline"),
                 ("g", "yi_9b", "train_4k", 2, 1, 1, 4, "baseline",
-                 "compress_pod"))
+                 "compress_pod"),
+                ("h", "yi_9b", "prefill_32k", 4, 1, 1, 8, "opt",
+                 "baseline"),
+                ("i", "mamba2_370m", "prefill_32k", 4, 1, 1, 4, "opt",
+                 "baseline"))
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_TEMP_TOL = 0.02
-DRYRUN_PEAK_CHECKED = ("a", "b", "d", "e")
-DRYRUN_KERNELS = {"d": "ssd_chunk", "e": "flash_attention"}
+DRYRUN_PEAK_CHECKED = ("a", "b", "d", "e", "h", "i")
+DRYRUN_KERNELS = {"d": "ssd_chunk", "e": "flash_attention",
+                  "h": "flash_attention", "i": "ssd_chunk"}
 # the EP check after each: one full-width MoE layer's moe_ep over a (1, 4)
 # mesh of shards sharing the card, on x [4, 2048, D] (seq-sharded, 512
 # positions a shard), at capacity factors E/k (no drops), 1.25 (the
@@ -4084,6 +4118,214 @@ def multipod_checks(r: dict) -> None:
 
 # -- phase 23: the dry-run against the card ----------------------------------
 
+# -- phase 25: sequence parallelism on a mesh of the card's shards ----------
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def seqpar_phase(ops, card: str) -> dict:
+    """Phase 25: ``seqpar_run``, its line printed, then
+    ``seqpar_checks``."""
+    r = seqpar_run(ops, card)
+    seqpar_checks(r)
+    return r
+
+
+def seqpar_run(ops, card: str) -> dict:
+    """Phase 25's run (the constants' comment): yi-9b at full width,
+    ``SP_LAYERS`` layers, bf16, served and trained over ``SP_SHARDS``
+    shards of the card without and with ``{"act_seq": "model"}``. Each
+    prefill is counted (``opcount``: each shard's collective bytes and
+    its peak of the bytes the step allocates) and then timed; each way's
+    train steps are timed with their rendezvous and the card's peak.
+    Printed as one line."""
+    from repro_torch import opcount
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.sharding import use_sharding
+    from repro_torch.serve.serve_step import (init_mesh_cache,
+                                              make_prefill_step)
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_mesh_grad_fn, make_train_step)
+    from repro_torch.train.optimizer import tree_flatten
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = allocated_without_workspaces()
+    check(mem0 < MEMORY_BEFORE_SERVE, f"phase 25: {mem0} B still allocated "
+          f"on the card before the weights load")
+    model = train_model(SP_LAYERS)
+    cfg = model.cfg
+    batch = train_batch(cfg, 0, dev, SP_BATCH, SP_SEQ)
+    tokens = batch["tokens"]
+    ways = (("without", None), ("with", {"act_seq": "model"}))
+    r = {"arch": cfg.name, "layers": cfg.n_layers, "batch": SP_BATCH,
+         "seq": SP_SEQ, "shards": SP_SHARDS, "dtype": "bfloat16",
+         "activation_gb": SP_BATCH * SP_SEQ * cfg.d_model * 2 / 1e9}
+
+    # -- one card's prefill logits on the same weights --
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    cache = model.init_cache(SP_BATCH, SP_SEQ, dev)
+    _, _, one = make_prefill_step(model, logits=True)(
+        params, {"tokens": tokens}, cache)
+    one = one.float()
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the prefill on the mesh, both ways --
+    mesh = make_production_mesh(devices=[dev] * SP_SHARDS)
+    placed = model.init(torch.Generator(device=dev).manual_seed(SEED), dev,
+                        mesh=mesh)
+    prefill = make_prefill_step(model, mesh, logits=True)
+    logits = {}
+    for name, rules in ways:
+        out = r.setdefault("prefill", {}).setdefault(name, {})
+        cache = init_mesh_cache(model, SP_BATCH, SP_SEQ, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        counter = opcount.Counter()
+        with use_sharding(mesh, rules), opcount.counting(counter), \
+                counted_rendezvous() as count:
+            _, cache, last = prefill(placed, {"tokens": tokens}, cache)
+            torch.cuda.synchronize()
+        out["launches"] = dict(ops.LAUNCHES)
+        out["rendezvous"] = count[0]
+        out["collective_bytes"] = [counter.shards[i].collectives
+                                   for i in range(SP_SHARDS)]
+        out["shard_peak_gb"] = [counter.peak_with_caller.get(i, 0) / 1e9
+                                for i in range(SP_SHARDS)]
+        out["card_peak_gb"] = (torch.cuda.max_memory_allocated()
+                               - base) / 1e9
+        logits[name] = last.full(dev).float()
+        out["finite"] = bool(torch.isfinite(logits[name]).all())
+        out["rel_l2_vs_one_card"] = _rel_l2(logits[name], one)
+        del counter
+        with use_sharding(mesh, rules):
+            ms = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill(placed, {"tokens": tokens}, cache)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out["prefill_ms"] = ms[-1]
+        del cache, last
+    r["prefill_rel_l2_with_vs_without"] = _rel_l2(logits["with"],
+                                                  logits["without"])
+    del placed, prefill, logits, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- training: the first step's gradients both ways, then timed steps --
+    state = init_train_state(model, torch.Generator(device=dev)
+                             .manual_seed(SEED), dev, mesh=mesh)
+    grads = {}
+    for name, rules in ways:
+        with use_sharding(mesh, rules):
+            g, m = make_mesh_grad_fn(model)(state.params, batch)
+        r.setdefault("train", {})[name] = {
+            "loss": float(m["ce"] + m["aux"]),
+            "grad_norm": float(m["grad_norm"])}
+        grads[name] = g
+    cos, ratio = {}, {}
+    for (k, a), (_, b) in zip(tree_flatten(grads["without"]),
+                              tree_flatten(grads["with"]), strict=True):
+        a, b = a.full(dev).float().flatten(), b.full(dev).float().flatten()
+        na, nb = a.norm(), b.norm()
+        cos["/".join(k)] = float(torch.dot(a, b) / (na * nb)
+                                 .clamp_min(1e-30))
+        ratio["/".join(k)] = float(nb / na.clamp_min(1e-30))
+        del a, b
+    r["min_cosine"] = min(cos.values())
+    r["max_norm_ratio_err"] = max(abs(x - 1) for x in ratio.values())
+    r["worst_leaves"] = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    del grads, g, m
+    gc.collect()
+    step = make_train_step(model, TrainConfig(opt=train_opt()))
+    for name, rules in ways:
+        out = r["train"][name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        ms, rdv, losses = [], [], []
+        with use_sharding(mesh, rules):
+            for _ in range(SP_TRAIN_STEPS):
+                with counted_rendezvous() as count:
+                    t0 = time.perf_counter()
+                    state, met = step(state, batch)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                rdv.append(count[0])
+                losses.append(float(met["loss"]))
+        out.update(step_ms=ms, ms_per_step=float(np.median(ms[1:])),
+                   rendezvous_per_step=rdv, losses=losses,
+                   launches=dict(ops.LAUNCHES),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del state, step, batch, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem1 = allocated_without_workspaces()
+    r.update(allocated_at_start_mb=mem0 / 2**20,
+             allocated_at_end_mb=mem1 / 2**20,
+             phase_s=time.perf_counter() - t_phase)
+    print(f"sequence parallelism on a (1, {SP_SHARDS}) mesh, phase 25 "
+          f"({card}): " + json.dumps(r))
+    return r
+
+
+def seqpar_checks(r: dict) -> None:
+    """Phase 25's checks (the constants' comment) on ``seqpar_run``'s
+    result."""
+    pre = r["prefill"]
+    act_bytes = r["activation_gb"] * 1e9
+    for name, out in pre.items():
+        check(out["finite"], f"phase 25: non-finite logits {name} the rule")
+        check(out["rel_l2_vs_one_card"] <= MESH_LOGITS_TOL,
+              f"phase 25: the prefill {name} the rule is "
+              f"{out['rel_l2_vs_one_card']} (relative L2) from one card's")
+        want = SP_LAYERS * SP_SHARDS
+        check(out["launches"]["flash_attention"] == want,
+              f"phase 25: the prefill {name} the rule launched flash "
+              f"{out['launches']} times, not {want}")
+    check(r["prefill_rel_l2_with_vs_without"] <= SP_AGREE_RTOL,
+          f"phase 25: the prefill with the rule is "
+          f"{r['prefill_rel_l2_with_vs_without']} (relative L2) from the "
+          f"one without")
+    for i, c in enumerate(pre["with"]["collective_bytes"]):
+        check(c["reduce-scatter"] > 0, f"phase 25: shard {i} reduce-"
+              f"scattered nothing with the rule: {c}")
+        check(c["all-reduce"] < act_bytes, f"phase 25: shard {i} "
+              f"all-reduced {c['all-reduce']} B with the rule, an "
+              f"activation is {act_bytes} B")
+    tr = r["train"]
+    check(abs(tr["with"]["loss"] - tr["without"]["loss"])
+          <= SP_LOSS_RTOL * tr["without"]["loss"],
+          f"phase 25: the first loss with the rule {tr['with']['loss']}, "
+          f"without {tr['without']['loss']}")
+    check(r["min_cosine"] >= TRAIN_COS_MIN, f"phase 25: a gradient leaf's "
+          f"cosine with and without the rule is {r['min_cosine']}: "
+          f"{r['worst_leaves']}")
+    check(r["max_norm_ratio_err"] <= MESH_TRAIN_NORM_RTOL,
+          f"phase 25: a gradient leaf's norm with the rule is "
+          f"{r['max_norm_ratio_err']} from the one without")
+    for name, out in tr.items():
+        check(all(math.isfinite(x) for x in out["losses"]),
+              f"phase 25: non-finite losses {name} the rule {out['losses']}")
+        check(not any(out["launches"].values()), f"phase 25: the train "
+              f"steps {name} the rule launched kernels {out['launches']}")
+    check(abs(r["allocated_at_end_mb"] - r["allocated_at_start_mb"])
+          * 2**20 <= MEMORY_SLACK, f"phase 25: "
+          f"{r['allocated_at_end_mb']} MiB allocated after, "
+          f"{r['allocated_at_start_mb']} MiB before")
+
+
 def dryrun_meta(out_path: str) -> None:
     """The meta half of phase 23, run in a process of its own that sees no
     card (``start_dryrun_meta``): each cell of DRYRUN_CELLS lowered on
@@ -4102,12 +4344,21 @@ def dryrun_meta(out_path: str) -> None:
         counter, secs = D.count_step(cell)
         res = D.result_of(cell, counter, secs, 0.0, level)
         out[label] = {"counts": counter.summary(), "meta_s": secs,
+                      "peak_all": counter.peak_all,
+                      "arguments_all": all_shard_bytes(cell),
                       "result": {k: v for k, v in res.items()
                                  if k not in ("ops", "kernels")}}
         del cell, counter
         gc.collect()
     with open(out_path, "w") as f:
         json.dump(out, f)
+
+
+def all_shard_bytes(cell) -> int:
+    """Every shard's bytes of a dry-run cell's arguments."""
+    from repro_torch.launch import dryrun as D
+    return sum(D.shard_bytes(list(cell.args.values()), i)
+               for i in range(cell.mesh.size))
 
 
 def start_dryrun_meta():
@@ -4197,10 +4448,12 @@ def dryrun_phase(card: str, meta: dict) -> dict:
              "argument_size_in_bytes": pred["argument_size_in_bytes"],
              "card_argument_bytes": args0, "card_placed_bytes": placed,
              "temp_size_in_bytes": pred["temp_size_in_bytes"],
-             "predicted_peak_bytes": pred["argument_size_in_bytes"]
-             + pred["temp_size_in_bytes"],
              "card_peak_bytes": peak, "meta_s": meta[label]["meta_s"],
-             "counted_card_s": counted_s}
+             "counted_card_s": counted_s,
+             "peak_all": meta[label]["peak_all"],
+             "card_peak_all": counter.peak_all,
+             "arguments_all": meta[label]["arguments_all"],
+             "card_arguments_all": all_shard_bytes(cell)}
         if not r["counts_equal"]:
             r["count_diff"] = count_diff(want, got)
         del counter
@@ -4216,10 +4469,14 @@ def dryrun_phase(card: str, meta: dict) -> dict:
         r["bound_s"] = max(terms.values())
         r["bottleneck"] = max(terms, key=terms.get)
         r["time_over_bound"] = r["step_s"] / r["bound_s"]
-        r["peak_rel_err"] = (r["predicted_peak_bytes"] - peak) / peak
-        card_temp = peak - args0
-        r["card_temp_bytes"] = card_temp
-        r["temp_rel_err"] = (r["temp_size_in_bytes"] - card_temp) / card_temp
+        # every shard's bytes together: the shards share the card
+        r["predicted_card_peak_bytes"] = r["arguments_all"] + r["peak_all"]
+        r["card_peak_all_rel_err"] = \
+            (r["predicted_card_peak_bytes"] - peak) / peak
+        card_temp_all = peak - r["card_arguments_all"]
+        r["card_temp_all_bytes"] = card_temp_all
+        r["temp_all_rel_err"] = (r["peak_all"] - card_temp_all) \
+            / card_temp_all
         del cell
         gc.collect()
         torch.cuda.empty_cache()
@@ -4238,16 +4495,20 @@ def dryrun_phase(card: str, meta: dict) -> dict:
             check(r["kernels"].get(DRYRUN_KERNELS[label], 0) > 0,
                   f"phase 23 ({label}): {DRYRUN_KERNELS[label]} was not "
                   f"launched: {r['kernels']}")
+        check(r["arguments_all"] == r["card_arguments_all"],
+              f"phase 23 ({label}): the shards' arguments "
+              f"{r['arguments_all']} B against the card's "
+              f"{r['card_arguments_all']} B")
         if label in DRYRUN_PEAK_CHECKED:
-            check(abs(r["peak_rel_err"]) <= DRYRUN_PEAK_TOL,
-                  f"phase 23 ({label}): predicted peak "
-                  f"{r['predicted_peak_bytes']} B, the card's "
-                  f"{r['card_peak_bytes']} B")
-            check(abs(r["temp_rel_err"]) <= DRYRUN_TEMP_TOL,
-                  f"phase 23 ({label}): predicted temporaries "
-                  f"{r['temp_size_in_bytes']} B, the card's "
-                  f"{r['card_temp_bytes']} B (its peak less its "
-                  f"arguments)")
+            check(abs(r["card_peak_all_rel_err"]) <= DRYRUN_PEAK_TOL,
+                  f"phase 23 ({label}): predicted peak of the shards "
+                  f"together {r['predicted_card_peak_bytes']} B, the "
+                  f"card's {r['card_peak_bytes']} B")
+            check(abs(r["temp_all_rel_err"]) <= DRYRUN_TEMP_TOL,
+                  f"phase 23 ({label}): predicted temporaries of the "
+                  f"shards together {r['peak_all']} B, the card's "
+                  f"{r['card_temp_all_bytes']} B (its peak less the "
+                  f"shards' arguments)")
             check(r["step_s"] >= r["bound_s"], f"phase 23 ({label}): the "
                   f"step took {r['step_s']} s, under its bound "
                   f"{r['bound_s']} s")
@@ -4540,6 +4801,13 @@ def main() -> int:
     with watchdog(MULTIPOD_WATCHDOG_S, "phase 24 (the multi-pod mesh)"):
         multipod_phase(ops, card)
     mark("24 multi-pod")
+
+    # -- phase 25: sequence parallelism on a (1, 4) mesh of shards of the
+    # card, served and trained without and with the rule (prints its line
+    # before its checks) ----------------------------------------------------
+    with watchdog(SP_WATCHDOG_S, "phase 25 (sequence parallelism)"):
+        seqpar_phase(ops, card)
+    mark("25 sequence parallelism")
 
     # -- phase 23: the dry-run's counts against the card's (prints its line
     # before its checks) ----------------------------------------------------

@@ -1,7 +1,8 @@
 """Single-controller SPMD: the port's stand-in for ``jax.sharding.Mesh``,
 ``jax.shard_map`` and the ``jax.lax`` collectives (``ppermute``, ``psum``,
-``pmax``, ``pmean``, ``all_to_all``, ``all_gather``, ``axis_index``,
-``axis_size``; ``axes_index`` for several axes taken as one).
+``psum_scatter``, ``pmax``, ``pmean``, ``all_to_all``, ``all_gather``,
+``axis_index``, ``axis_size``; ``axes_index`` for several axes taken as
+one).
 
 A ``Mesh`` names the device of each shard; a device may repeat, so one card
 can hold several shards, as the JAX tests hold forced host devices.
@@ -41,17 +42,18 @@ Autograd. A shard posts a collective's tensor detached, so a peer's copy
 records no edge into another thread's graph; each differentiable
 collective is a ``torch.autograd.Function`` whose backward is its exact
 adjoint over the whole mesh, itself a collective (``psum``'s is ``psum``,
-``all_gather``'s a ``psum`` and this shard's slice, ``all_to_all``'s the
-inverse exchange; ``pmean`` follows from ``psum``). ``pmax`` carries no
-gradient, and ``ppermute`` (the halo exchange's, never differentiated)
-refuses a tensor that requires grad. Each shard's backward then gives the
-gradient of the sum of the shards' objectives, so a body whose loss is
-replicated over an axis seeds it with 1 / its size, and a leaf replicated
-over an axis sums its shards' gradients (``train.train_step``). A body
-runs with autograd's multithreaded backward off, so that a backward it
-runs stays on the shard's thread, where the adjoints meet (on a card the
-engine would otherwise run it on a device thread shared by the shards).
-A ``shard_map`` called outside a body on inputs that require grad is
+``all_gather``'s a ``psum_scatter``, ``psum_scatter``'s the gather of
+the slices, ``all_to_all``'s the inverse exchange; ``pmean`` follows
+from ``psum``). ``pmax`` carries no gradient, and ``ppermute`` (the halo
+exchange's, never differentiated) refuses a tensor that requires grad.
+Each shard's backward then gives the gradient of the sum of the shards'
+objectives, so a body whose loss is replicated over an axis seeds it
+with 1 / its size, and a leaf replicated over an axis sums its shards'
+gradients (``train.train_step``). A body runs with autograd's
+multithreaded backward off, so that a backward it runs stays on the
+shard's thread, where the adjoints meet (on a card the engine would
+otherwise run it on a device thread shared by the shards). A
+``shard_map`` called outside a body on inputs that require grad is
 differentiable as a whole (``_ShardMapFn``).
 
 Placement. ``NamedSharding`` pairs a mesh with a spec; ``place`` puts a
@@ -64,9 +66,10 @@ placed leaf as it is. ``current_mesh`` tells a body it runs in one.
 
 Counting. Under the dry-run's active counter (``repro_torch.opcount``)
 each shard's thread counts its work under its index, and each collective
-adds its payload bytes on each shard under the JAX package's names:
-``psum``, ``pmean`` and ``pmax`` (and the adjoints that reduce)
-``all-reduce``, ``all_gather`` ``all-gather``, ``all_to_all``
+adds its payload bytes (its operand's) on each shard under the JAX
+package's names: ``psum``, ``pmean`` and ``pmax`` (and ``psum``'s
+adjoint) ``all-reduce``, ``psum_scatter`` (and ``all_gather``'s adjoint)
+``reduce-scatter``, ``all_gather`` ``all-gather``, ``all_to_all``
 ``all-to-all`` and ``ppermute`` ``collective-permute``. A mesh of
 ``meta`` devices runs a step's shapes without storage: no streams, no
 events, the card's operators otherwise.
@@ -629,20 +632,45 @@ def ppermute(x: torch.Tensor, axis_name: str,
     return _receive(posted[_peer(axis_name, src_of[me])], x.device)
 
 
-def _reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
+def _fold(x: torch.Tensor, axis_name: str, op, kind: str,
+          dim: Optional[int] = None) -> torch.Tensor:
     """``op`` over the shards along ``axis_name``, folded in coordinate
-    order on every shard, so that all get the same bits."""
+    order on every shard, so that all get the same bits; counted under
+    ``kind``. With ``dim``, only this shard's slice along it (the shard at
+    coordinate ``c`` the ``c``-th of as many equal slices as shards): each
+    shard copies only that slice of each peer's posted tensor, and gets
+    the bits the whole fold gives it."""
     n = axis_size(axis_name)
-    opcount.collective("all-reduce", x.numel() * x.element_size())
-    posted = _exchange(x)
     me = axis_index(axis_name)
+    if dim is not None and x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} shards")
+
+    def mine(t):
+        if dim is None:
+            return t
+        size = t.shape[dim] // n
+        return t.narrow(dim, me * size, size)
+
+    opcount.collective(kind, x.numel() * x.element_size())
+    posted = _exchange(x)
     acc = None
     for c in range(n):
-        v = x if c == me else _receive(posted[_peer(axis_name, c)], x.device)
+        if c == me:
+            v = mine(x)
+        else:
+            src = posted[_peer(axis_name, c)]
+            part = mine(src.t)
+            v = torch.empty_like(part, device=x.device)
+            _copy(src, part, v)
         # into the one copy made: a gradient's reduction holds no more
         acc = v.clone() if acc is None else op(acc, v, out=acc)
         del v
     return acc
+
+
+def _reduce(x: torch.Tensor, axis_name: str, op) -> torch.Tensor:
+    return _fold(x, axis_name, op, "all-reduce")
 
 
 class _PSum(torch.autograd.Function):
@@ -722,7 +750,8 @@ def all_to_all(x: torch.Tensor, axis_name: str, split_axis: int,
     return _AllToAll.apply(x, axis_name, split_axis, concat_axis)
 
 
-def _all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, axis_name: str,
+                tiled_dim: Optional[int] = None) -> torch.Tensor:
     n = axis_size(axis_name)
     me = axis_index(axis_name)
     opcount.collective("all-gather", x.numel() * x.element_size())
@@ -734,29 +763,61 @@ def _all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
         else:
             src = posted[_peer(axis_name, c)]
             _copy(src, src.t, out[c])
-    return out
+    if tiled_dim is None:
+        return out
+    return out.movedim(0, tiled_dim).flatten(tiled_dim, tiled_dim + 1)
+
+
+def _reduce_scatter(x: torch.Tensor, axis_name: str,
+                    dim: int) -> torch.Tensor:
+    return _fold(x, axis_name, torch.add, "reduce-scatter", dim)
 
 
 class _AllGather(torch.autograd.Function):
     """``all_gather``; its adjoint sums the gradient over the shards and
-    keeps this shard's slice."""
+    keeps this shard's slice (a reduce-scatter)."""
 
     @staticmethod
-    def forward(ctx, x, axis_name):
-        ctx.axis_name = axis_name
-        return _all_gather(x, axis_name)
+    def forward(ctx, x, axis_name, tiled_dim):
+        ctx.args = (axis_name, tiled_dim)
+        return _all_gather(x, axis_name, tiled_dim)
 
     @staticmethod
     def backward(ctx, g):
-        a = ctx.axis_name
-        return _reduce(g.contiguous(), a, torch.add)[axis_index(a)], None
+        a, dim = ctx.args
+        if dim is None:
+            return _reduce_scatter(g.contiguous(), a, 0)[0], None, None
+        return _reduce_scatter(g.contiguous(), a, dim), None, None
 
 
-def all_gather(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+def all_gather(x: torch.Tensor, axis_name: str, *,
+               tiled_dim: Optional[int] = None) -> torch.Tensor:
     """Every shard's ``x`` along ``axis_name``, stacked on a new leading
     axis in coordinate order (``jax.lax.all_gather`` untiled): the same
-    bits on every shard."""
-    return _AllGather.apply(x, axis_name)
+    bits on every shard. With ``tiled_dim``, joined along that dim
+    instead (``tiled=True, axis=tiled_dim``)."""
+    return _AllGather.apply(x, axis_name, tiled_dim)
+
+
+class _PSumScatter(torch.autograd.Function):
+    """``psum_scatter``; its adjoint gathers the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, dim):
+        ctx.args = (axis_name, dim)
+        return _reduce_scatter(x, axis_name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), *ctx.args), None, None
+
+
+def psum_scatter(x: torch.Tensor, axis_name: str, dim: int) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axis_name, scatter_dimension=dim,
+    tiled=True)``: the sum of the shards' ``x`` along ``axis_name``, of
+    which each shard keeps its slice along ``dim`` (the shard at
+    coordinate ``c`` the ``c``-th of as many equal slices as shards)."""
+    return _PSumScatter.apply(x, axis_name, dim)
 
 
 def pmax(x: torch.Tensor, axis_name: str) -> torch.Tensor:

@@ -34,13 +34,17 @@ roofline terms at the H100's row of ``launch.roofline.PEAKS``,
 for ``lower_s``/``compile_s`` and ``ops_dispatched`` for ``hlo_lines``;
 ``ops`` and ``kernels`` break shard 0's counts down by name.
 
-The ``opt`` level is the JAX package's seq-sharded KV decode
-(``Flags.seq_shard_kv="model"``, the cache's slots split over the model
-axis) for a decode cell whose kv heads the model axis does not divide. The
-JAX level's sequence-parallel activation rule (``act_seq``) has no
-counterpart: the port's step runs as a ``shard_map`` body, which lays out
-no activation. ``VARIANTS`` keeps the JAX package's named stacks that
-change the port's step. A result's file is tagged by its mesh:
+The ``opt`` level is the JAX package's: the rule ``"act_seq": "model"``
+(``_rules_for``), under which a train or prefill step splits its
+activations along the sequence over the model axis, in the Megatron form
+(``models.sharding.split_sequence``: each shard holds its slice of the
+residual stream between the layers, gathers the sequence before a
+column-parallel product and reduce-scatters after a row-parallel one),
+and seq-sharded KV decode (``Flags.seq_shard_kv="model"``, the cache's
+slots split over the model axis) for a decode cell whose kv heads the
+model axis does not divide. ``VARIANTS`` holds the JAX package's named
+stacks, the sequence-parallel ones (``sp``, ``dots_sp``, ...) included,
+under JAX's names and keywords. A result's file is tagged by its mesh:
 ``{arch}__{shape}__tp{chips}__{level}`` on ``(1, chips)``, ``pod2`` and
 ``dp{D}`` before ``tp`` on the others.
 """
@@ -92,8 +96,15 @@ def _flags_for(seq_shard: bool) -> Flags:
     )
 
 
-# Named stacks of ``build_cell``'s keywords, the JAX package's that change
-# the port's step (its sequence-parallel ones have no counterpart here)
+def _rules_for(opt_level: str) -> Dict[str, Any]:
+    """The logical rules the level adds: the ``opt`` level's sequence-
+    parallel activations."""
+    if opt_level == "opt":
+        return {"act_seq": "model"}
+    return {}
+
+
+# Named stacks of ``build_cell``'s keywords, the JAX package's
 VARIANTS: Dict[str, Dict[str, Any]] = {
     "baseline": {},
     # over-decomposition (microbatch pipeline)
@@ -101,11 +112,25 @@ VARIANTS: Dict[str, Dict[str, Any]] = {
     "od4": dict(over_decompose=4),
     "od8": dict(over_decompose=8),
     "dots": dict(extra_flags={"remat": "dots"}),
+    # sequence parallelism (the act_seq -> model rule), with selective or
+    # full remat and over-decomposition
+    "dots_sp": dict(extra_flags={"remat": "dots"},
+                    extra_rules={"act_seq": "model"}),
+    "dots_sp_od4": dict(extra_flags={"remat": "dots"},
+                        extra_rules={"act_seq": "model"}, over_decompose=4),
+    "dots_sp_od8": dict(extra_flags={"remat": "dots"},
+                        extra_rules={"act_seq": "model"}, over_decompose=8),
+    "sp": dict(extra_rules={"act_seq": "model"}),
+    "sp_od4": dict(extra_rules={"act_seq": "model"}, over_decompose=4),
+    "sp_od8": dict(extra_rules={"act_seq": "model"}, over_decompose=8),
     # decode: seq-sharded KV over the model axis (kv-head-replicated archs)
     "kvseq_model": dict(extra_flags={"seq_shard_kv": "model"},
                         cache_seq_axis="model"),
     # mamba2: smaller SSD chunk (halves the decay-matrix traffic)
     "ssd_chunk128": dict(ssd_chunk=128),
+    "ssd_chunk128_dots_sp": dict(ssd_chunk=128,
+                                 extra_flags={"remat": "dots"},
+                                 extra_rules={"act_seq": "model"}),
     "loss_chunk512": dict(extra_flags={"loss_chunk": 512}),
     # int8 + EF compression of the cross-pod gradient reduction (with
     # --multi-pod; train/compression.py). The vocabulary replicated, as
@@ -118,9 +143,9 @@ VARIANTS: Dict[str, Dict[str, Any]] = {
 @dataclasses.dataclass
 class Cell:
     """One cell's step, ready to run: ``run()`` takes one step over
-    ``mesh``; ``args``, ``donated`` and ``outputs()`` are its arguments,
-    the donated ones and its results, each a tree of ``spmd.Sharded`` or
-    tensors."""
+    ``mesh`` under the cell's ``rules``; ``args``, ``donated`` and
+    ``outputs()`` are its arguments, the donated ones and its results,
+    each a tree of ``spmd.Sharded`` or tensors."""
     arch: str
     shape_name: str
     cfg: Any
@@ -129,11 +154,16 @@ class Cell:
     over_decompose: int
     seq_shard: bool
     probe: Optional[int]
-    run: Callable[[], Any]
+    step: Callable[[], Any]
     args: Dict[str, Any]
     donated: Dict[str, Any]
     rules: Optional[Dict[str, Any]] = None
     out: Any = None
+
+    def run(self):
+        # the rules are read where the step is called (the sequence split)
+        with use_sharding(self.mesh, self.rules):
+            return self.step()
 
 
 def _sizes(cfg, probe: Optional[int], ssd_chunk: Optional[int]):
@@ -163,9 +193,10 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
     ``device`` (the dry-run's ``meta``; on a card with ``gen``, weights
     drawn from it, a zero cache, seeded tokens and lengths of the full
     context), on ``make_production_mesh(multi_pod=, data=)`` under the
-    logical rules and ``extra_rules``; a train cell's optimizer state
-    ZeRO-1 placed, with residuals and the compressed step where
-    ``train_compress`` and the mesh has a ``pod`` axis, as JAX's.
+    logical rules, the level's (``_rules_for``) and then ``extra_rules``;
+    a train cell's optimizer state ZeRO-1 placed, with residuals and the
+    compressed step where ``train_compress`` and the mesh has a ``pod``
+    axis, as JAX's.
     None for a shape the architecture skips. ``smoke`` takes the reduced
     configuration at the same shapes; ``batch`` cuts the shape's global
     batch."""
@@ -190,11 +221,14 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
         cache_seq_axis = cache_seq_axis or "model"
     if extra_flags:
         flags = dataclasses.replace(flags, **extra_flags)
+    rules = _rules_for(opt_level)
+    if extra_rules:
+        rules.update(extra_rules)
     model = build_model(cfg, flags)
     inputs = model.input_specs(shape)
     if device.type != "meta":
         inputs = _real_inputs(inputs, cfg, shape, device, gen)
-    with use_sharding(mesh, extra_rules):
+    with use_sharding(mesh, rules):
         if shape.kind == "train":
             compress = train_compress and "pod" in mesh.shape
             pods = mesh.shape["pod"] if compress else 0
@@ -211,7 +245,7 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
                         over_decompose, seq_shard, probe,
                         lambda: step(state, inputs),
                         {"state": state, "batch": inputs}, {"state": state},
-                        extra_rules)
+                        rules)
         else:
             if device.type == "meta":
                 abstract = abstract_params(model)
@@ -230,7 +264,7 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
                             over_decompose, seq_shard, probe,
                             lambda: fn(params, inputs, cache),
                             {"params": params, "batch": inputs,
-                             "cache": cache}, {"cache": cache}, extra_rules)
+                             "cache": cache}, {"cache": cache}, rules)
             else:
                 fn = make_decode_step(model, mesh)
                 cell = Cell(arch, shape_name, cfg, shape, mesh,
@@ -239,7 +273,7 @@ def build_cell(arch: str, shape_name: str, *, chips: int = 8,
                                        inputs["lengths"]),
                             {"params": params, "cache": cache,
                              "batch": inputs}, {"cache": cache},
-                            extra_rules)
+                            rules)
     return cell
 
 
@@ -310,8 +344,7 @@ def count_step(cell: Cell) -> Tuple[opcount.Counter, float]:
     gc.freeze()
     t0 = time.perf_counter()
     try:
-        with use_sharding(cell.mesh, cell.rules), \
-                opcount.counting(counter):
+        with opcount.counting(counter):
             cell.out = cell.run()
     finally:
         gc.unfreeze()

@@ -19,7 +19,10 @@
   ``shard_map`` body whose cache blocks hold a slice of the slots
   (``sharding.kv_seq_axis``: ``Flags.seq_shard_kv`` with the weights
   placed) every attention layer writes and reads its shard's slots and
-  combines the partials over that axis (``_seq_split_decode``).
+  combines the partials over that axis (``_seq_split_decode``). Where
+  the body splits the activations' sequence (``sharding.split_sequence``)
+  ``attention_layer`` gathers it before its projections and
+  reduce-scatters ``wo``'s sums.
 
 The JAX package computes the blockwise, window and decode paths outside
 any Pallas kernel, and so they are plain torch here, with float32 scores.
@@ -44,7 +47,7 @@ from repro_torch.distributed import spmd
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_gqa
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (active_mesh, constrain, is_split,
-                                         kv_seq_axis)
+                                         kv_seq_axis, seq_gather)
 
 
 def attn_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
@@ -539,13 +542,20 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     query heads ``wq`` holds, the kv heads ``local_kv_heads`` picks for
     them (a cache of replicated kv heads is written whole, as every
     replica holds it), and the row-parallel ``wo`` followed by a ``psum``
-    over the model axis (``layers.tp_sum``)."""
+    over the model axis (``layers.tp_sum``). Where the body splits the
+    sequence (``sharding.split_sequence``), ``x`` is the shard's slice:
+    the whole sequence is gathered before the projections, the attention
+    (the kernel's in prefill, the window path's) runs over it on the
+    shard's heads, the cache is written from the whole sequence's k and v,
+    and ``wo``'s partial sums are reduce-scattered back to the shard's
+    slice."""
     if kind not in ("global_attn", "local_attn"):
         raise ValueError(f"attention_layer: {kind!r} is not an attention "
                          f"kind (global_attn, local_attn)")
     local = kind == "local_attn"
     if local and window < 1 and kv_override is None:
         raise ValueError(f"a local_attn layer needs a window, got {window}")
+    x = seq_gather(x)
     b, s, _ = x.shape
     q = _project(x, params["wq"])
     q = constrain(q, "act_batch", None, "act_heads", None)

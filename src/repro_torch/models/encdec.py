@@ -25,7 +25,10 @@ functions run on each shard's blocks: every attention (the encoder's, the
 decoder's self- and cross-attention, all through ``attention_layer``) on
 the shard's heads, the MLPs column- then row-parallel, the cross cache the
 shard's kv heads, and the token lookup, the logits and the loss
-vocab-parallel where the weights split ``vocab``.
+vocab-parallel where the weights split ``vocab``. Where the body splits
+the sequence (``sharding.split_sequence``) the decoder's layers take the
+shard's slice of the tokens' positions, and the encoder's its slice of
+the frames where they divide the axis.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import (seq_axis_for, seq_gather,
+                                         seq_slice, split_sequence)
 from repro_torch.models.transformer import (DEFAULT_FLAGS, Flags, ParamTree,
                                             _at, _tree, remat_call)
 
@@ -141,26 +146,33 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig,
     """frames: [B, T, D] (precomputed frame embeddings, cast to the weight
     dtype) -> encoder output [B, T, D]. Bidirectional, unmasked (the JAX
     package's encoder attends to the padding frames too). Each layer runs
-    under ``remat`` (``transformer.remat_call``)."""
+    under ``remat`` (``transformer.remat_call``). Where the body splits
+    the sequence and T divides its axis (``sharding.seq_axis_for``), the
+    layers run on the shard's slice of the frames, and the output is
+    gathered whole for the cross-attention's keys and values."""
     p = _tree(params)
     dtype = p["embed"].dtype
     x = frames.to(dtype) + _sinusoids(frames.shape[1], cfg.d_model,
                                       frames.device).to(dtype)
+    axis = seq_axis_for(x.shape[1])
 
     def layer(lp, x):
-        h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        mix, _ = A.attention_layer(
-            lp["attn"], h, kind="global_attn", rope_theta=0.0,
-            n_kv_heads=cfg.n_kv_heads, mode="train", causal=False,
-            use_rope=False, flash_block=flags.flash_block)
-        x = x + mix
-        h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        return x + L.mlp_apply(lp["mlp"], h, cfg.gated_mlp)
+        with split_sequence(axis):
+            h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
+            mix, _ = A.attention_layer(
+                lp["attn"], h, kind="global_attn", rope_theta=0.0,
+                n_kv_heads=cfg.n_kv_heads, mode="train", causal=False,
+                use_rope=False, flash_block=flags.flash_block)
+            x = x + mix
+            h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
+            return x + L.mlp_apply(lp["mlp"], h, cfg.gated_mlp)
 
     enc = p["encoder"]
-    for i in range(cfg.n_encoder_layers):
-        x = remat_call(remat, layer, _at(enc, i), x)
-    return L.rms_norm(x, p["enc_final_norm"], cfg.norm_eps)
+    with split_sequence(axis):
+        x = seq_slice(x)
+        for i in range(cfg.n_encoder_layers):
+            x = remat_call(remat, layer, _at(enc, i), x)
+        return seq_gather(L.rms_norm(x, p["enc_final_norm"], cfg.norm_eps))
 
 
 def _cross_kv(p, enc_out: torch.Tensor
@@ -264,7 +276,7 @@ def encdec_apply(params, batch: Dict[str, torch.Tensor], *,
     else:
         pe = p["pos_embed"][None, :s]
     x = L.embed_lookup(p["embed"], tokens)
-    x = x + pe.to(x.dtype)
+    x = x + seq_slice(pe).to(x.dtype)
     dec = p["decoder"]
     outs = []
     for i in range(cfg.n_layers):

@@ -10,7 +10,11 @@ parameters' layout); ``launch.mesh.param_specs`` resolves them over a mesh.
 Inside a ``shard_map`` body a layer holds its shard's block of each weight
 (``sharding.is_split`` says along which logical axes): ``mlp_apply`` is
 then column- then row-parallel, followed by a ``psum``, and
-``softmax_cross_entropy`` vocab-parallel. The collectives are
+``softmax_cross_entropy`` vocab-parallel. Where the body splits the
+sequence (``sharding.split_sequence``), a layer receives and returns its
+shard's slice of it: ``mlp_apply`` gathers the sequence first, and the
+``psum`` after the row-parallel product becomes a reduce-scatter along
+the sequence (``tp_reduce``). The collectives are
 differentiable (their exact adjoints, ``distributed.spmd``), so the same
 code trains on a mesh.
 """
@@ -25,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import spmd
-from repro_torch.models.sharding import constrain, is_split
+from repro_torch.models.sharding import (constrain, is_split, seq_axis,
+                                         seq_gather, seq_slice)
 
 Axes = Tuple[Optional[str], ...]
 
@@ -176,22 +181,31 @@ def mlp_axes(gated: bool, lead: Axes = ()) -> Dict[str, Axes]:
     return p
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, gated: bool,
-              reduce: bool = True) -> torch.Tensor:
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              gated: bool) -> torch.Tensor:
     """``silu(x·wg) * (x·wi)`` then ``·wo``: ``wi`` is the multiplied
     branch, ``wg`` the gated one. Without gating, tanh-approximated GELU
     (``jax.nn.gelu``'s default). Inside a ``shard_map`` body whose weights
     split ``mlp`` (``wi`` column-parallel), the product with ``wo``'s
-    matching rows is a partial sum, which ``tp_sum`` adds over the model
-    axis (or the caller, with ``reduce=False``)."""
+    matching rows is a partial sum (``mlp_partial``), which ``tp_sum``
+    adds over the model axis. Where the body splits the sequence, ``x`` is
+    the shard's slice: the whole sequence is gathered first, and
+    ``tp_sum`` returns the shard's slice of the sum."""
+    return tp_sum(mlp_partial(p, seq_gather(x), gated), "mlp")
+
+
+def mlp_partial(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                gated: bool) -> torch.Tensor:
+    """``mlp_apply``'s products on ``x`` as it is (the whole sequence),
+    without the reduction: a partial sum where the weights split
+    ``mlp``."""
     h = x @ p["wi"]
     if gated:
         h = F.silu(x @ p["wg"]) * h
     else:
         h = F.gelu(h, approximate="tanh")
     h = constrain(h, "act_batch", "act_seq", "act_mlp")
-    y = h @ p["wo"]
-    return tp_sum(y, "mlp") if reduce else y
+    return h @ p["wo"]
 
 
 TP_AXIS = "model"
@@ -200,24 +214,43 @@ TP_AXIS = "model"
 def embed_lookup(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """The rows ``emb[ids]``; inside a ``shard_map`` body whose weights
     split ``vocab``, vocab-parallel: each shard looks up the ids it holds,
-    zeros for the rest, and a ``psum`` adds them up."""
+    zeros for the rest, and a ``psum`` adds them up. Where the body splits
+    the sequence, ``ids`` are the whole sequence's and the result the
+    shard's slice: the vocab-parallel sum is reduce-scattered, a whole
+    table looks up the slice's ids."""
     ids = ids.long()
     if not is_split("vocab"):
-        return emb[ids]
+        return emb[seq_slice(ids)]
     rows = emb.shape[0]
     ids = ids - spmd.axis_index(TP_AXIS) * rows
     mine = (ids >= 0) & (ids < rows)
     x = torch.where(mine[..., None], emb[ids.clamp(0, rows - 1)], 0)
+    if seq_axis() is not None:
+        return spmd.psum_scatter(x, TP_AXIS, 1)
     return spmd.psum(x, TP_AXIS)
 
 
 def tp_sum(y: torch.Tensor, axis: str) -> torch.Tensor:
     """``y`` summed over the model axis where it is a partial sum: a
     product over logical ``axis`` that the body's weights split
-    (``sharding.is_split``), in float32 and rounded once to ``y``'s dtype;
-    ``y`` itself otherwise. Every shard gets the same bits (``spmd.psum``
-    folds in coordinate order)."""
-    if not is_split(axis):
+    (``sharding.is_split``); ``tp_reduce``."""
+    return tp_reduce(y, is_split(axis))
+
+
+def tp_reduce(y: torch.Tensor, partial: bool) -> torch.Tensor:
+    """``y`` [B, S, ...], a partial sum over the model axis where
+    ``partial``, summed in float32 and rounded once to ``y``'s dtype
+    (every shard gets the same bits: ``spmd.psum`` folds in coordinate
+    order); ``y`` itself where it is whole. Where the body splits the
+    sequence, ``y`` is the whole sequence's and the result the shard's
+    slice of it: the sum reduce-scattered along the sequence
+    (``spmd.psum_scatter``, which gives each slice ``psum``'s bits), a
+    whole ``y`` sliced."""
+    if seq_axis() is not None:
+        if not partial:
+            return seq_slice(y)
+        return spmd.psum_scatter(y.float(), TP_AXIS, 1).to(y.dtype)
+    if not partial:
         return y
     return spmd.psum(y.float(), TP_AXIS).to(y.dtype)
 

@@ -38,6 +38,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.sharding import seq_gather
 from repro_torch.models.transformer import DEFAULT_FLAGS, SMOKE_FLAGS, Flags
 
 
@@ -97,9 +98,12 @@ class Model:
         ``labels`` [B,S]: a decoder-only LM's through ``chunked_ce_loss``
         (its tied or untied unembedding), the encoder-decoder's through
         its untied ``unembed`` and ``softmax_cross_entropy`` over the
-        whole [B,S,V], as the JAX package computes them."""
+        whole [B,S,V], as the JAX package computes them. Where a
+        ``shard_map`` body splits the sequence, ``x`` is the shard's slice
+        (``Model.apply``'s), gathered first: the loss is the whole
+        batch's."""
         if self.cfg.enc_dec:
-            logits = (x @ T._tree(params)["unembed"]).float()
+            logits = (seq_gather(x) @ T._tree(params)["unembed"]).float()
             return L.softmax_cross_entropy(logits, labels)
         return T.chunked_ce_loss(params, x, labels, self.cfg, self.flags)
 

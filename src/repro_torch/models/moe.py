@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed import spmd
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import active_mesh, is_split
+from repro_torch.models.sharding import (active_mesh, is_split, seq_axis,
+                                         seq_gather)
 
 
 def moe_init(gen, d_model: int, mcfg: MoEConfig, gated: bool, *, dtype,
@@ -268,13 +269,24 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
     batch's statistics where data axes split the batch
     (``balance_loss``), as the oracle on one device does, while
     ``moe_ep``'s averages the shards' losses, as the JAX package's does.
-    Returns the output, replicated over ``axis``, and the aux loss."""
+    Returns the output, replicated over ``axis``, and the aux loss.
+
+    Where the body splits the sequence over ``axis``
+    (``sharding.split_sequence``), x and the output are the shard's slice:
+    ``moe_ep`` routes the slice it holds, the same tokens as without the
+    split, and its output is the slice's, with no collective for the
+    routed part; the shared expert and the dense oracle take the gathered
+    sequence and reduce-scatter their partial sums (``layers.tp_reduce``).
+    """
     mesh = spmd.current_mesh()
     tp = mesh.shape.get(axis, 1)
+    seq = seq_axis()
     e, d = mcfg.num_experts, x.shape[-1]
-    b, s, _ = x.shape
     e_loc = p["wi"].shape[0]
     split = is_split("experts")
+    # the whole sequence, where a part takes it
+    x_all = seq_gather(x) if dense or not split or "shared" in p else x
+    b, s, _ = x_all.shape
     experts = {k: p[k] for k in ("wi", "wo", "wg") if k in p}
     router = p["router"]
     if split:
@@ -283,9 +295,11 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
     experts["router"] = router
     # a mean over axes of one shard is the value itself
     batch_axes = tuple(a for a in data_axes if mesh.shape.get(a, 1) > 1)
-    # the routed part [B, S, D] in float32, partial where it is split
+    # the routed part [B, S, D] in float32, partial where it is split (the
+    # shard's slice [B, S/tp, D] where the sequence splits and moe_ep
+    # routes)
     if dense or not split:
-        xf = x.reshape(b * s, d)
+        xf = x_all.reshape(b * s, d)
         weights, idx, aux = _route(router, xf, mcfg)
         if batch_axes:
             # the whole batch's load-balance loss, as the oracle takes it
@@ -296,11 +310,11 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
         e0 = spmd.axis_index(axis) * e_loc if split else 0
         ys = _expert_ffn(experts, xf.expand(e_loc, b * s, d), gated)
         y = torch.einsum("te,etd->td", comb[:, e0:e0 + e_loc], ys)
-        y, partial = y.view(b, s, d).float(), split
+        y, partial, whole = y.view(b, s, d).float(), split, True
     else:
         seq_shard = s % tp == 0 and s >= tp
         xs = x
-        if seq_shard:
+        if seq_shard and seq is None:
             sl = s // tp
             s0 = spmd.axis_index(axis) * sl
             xs = x[:, s0:s0 + sl]
@@ -309,23 +323,29 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
         aux = spmd.pmean(aux, axis)
         if batch_axes:
             aux = spmd.pmean(aux, batch_axes)
-        if seq_shard:
+        whole = seq is None
+        if seq is not None:
+            # the slice's own output: complete
+            y = out.view(xs.shape).float()
+        elif seq_shard:
             # each shard's slice into a zero [B, S, D]
             y = torch.zeros_like(x, dtype=torch.float32)
             y[:, s0:s0 + sl] = out.view(xs.shape)
         else:
             # every shard routed all tokens: the same output on each
             y = out.view(x.shape).float()
-        partial = seq_shard
+        partial = seq_shard and seq is None
     sh = None
     if "shared" in p:
-        sh = L.mlp_apply(p["shared"], x, gated, reduce=False)
+        sh = L.mlp_partial(p["shared"], x_all, gated)
         if partial and is_split("mlp"):
             # row-parallel: its partial sums join the routed part's psum
             y, sh = y + sh, None
         else:
             sh = L.tp_sum(sh, "mlp")
-    if partial:
+    if whole and seq is not None:
+        y = L.tp_reduce(y, partial)
+    elif partial:
         y = spmd.psum(y, axis)
     y = y.to(x.dtype)
     return (y if sh is None else y + sh), aux

@@ -21,7 +21,10 @@ column-parallel, the conv, ``lam``, the biases, the cache and the scan
 channel-local, ``out`` row-parallel and reduced by ``layers.tp_sum``. The
 gates' weights keep the JAX package's spec, which splits every block's
 rows, so the layer gathers them over the model axis and takes its own
-blocks (``_local_gate_weights``).
+blocks (``_local_gate_weights``). Where the body splits the sequence
+(``sharding.split_sequence``) the layer gathers it first, runs the conv
+and the scan over the whole sequence on the shard's channels, and
+``out``'s partial sums come back reduce-scattered to the shard's slice.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import RGLRUConfig
 from repro_torch.distributed import spmd
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import is_split
+from repro_torch.models.sharding import is_split, seq_gather
 
 _C = 8.0
 
@@ -199,6 +202,7 @@ def rglru_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
     without one returns new tensors; train returns None. Inside a body
     that splits ``lru`` the cache and every channel are the shard's
     (module docstring)."""
+    u = seq_gather(u)
     gate = F.gelu(u @ params["in_gate"], approximate="tanh")
     x = u @ params["in_x"]
     x, new_conv = _causal_conv(x, params["conv_w"], params["conv_b"],

@@ -12,7 +12,22 @@ logical layout takes, ``named_sharding`` the mesh with it, and
 reduce explicitly (``spmd.psum`` after a row-parallel product). Which
 logical axes the body's weights are split along is decided once, by
 their specs: ``split_weights`` tells the body, and the layers ask
-``is_split``. The mesh
+``is_split``.
+
+Sequence parallelism is the rule ``"act_seq": "model"`` written out in
+the Megatron form. ``sequence_axis`` decides once, in the thread that
+calls a step (the rules are per thread), whether the step's activations
+split along the sequence: where the rule maps ``act_seq`` to the model
+axis of more than one shard and the global sequence divides it, as
+``resolve_spec`` requires (so decode, S = 1, never splits). The body
+opens ``split_sequence`` with the answer. Between the layers each shard
+then holds its slice of the sequence (the residual stream, the norms,
+the residual adds); a layer gathers the whole sequence before its
+column-parallel products (``seq_gather``) and its row-parallel partial
+sums come back reduce-scattered along the sequence
+(``spmd.psum_scatter``, in ``layers.tp_reduce``) where they were
+``psum``'d. ``seq_axis_for`` re-decides inside the body for a second
+sequence (the encoder's frames). The mesh
 that ``use_sharding`` activates is read by the serving steps, which then
 run each step as one ``shard_map`` over the placed weights and cache, and
 by the modules that run explicitly over it (``models.attention.
@@ -67,6 +82,8 @@ class _Ctx(threading.local):
         self.split: FrozenSet[str] = frozenset()
         # storage identity of a cache block -> the axis splitting its T
         self.kv_seq: Dict[int, str] = {}
+        # the mesh axis splitting the activations' sequence in a body
+        self.seq: Optional[str] = None
 
 
 _CTX = _Ctx()
@@ -229,6 +246,99 @@ def kv_seq_axis(t) -> Optional[str]:
     if not _CTX.kv_seq:
         return None
     return _CTX.kv_seq.get(t.untyped_storage()._cdata)
+
+
+# the mesh axes a body's sequence may split over: the model axis, over
+# which the layers' partial sums are reduced
+SEQ_AXES = ("model",)
+
+
+def sequence_axis(mesh: Mesh, batch: int, seq: int) -> Optional[str]:
+    """The mesh axis over which a step of ``batch`` x ``seq`` tokens on
+    ``mesh`` splits its activations along the sequence under the active
+    rules: ``act_seq``'s axis in ``resolve_spec(("act_batch",
+    "act_seq"), shape=(batch, seq))``, where it spans more than one shard;
+    None otherwise. Called in the thread that runs the step, outside its
+    body. An axis other than the model axis raises."""
+    spec = resolve_spec(("act_batch", "act_seq"), shape=(batch, seq),
+                        mesh=mesh)
+    part = spec[1] if len(spec) > 1 else None
+    if part is None or _axis_size(mesh, part) == 1:
+        return None
+    if part not in SEQ_AXES:
+        raise NotImplementedError(
+            f"the activations' sequence split over {part!r}: only "
+            f"{SEQ_AXES} is ported (see ROADMAP.md)")
+    return part
+
+
+@contextlib.contextmanager
+def split_sequence(axis: Optional[str]):
+    """Opened inside a ``shard_map`` body with ``sequence_axis``'s answer:
+    while open, the layers in this thread receive and return their
+    shard's slice of the sequence along ``axis`` (none: the whole
+    sequence)."""
+    prev = _CTX.seq
+    _CTX.seq = axis
+    try:
+        yield
+    finally:
+        _CTX.seq = prev
+
+
+def seq_axis_for(length: int) -> Optional[str]:
+    """The axis over which a second sequence of ``length`` positions in
+    the same body (the encoder's frames) splits: the body's where
+    ``length`` divides it, else None. Its layers run under
+    ``split_sequence`` of the answer (and so does their recomputation in
+    the backward)."""
+    axis = _CTX.seq
+    if axis is not None and length % spmd.axis_size(axis):
+        axis = None
+    return axis
+
+
+def seq_axis() -> Optional[str]:
+    """The mesh axis splitting the sequence of the activations the layers
+    receive in this thread (``split_sequence``); None outside a body and
+    where the sequence is whole."""
+    return _CTX.seq
+
+
+def seq_gather(x, dim: int = 1):
+    """The whole sequence from each shard's slice ``x`` along ``dim``
+    (an ``all_gather`` over the split axis, in coordinate order); ``x``
+    itself where the sequence is whole."""
+    axis = _CTX.seq
+    if axis is None:
+        return x
+    return spmd.all_gather(x, axis, tiled_dim=dim)
+
+
+def seq_slice(x, dim: int = 1):
+    """This shard's slice along ``dim`` of ``x``, which holds the whole
+    sequence; ``x`` itself where the sequence is whole."""
+    axis = _CTX.seq
+    if axis is None:
+        return x
+    n = x.shape[dim] // spmd.axis_size(axis)
+    return x.narrow(dim, spmd.axis_index(axis) * n, n)
+
+
+def seq_start(local: int) -> int:
+    """The position of this shard's first row, for slices of ``local``
+    rows (0 where the sequence is whole)."""
+    axis = _CTX.seq
+    return 0 if axis is None else spmd.axis_index(axis) * local
+
+
+def seq_last(x):
+    """The last position [B, 1, ...] of the sequence of which ``x`` holds
+    this shard's slice: the last shard's, gathered."""
+    axis = _CTX.seq
+    if axis is None:
+        return x[:, -1:]
+    return spmd.all_gather(x[:, -1:], axis)[-1]
 
 
 def named_sharding(mesh: Mesh, *logical_axes: Optional[str],

@@ -14,6 +14,11 @@ Cumulative sums accumulate in float64 and round to float32
 (``kernels.ssd.cumsum_f32``): ``torch.cumsum`` of float32 does exactly
 that on the CPU, and on the card it keeps the kernel and the einsum path
 on the same ``cs``.
+
+Inside a ``shard_map`` body the block's weights are whole (``ssm_inner``
+is replicated). Where the body splits the sequence
+(``sharding.split_sequence``) the block gathers it, runs whole (the
+kernel in prefill) and keeps its shard's slice of the output.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd import cumsum_f32, ssd_chunk
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import seq_gather, seq_slice
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -171,7 +177,9 @@ def ssd_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
     (out, new_cache) with new tensors in ``new_cache``. ``use_kernel``
     takes the intra-chunk form from the kernel in prefill; train mode
     takes the einsum path, which autograd differentiates (the kernel has
-    no backward)."""
+    no backward). Where the body splits the sequence, ``u`` and the output
+    are the shard's slice (module docstring)."""
+    u = seq_gather(u)
     b, s, d = u.shape
     di = scfg.expand * d
     nh = di // scfg.headdim
@@ -218,7 +226,7 @@ def ssd_layer(params: Dict[str, torch.Tensor], u: torch.Tensor, *,
     y = y + params["D"][:, None] * x.float()
     y = y.reshape(b, s, di).to(u.dtype)
     y = y * F.silu(z)
-    y = L.rms_norm(y, params["norm"])
+    y = L.rms_norm(seq_slice(y), params["norm"])
     return y @ params["out_proj"], new_cache
 
 

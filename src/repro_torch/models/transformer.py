@@ -34,7 +34,11 @@ embedding vocab-parallel (a masked lookup and a ``psum``), the logits the
 shard's slice of the vocabulary and ``chunked_ce_loss`` vocab-parallel
 (``layers.softmax_cross_entropy``), the attention, MLP and MoE layers
 split as their modules say. Under ``remat`` the backward recomputes a
-layer's collectives on every shard in the same order.
+layer's collectives on every shard in the same order. Where the body
+splits the sequence (``sharding.split_sequence``: the rule ``act_seq ->
+model``), the embedding returns the shard's slice of the positions, the
+blocks, their norms and residual adds and the final norm run on slices,
+and each layer gathers and reduce-scatters as its module says.
 """
 from __future__ import annotations
 
@@ -52,7 +56,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import constrain, seq_gather, seq_start
 
 
 @dataclasses.dataclass(frozen=True)
@@ -518,11 +522,16 @@ def _embed_inputs(p: Dict[str, Any], cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Token embeddings [B,S,D]; for the vision frontend, the batch's
     precomputed ``vision_embeds`` [B, n_tok, D] (cast to the weight dtype)
-    over the first n_tok positions. Decode batches carry none."""
+    over the first n_tok positions. Decode batches carry none. Where the
+    body splits the sequence, the shard's slice of them: the embeddings
+    of the positions it holds."""
     x = L.embed_lookup(p["embed"], batch["tokens"])
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         ve = batch["vision_embeds"]
-        x[:, :ve.shape[1]] = ve.to(x.dtype)
+        s0 = seq_start(x.shape[1])
+        n = min(ve.shape[1] - s0, x.shape[1])
+        if n > 0:
+            x[:, :n] = ve[:, s0:s0 + n].to(x.dtype)
     return constrain(x, "act_batch", "act_seq", "act_embed")
 
 
@@ -539,7 +548,10 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
     layer's last window). ``batch`` holds ``tokens`` [B,S], ``lengths`` [B]
     in decode, and may hold ``vision_embeds`` (``_embed_inputs``). In
     train mode each layer runs under ``flags.remat`` (``remat_call``).
-    ``params`` is a ``ParamTree`` or a nested dict of tensors."""
+    ``params`` is a ``ParamTree`` or a nested dict of tensors. Where a
+    ``shard_map`` body splits the sequence, the final hidden is the
+    shard's slice of it (``Model.loss`` gathers it; the serving steps take
+    its last position by ``sharding.seq_last``)."""
     p = _tree(params)
     lengths = batch.get("lengths")
     x = _embed_inputs(p, cfg, batch)
@@ -585,7 +597,9 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits for a (small) x. [B,S,D] -> [B,S,V]; inside a ``shard_map``
     body, the shard's slice of the vocabulary [B,S,V/tp] where the
-    embedding is split."""
+    embedding is split. ``x`` holds the positions wanted, whole: where the
+    body splits the sequence the caller gathers them first
+    (``sharding.seq_gather`` or ``seq_last``)."""
     p = _tree(params)
     if cfg.tie_embeddings:
         logits = x @ p["embed"].T
@@ -602,8 +616,11 @@ def chunked_ce_loss(params, x: torch.Tensor, labels: torch.Tensor,
     float32 (the product in the weights' dtype, then cast), ``logsumexp``
     minus the label's logit, summed. Under ``flags.remat`` other than
     "none" each chunk runs under ``torch.utils.checkpoint``, so the
-    backward too holds one chunk's logits at a time."""
+    backward too holds one chunk's logits at a time. Where the body splits
+    the sequence, ``x`` is the shard's slice: the whole sequence is
+    gathered first, and the loss is the whole batch's on every shard."""
     p = _tree(params)
+    x = seq_gather(x)
     b, s, _ = x.shape
     chunk = min(flags.loss_chunk, s)
     if s % chunk:

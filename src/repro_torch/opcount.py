@@ -15,7 +15,8 @@ per thread that records, by operator name:
     ``index_select``) reads as many bytes as it writes, and an indexed
     write in place (``index_put_``, ``scatter_``, ...) writes its values,
     not the whole tensor it writes into;
-  * the live bytes of the storages the step allocates, and their peak
+  * the live bytes of the storages the step allocates, and their peak,
+    a shard's with the calling thread's and all shards' together
     (storages are told apart by identity, not by address: every ``meta``
     tensor's ``data_ptr()`` is 0).
 
@@ -140,6 +141,10 @@ class Counter:
         self._watched: set = set()
         # peak over the step of a shard's live bytes plus the caller's
         self.peak_with_caller: Dict[Optional[int], int] = {}
+        # peak over the step of every shard's live bytes and the caller's
+        # together: a card's, where the shards share it (they take turns,
+        # so their work is issued in the same order on any device)
+        self.peak_all = 0
 
     def of(self, shard: Optional[int]) -> ShardCounts:
         with self._lock:
@@ -220,10 +225,13 @@ class Counter:
     def _add(self, shard, nbytes: int) -> None:
         self.of(shard).live += nbytes
         caller = self.of(None).live
+        total = 0
         for s, sc in self.shards.items():
             both = sc.live + (caller if s is not None else 0)
             if both > self.peak_with_caller.get(s, 0):
                 self.peak_with_caller[s] = both
+            total += sc.live
+        self.peak_all = max(self.peak_all, total)
 
     def kernel(self, shard, name: str, flops: float, nbytes: float) -> None:
         with self._lock:

@@ -11,8 +11,11 @@ package's GSPMD layout written out), and the greedy token comes from the
 vocab-sharded logits. Under ``Flags.seq_shard_kv`` the cache's slots
 split over that axis (``cache_specs(..., seq_axis=)``), and each
 attention layer writes and reads its shard's slots, combining the
-decode's partials over the axis (``models.attention``).
-``tasked_decode_loop`` drives the same decode step through the port's
+decode's partials over the axis (``models.attention``). Under the rule
+``"act_seq": "model"`` a prefill's activations split along the sequence
+over the model axis (``sharding.sequence_axis``), and the last position's
+hidden comes from the shard holding it; a decode step (S = 1) never
+splits. ``tasked_decode_loop`` drives the same decode step through the port's
 task runtime: every step is one hetero task over the model state
 (weights read, cache, tokens and lengths read and written), followed by
 ``Runtime.step_boundary()``.
@@ -27,8 +30,10 @@ import torch
 from repro_torch.distributed import spmd
 from repro_torch.models.layers import TP_AXIS
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.sharding import (active_mesh, is_split, split_axes,
-                                         split_cache, split_weights)
+from repro_torch.models.sharding import (active_mesh, is_split, seq_last,
+                                         sequence_axis, split_axes,
+                                         split_cache, split_sequence,
+                                         split_weights)
 from repro_torch.models.transformer import ParamTree
 
 _NOT_PORTED = "not ported (see ROADMAP.md)"
@@ -99,6 +104,7 @@ def _mesh_step(model: Model, mesh: spmd.Mesh, mode: str, params, batch,
     n_p, n_c = len(p_named), len(c_named)
     bspec = batch_specs(mode, mesh, batch["tokens"].shape[0])["batch"]
     split = split_axes(model.axes(), params)
+    seq = sequence_axis(mesh, *batch["tokens"].shape)
     bax = bspec[0] if len(bspec) else None
     logits_spec = spmd.P(bax, None, TP_AXIS) if "vocab" in split \
         else spmd.P(bax)
@@ -114,9 +120,10 @@ def _mesh_step(model: Model, mesh: spmd.Mesh, mode: str, params, batch,
         for ax, t in zip(slot_axes, leaves[n_p:n_p + n_c]):
             if ax is not None:
                 split_slots.setdefault(ax, []).append(t)
-        with split_weights(split), split_cache(split_slots):
+        with split_weights(split), split_cache(split_slots), \
+                split_sequence(seq):
             x, c_out = model.apply(p, b, mode=mode, cache=c)
-            last = model.unembed(p, x[:, -1:])
+            last = model.unembed(p, seq_last(x))
             out = (_greedy(last), *(t for _, t in flatten(c_out)))
         return out + (last,) if logits else out
 

@@ -29,7 +29,12 @@ unsplit step's, bit for bit. With ``compress_pod_grads`` on a mesh with a
 ``pod`` axis the gradients are averaged inside each pod (over ``model``
 and ``data``) and then over ``pod`` by the int8 error-feedback reduction
 of ``train.compression``, each shard with its pod's residual of its
-block, the quantization blocks the whole leaf's.
+block, the quantization blocks the whole leaf's. Under the rule
+``"act_seq": "model"`` (``use_sharding``'s rules where the step is
+called) the body splits the activations along the sequence over the model
+axis where it divides (``sharding.sequence_axis``): the loss is still the
+whole batch's on every shard, and a replicated leaf's gradient (a norm's)
+is then the sum of its slices' parts, which the same ``psum`` takes.
 
 Under an active mesh (``models.sharding.use_sharding``) whose data axes
 (``pod``, ``data``) span more than one shard, a state that is not placed
@@ -57,7 +62,8 @@ import torch
 from repro_torch.convert import to_numpy, to_torch
 from repro_torch.distributed import spmd
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.sharding import (active_mesh, split_axes,
+from repro_torch.models.sharding import (active_mesh, sequence_axis,
+                                         split_axes, split_sequence,
                                          split_weights)
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState, TrainState,
                                          adamw_apply, adamw_update,
@@ -259,7 +265,7 @@ def _zero_gather(t: torch.Tensor, dim: int, axes) -> torch.Tensor:
     """Inside a body: the shards' ZeRO-1 slices ``t`` joined along
     ``dim`` (all-gathers over ``axes``, minor first)."""
     for a in reversed(axes):
-        t = spmd.all_gather(t, a).movedim(0, dim).flatten(dim, dim + 1)
+        t = spmd.all_gather(t, a, tiled_dim=dim)
     return t
 
 
@@ -318,6 +324,7 @@ def _mesh_run(model: Model, state, batch: Dict[str, torch.Tensor], od: int,
     names = sorted(batch)
     bspec = batch_specs("train", mesh, batch["tokens"].shape[0])["batch"]
     split = split_axes(model.axes(), params)
+    seq = sequence_axis(mesh, *batch["tokens"].shape)
     data_axes = _batch_axes(mesh)
     # compressed: the mean inside each pod, then the compressed one over
     # pod (JAX compresses each pod's reduced gradient)
@@ -332,7 +339,7 @@ def _mesh_run(model: Model, state, batch: Dict[str, torch.Tensor], od: int,
     def body(*args):
         leaves = args[:npar]
         b = dict(zip(names, args[len(placed):]))
-        with split_weights(split):
+        with split_weights(split), split_sequence(seq):
             grads, m = _shard_grads(loss_fn, leaves, paths, b, od, seed)
             # each leaf's reduced gradient replaces its own, which is
             # dropped as soon as its float32 copy is made
@@ -471,6 +478,13 @@ def make_train_step(model: Model, tcfg: TrainConfig
             # as in JAX, compression applies to a step of one microbatch
             return _mesh_run(model, state, batch, od, tcfg.opt,
                              compress=tcfg.compress_pod_grads and od == 1)
+        mesh = active_mesh()
+        if mesh is not None and \
+                sequence_axis(mesh, *batch["tokens"].shape) is not None:
+            raise NotImplementedError(
+                "sequence parallelism on a state that is not placed: the "
+                "step runs no tensor-parallel body; place it "
+                "(init_train_state(..., mesh=)) (see ROADMAP.md)")
         new_ef = state.ef
         if tcfg.compress_pod_grads and od == 1:
             grads, metrics, new_ef = compressed_grads(state, batch)

@@ -14,6 +14,7 @@ held to these parts of JAX and, on the card, to the card's own counts
 (``chip_smoke.py`` phase 23).
 """
 import dataclasses
+import functools
 import json
 
 import jax
@@ -255,7 +256,8 @@ def test_dryrun_machinery_smoke():
 
 # the smoke cell each variant changes and its shards (yi-9b's smoke kv
 # heads, 2, do not divide 4: its decode can split the slots;
-# compress_pod on the multi-pod mesh (2, 1, 2))
+# compress_pod on the multi-pod mesh (2, 1, 2); the sequence-parallel
+# stacks over a model axis of 2)
 VARIANT_CELLS = {"od2": ("yi_9b", "train_4k", 1),
                  "od4": ("yi_9b", "train_4k", 1),
                  "od8": ("yi_9b", "train_4k", 1),
@@ -263,12 +265,25 @@ VARIANT_CELLS = {"od2": ("yi_9b", "train_4k", 1),
                  "loss_chunk512": ("yi_9b", "train_4k", 1),
                  "kvseq_model": ("yi_9b", "decode_32k", 4),
                  "ssd_chunk128": ("mamba2_370m", "prefill_32k", 1),
-                 "compress_pod": ("yi_9b", "train_4k", 4, True)}
+                 "compress_pod": ("yi_9b", "train_4k", 4, True),
+                 # the sequence-parallel stacks on one prefill over
+                 # (1, 2): the rule changes it (their other parts have
+                 # rows of their own; the sp train step is
+                 # test_torch_seqpar.py's)
+                 "sp": ("yi_9b", "prefill_32k", 2),
+                 "sp_od4": ("yi_9b", "prefill_32k", 2),
+                 "sp_od8": ("yi_9b", "prefill_32k", 2),
+                 "dots_sp": ("yi_9b", "prefill_32k", 2),
+                 "dots_sp_od4": ("yi_9b", "prefill_32k", 2),
+                 "dots_sp_od8": ("yi_9b", "prefill_32k", 2),
+                 "ssd_chunk128_dots_sp": ("yi_9b", "prefill_32k", 2)}
 
 
+@functools.lru_cache(maxsize=None)
 def _variant_counts(arch, shape, chips, multi_pod=False, *, variant):
     """One step's counts at batch 8, one attention block (fewer ops to
-    count; the variants change neither)."""
+    count; the variants change neither); a cell's baseline is counted
+    once for the variants that share it."""
     kw = dict(dryrun.VARIANTS[variant])
     kw["extra_flags"] = {"flash_block": 4096, **kw.get("extra_flags", {})}
     cell = dryrun.build_cell(arch, shape, chips=chips, probe=1, smoke=True,
@@ -392,7 +407,8 @@ def test_collectives_count_their_payloads(n):
         d = spmd.all_gather(x[:3], "model")           # 24·4
         e = spmd.all_to_all(x, "model", 0, 1, tiled=True)  # 32·4
         f = spmd.ppermute(x, "model", [(0, 1)])       # 32·4
-        return a + b + c[:1] + d[0, :1] + e[:1, :8] + f
+        g = spmd.psum_scatter(x, "model", 1)          # 32·4
+        return a + b + c[:1] + d[0, :1] + e[:1, :8] + f + g[:, :1]
     x = torch.empty((4 * n, 8), device=META)
     counter = opcount.Counter()
     with opcount.counting(counter):
@@ -401,7 +417,7 @@ def test_collectives_count_their_payloads(n):
         got = counter.shards[i].collectives
         assert got == {"all-reduce": (32 + 8 + 16) * 4, "all-gather": 96,
                        "all-to-all": 128, "collective-permute": 128,
-                       "reduce-scatter": 0}, (i, got)
+                       "reduce-scatter": 128}, (i, got)
     assert sum(counter.shards[None].collectives.values()) == 0
 
 
@@ -631,3 +647,4 @@ def test_counter_tracks_live_bytes_and_their_peak():
     top = counter.shards[None]
     assert top.live == 0
     assert counter.peak_with_caller[None] == 5 * 1024
+    assert counter.peak_all == 5 * 1024

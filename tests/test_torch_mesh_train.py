@@ -390,6 +390,8 @@ COLLECTIVES = {
     "all_to_all": (lambda x: spmd.all_to_all(x, "a", 1, 0, tiled=True),
                    lambda x: x.view(N, 3, N, 2).permute(2, 0, 1, 3)
                    .reshape(N, N * 3, 2)),
+    "psum_scatter": (lambda x: spmd.psum_scatter(x, "a", 1),
+                     lambda x: x.sum(0).view(3, N, 2).permute(1, 0, 2)),
 }
 
 
@@ -402,7 +404,8 @@ def test_collective_gradients_equal_autograd_of_one_device(name):
     body, plain = COLLECTIVES[name]
     mesh = spmd.Mesh([CPU] * N, (N,), ("a",))
     g = torch.Generator().manual_seed(1)
-    x = torch.randn((N, 3, 2 * N if name == "all_to_all" else 5),
+    x = torch.randn((N, 3, 2 * N if name in ("all_to_all", "psum_scatter")
+                     else 5),
                     generator=g, dtype=torch.float64)
     want_y = plain(x)
     cot = torch.randn(want_y.shape, generator=g, dtype=torch.float64)

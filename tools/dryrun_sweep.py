@@ -4,7 +4,8 @@ with ``repro_torch.launch.dryrun``, then write the roofline table of each
 level and the tuned configs. Needs no card.
 
     PYTHONPATH=src python tools/dryrun_sweep.py [--chips 8] [--workers 4]
-        [--levels baseline opt] [--only yi_9b] [--multi-pod] [--data 2]
+        [--levels baseline opt] [--only yi_9b] [--shapes train_4k]
+        [--multi-pod] [--data 2]
 
 Each cell runs in a worker process; its result (or the error it raised,
 under ``error``) goes to ``build/repro_torch/dryrun/
@@ -68,6 +69,8 @@ def main() -> int:
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--levels", nargs="+", default=["baseline", "opt"])
     ap.add_argument("--only", default=None, help="one architecture")
+    ap.add_argument("--shapes", nargs="+", default=None,
+                    help="only these shapes (e.g. train_4k prefill_32k)")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--data", type=int, default=1)
     args = ap.parse_args()
@@ -77,7 +80,8 @@ def main() -> int:
              result_path(RESULTS, arch, shape.name, args.chips, level,
                          **mesh))
             for level in args.levels for arch, shape in all_cells()
-            if args.only in (None, arch)]
+            if args.only in (None, arch)
+            and (args.shapes is None or shape.name in args.shapes)]
     cached = [j for j in jobs if _done(j[-1])]
     for arch, shape, _, level, _ in cached:
         print(f"{arch:24s} {shape:12s} {level:9s} cached", flush=True)

@@ -7,12 +7,14 @@ training state, about 31 GB a card) over ``("data", "model") = (1, 4)``;
 ``--mesh POD,DATA,MODEL`` trains over ``("pod", "data", "model")``
 instead, ``--zero`` with the moments and master split over ``data`` as
 well (ZeRO-1) and ``--compress`` with the int8 error-feedback reduction
-over ``pod`` (``compress_pod_grads``, residuals placed).
+over ``pod`` (``compress_pod_grads``, residuals placed). ``--sp`` trains
+under the rule ``{"act_seq": "model"}``: sequence parallelism, each card
+holding its slice of the sequence between the layers.
 ``chip_smoke.py`` phases 20, 22 and 24 train them cut to 12, 6 and 1
 layers over shards of one card.
 
     python3 tools/mesh_train_cards.py [--arch yi-9b] [--layers 48]
-        [--mesh 1,2,2] [--zero] [--compress]
+        [--mesh 1,2,2] [--zero] [--compress] [--sp]
         [--out chiprun_out/mesh_train_cards.json]
 
 For each depth (by default the config's) the state is drawn straight onto
@@ -114,16 +116,18 @@ def grad_cosines(host, grads, dev) -> dict:
 
 
 def train_depth(arch: str, layers: Optional[int], C, check, devices,
-                shape=None, zero: bool = False, compress: bool = False
-                ) -> dict:
+                shape=None, zero: bool = False, compress: bool = False,
+                sp: bool = False) -> dict:
     """Train ``layers`` of ``arch`` (None: all) over a (1, len(devices))
     mesh of ``devices``, or the ``("pod", "data", "model")`` mesh of
-    ``shape`` (the gradients held to one card's); the numbers and checks
-    of the module docstring."""
+    ``shape`` (the gradients held to one card's), with ``sp`` under the
+    sequence-parallel rule; the numbers and checks of the module
+    docstring."""
     from repro_torch import kernels as ops
     from repro_torch.configs import get_config
     from repro_torch.distributed import spmd
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.sharding import use_sharding
     from repro_torch.train import (TrainConfig, init_train_state,
                                    make_mesh_grad_fn, make_train_step)
     dev = devices[0]
@@ -139,7 +143,8 @@ def train_depth(arch: str, layers: Optional[int], C, check, devices,
     r = {"arch": cfg.name, "layers": layers,
          "config_layers": get_config(arch).n_layers,
          "devices": [str(d) for d in devices], "mesh": dict(mesh.shape),
-         "zero": zero, "compress": compress, "batch": bsz, "seq": seq,
+         "zero": zero, "compress": compress, "sp": sp, "batch": bsz,
+         "seq": seq,
          "remat": model.flags.remat, "steps": C.MESH_TRAIN_STEPS}
     cosines = shape is not None
     one = one_card_grads(C, arch, layers, batch, dev) if cosines else None
@@ -154,8 +159,10 @@ def train_depth(arch: str, layers: Optional[int], C, check, devices,
     r.update(C.state_shares(state, mesh))
     if compress:
         r.update(C.compressed_payload(state))
+    rules = {"act_seq": "model"} if sp else None
     if one is not None:
-        grads, met = make_mesh_grad_fn(model)(state.params, batch)
+        with use_sharding(mesh, rules):
+            grads, met = make_mesh_grad_fn(model)(state.params, batch)
         r.update(one_card_loss=one["loss"],
                  one_card_grad_norm=one["grad_norm"],
                  mesh_loss=float(met["ce"] + met["aux"]),
@@ -171,7 +178,7 @@ def train_depth(arch: str, layers: Optional[int], C, check, devices,
         ops.LAUNCHES[k] = 0
     losses, ms, rdv = [], [], []
     for _ in range(C.MESH_TRAIN_STEPS):
-        with C.counted_rendezvous() as count:
+        with C.counted_rendezvous() as count, use_sharding(mesh, rules):
             t0 = time.perf_counter()
             state, met = step(state, batch)
             sync_all()
@@ -237,6 +244,8 @@ def main() -> int:
                     help="POD,DATA,MODEL over the four cards")
     ap.add_argument("--zero", action="store_true")
     ap.add_argument("--compress", action="store_true")
+    ap.add_argument("--sp", action="store_true",
+                    help="sequence parallelism: the rule act_seq -> model")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "mesh_train_cards.json"))
     args = ap.parse_args()
@@ -264,7 +273,7 @@ def main() -> int:
         for layers in args.layers:
             try:
                 r = train_depth(args.arch, layers, C, check, devices, shape,
-                                args.zero, args.compress)
+                                args.zero, args.compress, args.sp)
                 out[f"layers_{r['layers']}"] = r
             except Exception:      # recorded; the next depth still runs
                 check(False, f"{layers} layers: {traceback.format_exc()}")

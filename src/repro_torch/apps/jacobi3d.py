@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.convert import to_numpy, to_torch
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.core import Runtime
+from repro_torch.core import Runtime, spans
 from repro_torch.distributed import spmd
 from repro_torch.distributed.collectives import halo_exchange_1d
 from repro_torch.distributed.collectives_rt import CollectiveGroup
@@ -91,23 +91,26 @@ def run_tasked(u0: np.ndarray, iters: int, runtime: Runtime,
     """Over-decomposed Jacobi on the heterogeneous tasking runtime. Chunks
     are hetero_objects; each iteration submits per-chunk face-extraction and
     update tasks whose dependencies the runtime infers — independent chunks
-    overlap automatically (the paper's Fig. 14 pipeline)."""
-    n_workers = len(runtime.devices)
-    plan = plan_decomposition(u0.shape, n_workers, over_decomposition)
-    chunks = {c.cid: runtime.hetero_object(
-        np.ascontiguousarray(u0[c.lo[0]:c.hi[0], c.lo[1]:c.hi[1],
-                                c.lo[2]:c.hi[2]]), name=f"chunk{c.cid}")
-        for c in plan.chunks}
-    # halo buffers per (chunk, face)
-    faces = {}
-    for c in plan.chunks:
-        s = c.shape
-        face_shapes = {"lo0": (s[1], s[2]), "hi0": (s[1], s[2]),
-                       "lo1": (s[0], s[2]), "hi1": (s[0], s[2]),
-                       "lo2": (s[0], s[1]), "hi2": (s[0], s[1])}
-        for tag, fs in face_shapes.items():
-            faces[(c.cid, tag)] = runtime.hetero_object(
-                np.zeros(fs, u0.dtype), name=f"halo{c.cid}:{tag}")
+    overlap automatically (the paper's Fig. 14 pipeline). The chunking
+    and objects' creation, the sweeps and the gather are spans
+    (``jacobi.upload``, ``jacobi.sweeps``, ``jacobi.download``)."""
+    with spans.span("jacobi.upload"):
+        n_workers = len(runtime.devices)
+        plan = plan_decomposition(u0.shape, n_workers, over_decomposition)
+        chunks = {c.cid: runtime.hetero_object(
+            np.ascontiguousarray(u0[c.lo[0]:c.hi[0], c.lo[1]:c.hi[1],
+                                    c.lo[2]:c.hi[2]]), name=f"chunk{c.cid}")
+            for c in plan.chunks}
+        # halo buffers per (chunk, face)
+        faces = {}
+        for c in plan.chunks:
+            s = c.shape
+            face_shapes = {"lo0": (s[1], s[2]), "hi0": (s[1], s[2]),
+                           "lo1": (s[0], s[2]), "hi1": (s[0], s[2]),
+                           "lo2": (s[0], s[1]), "hi2": (s[0], s[1])}
+            for tag, fs in face_shapes.items():
+                faces[(c.cid, tag)] = runtime.hetero_object(
+                    np.zeros(fs, u0.dtype), name=f"halo{c.cid}:{tag}")
 
     # kernels created once → the device's kernel cache hits across iterations
     def make_face_kernel(tag: str):
@@ -130,33 +133,36 @@ def run_tasked(u0: np.ndarray, iters: int, runtime: Runtime,
     opposite = {"lo0": "hi0", "hi0": "lo0", "lo1": "hi1", "hi1": "lo1",
                 "lo2": "hi2", "hi2": "lo2"}
 
-    for _ in range(iters):
-        # 1) extract + "send" faces into the neighbour's halo buffers (put)
-        for c in plan.chunks:
-            nb = plan.neighbors(c.cid)
-            for tag, other in nb.items():
-                if other is None:
-                    continue
-                runtime.run(
-                    face_kernels[tag],
-                    [(chunks[c.cid], "r"),
-                     (faces[(other, opposite[tag])], "w")],
-                    name=f"halo{c.cid}->{other}")
-        # 2) update each chunk from its halo buffers
-        for c in plan.chunks:
-            args = [(chunks[c.cid], "rw")]
-            for tag in ("lo0", "hi0", "lo1", "hi1", "lo2", "hi2"):
-                args.append((faces[(c.cid, tag)], "r"))
-            runtime.run(update_kernel, args, name=f"update{c.cid}")
-        # iteration edge: the window delimiter task-graph replay keys
-        # recurrence detection on (a no-op unless trace_graphs is set)
-        runtime.step_boundary()
-    runtime.barrier(timeout=600)
+    with spans.span("jacobi.sweeps"):
+        for _ in range(iters):
+            # 1) extract + "send" faces into the neighbour's halo buffers
+            # (put)
+            for c in plan.chunks:
+                nb = plan.neighbors(c.cid)
+                for tag, other in nb.items():
+                    if other is None:
+                        continue
+                    runtime.run(
+                        face_kernels[tag],
+                        [(chunks[c.cid], "r"),
+                         (faces[(other, opposite[tag])], "w")],
+                        name=f"halo{c.cid}->{other}")
+            # 2) update each chunk from its halo buffers
+            for c in plan.chunks:
+                args = [(chunks[c.cid], "rw")]
+                for tag in ("lo0", "hi0", "lo1", "hi1", "lo2", "hi2"):
+                    args.append((faces[(c.cid, tag)], "r"))
+                runtime.run(update_kernel, args, name=f"update{c.cid}")
+            # iteration edge: the window delimiter task-graph replay keys
+            # recurrence detection on (a no-op unless trace_graphs is set)
+            runtime.step_boundary()
+        runtime.barrier(timeout=600)
 
-    out = np.empty_like(u0)
-    for c in plan.chunks:
-        out[c.lo[0]:c.hi[0], c.lo[1]:c.hi[1], c.lo[2]:c.hi[2]] = \
-            chunks[c.cid].get()
+    with spans.span("jacobi.download"):
+        out = np.empty_like(u0)
+        for c in plan.chunks:
+            out[c.lo[0]:c.hi[0], c.lo[1]:c.hi[1], c.lo[2]:c.hi[2]] = \
+                chunks[c.cid].get()
     return out
 
 

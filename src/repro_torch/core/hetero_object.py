@@ -18,7 +18,7 @@ from typing import Any, Dict, Optional, Set, Tuple
 import numpy as np
 
 from repro_torch.convert import torch_dtype
-from repro_torch.core import sanitizer
+from repro_torch.core import sanitizer, spans
 from repro_torch.core.futures import HFuture
 
 HOST = -1
@@ -99,6 +99,7 @@ class HeteroObject:
     def release(self) -> None:
         self._rt._release_host(self)
 
+    @spans.spanned("runtime.get")
     def get(self, timeout: Optional[float] = None) -> np.ndarray:
         """Convenience: request, wait, copy out, release. A bfloat16 object
         raises ``TypeError`` where numpy has no bfloat16 registered."""

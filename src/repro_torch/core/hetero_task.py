@@ -78,6 +78,8 @@ class HeteroTask:
         self.unresolved: int = 0
         self.dependents: List["HeteroTask"] = []
         self.chosen_device: Optional[int] = None
+        # the request it serves (core/spans.py), set at submit
+        self.request: Optional[int] = None
 
     # chained API -----------------------------------------------------------
     class _ArgMode:

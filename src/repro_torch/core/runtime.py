@@ -84,7 +84,7 @@ from repro_torch.convert import numpy_dtype
 from repro_torch.core import clock
 from repro_torch.core import dependency as dep
 from repro_torch.core import device_api
-from repro_torch.core import sanitizer
+from repro_torch.core import sanitizer, spans
 from repro_torch.core.device_api import Device, TorchDevice, discover_devices
 from repro_torch.core.futures import HFuture
 from repro_torch.core.hetero_object import HOST, HeteroObject
@@ -230,6 +230,7 @@ class RuntimeConfig:
 
 
 class Runtime:
+    @spans.spanned("runtime.init")
     def __init__(self, config: Optional[RuntimeConfig] = None,
                  devices: Optional[List[Device]] = None):
         self.cfg = config or RuntimeConfig()
@@ -257,8 +258,9 @@ class Runtime:
         self.scheduler.bind_residency(self.residency)
         self.scheduler.bind_topology(self.topology)
         if self.cfg.topology_probe:
-            probe_runtime_links(self.topology, self.devices,
-                                self.cfg.topology_probe_bytes)
+            with spans.span("topology.probe"):
+                probe_runtime_links(self.topology, self.devices,
+                                    self.cfg.topology_probe_bytes)
         # page-locked staging buffers wherever a card does the copies
         self.staging = StagingPool(
             self.cfg.staging_pool,
@@ -275,7 +277,9 @@ class Runtime:
                        "graphs_traced": 0, "graph_replays": 0,
                        "graph_invalidations": 0, "replayed_tasks": 0,
                        "lineage_recomputes": 0, "recompute_depth_peak": 0,
-                       "task_retries": 0, "tasks_failed": 0}
+                       "task_retries": 0, "tasks_failed": 0,
+                       "graph_captures": 0, "objects_adopted": 0,
+                       "bytes_adopted": 0}
         # lineage ledger: producer records for lost-replica recovery
         self.lineage: Optional[LineageLedger] = (
             LineageLedger() if self.cfg.lineage_depth > 0 else None)
@@ -320,6 +324,8 @@ class Runtime:
         with obj.lock:
             obj.copies[device_id] = dev_array
             self.residency.record(device_id, obj)
+        self._stats["objects_adopted"] += 1
+        self._stats["bytes_adopted"] += obj.nbytes
         return obj
 
     def rebind_device_copy(self, obj: HeteroObject, dev_array: Any,
@@ -365,8 +371,10 @@ class Runtime:
         return self.residency.least_loaded_device(pressure, among=ids)
 
     def submit(self, task: HeteroTask, kernel: Callable) -> HFuture:
-        """Enqueue an execution request; returns the task's future."""
+        """Enqueue an execution request; returns the task's future. The
+        task carries the request open on this thread to its worker."""
         task.kernel = kernel
+        task.request = spans.current_request()
         tracer = self._tracer
         if tracer is not None:
             with self._lock:
@@ -377,9 +385,10 @@ class Runtime:
             # (skipping pins / dependency inference / scheduling) or
             # tells us to run it interpreted while it records the window
             if not tracer.on_submit(task, kernel):
-                self._enqueue(task)
+                with spans.span("runtime.submit", task=task.id):
+                    self._enqueue(task)
             return task.future
-        with self._lock:
+        with spans.span("runtime.submit", task=task.id), self._lock:
             task.state = TaskState.SUBMITTED
             self._tasks_pending += 1
             self._stats["tasks"] += 1
@@ -434,6 +443,7 @@ class Runtime:
         self.submit(t, kernel)
         return t
 
+    @spans.spanned("runtime.barrier")
     def barrier(self, timeout: Optional[float] = 120.0) -> None:
         """Wait until every submitted task has retired."""
         if self._tracer is not None:
@@ -475,6 +485,7 @@ class Runtime:
             s["sanitizer"] = san.stats_snapshot()
         return s
 
+    @spans.spanned("runtime.shutdown")
     def shutdown(self) -> None:
         with self._lock:
             self._shutdown = True
@@ -1015,7 +1026,12 @@ class Runtime:
                 continue
             task, dev = item
             try:
-                handle = self._launch(task, dev, pmap)
+                # timed on the card's compute stream, where the kernel runs
+                with spans.span("runtime.launch", request=task.request,
+                                stream=getattr(self._device(dev),
+                                               "compute_stream", None),
+                                task=task.id):
+                    handle = self._launch(task, dev, pmap)
             except BaseException as e:
                 # bounded relaunch (cfg.task_retries) before the error
                 # surfaces: injected kernel faults / transient device

@@ -80,7 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import kernels
-from repro_torch.core import device_api, sanitizer
+from repro_torch.core import device_api, sanitizer, spans
 from repro_torch.core.device_api import TorchDevice
 from repro_torch.core.hetero_object import HOST
 from repro_torch.core.hetero_task import HeteroTask, TaskState
@@ -322,9 +322,8 @@ class GraphTracer:
         """Compile the just-executed window into a TracedGraph. The
         window's tasks ran interpreted; waiting on their futures captures
         the scheduler's placement decisions and guarantees the residency
-        snapshot below describes the steady state a replayed window
-        starts from."""
-        rt = self.rt
+        snapshot ``_build`` takes describes the steady state a replayed
+        window starts from."""
         tasks = [t for t, _ in window]
         try:
             for t in tasks:
@@ -334,6 +333,12 @@ class GraphTracer:
             return
         if any(t.chosen_device is None for t in tasks):
             return
+        self._build(window, key)
+
+    @spans.spanned("taskgraph.compile")
+    def _build(self, window, key) -> None:
+        """The TracedGraph of ``window``, whose tasks have all run."""
+        rt = self.rt
         # slots by first occurrence across the window
         slot_of: Dict[int, int] = {}
         objects: List[Any] = []
@@ -397,6 +402,7 @@ class GraphTracer:
         rt._stats["graphs_traced"] += 1
 
     # -- chain dispatch --------------------------------------------------
+    @spans.spanned("taskgraph.capture")
     def _capture(self, dev: TorchDevice, ch: _Chain, inputs) -> None:
         """Capture ``ch`` on ``inputs`` (the window objects' own tensors)
         as a CUDA graph on the device's compute stream. The capture runs
@@ -419,6 +425,7 @@ class GraphTracer:
                 gc.enable()
         ch.graph, ch.static_in, ch.static_out = graph, tuple(inputs), outs
         ch.launches = launches
+        self.rt._stats["graph_captures"] += 1
 
     def _dispatch(self, ch: _Chain, inputs) -> Tuple[Any, ...]:
         """Run one chain on ``inputs``: eagerly on a CPU device; on a CUDA
@@ -449,6 +456,7 @@ class GraphTracer:
         kernels.add_launches(ch.launches)
         return ch.static_out
 
+    @spans.spanned("taskgraph.replay")
     def _replay_locked(self) -> None:
         """Execute the whole parked window as one replay dispatch."""
         rt, g = self.rt, self._graph

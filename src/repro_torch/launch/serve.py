@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs import canon, get_config, get_smoke_config
+from repro_torch.core import spans
 from repro_torch.distributed import spmd
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model, build_smoke
@@ -94,20 +95,25 @@ class Engine:
         prefill), and with ``logits`` the last position's logits [B,1,V].
         ``extra`` (``{"vision_embeds": [B, n_tok, D]}``, or an
         encoder-decoder's ``{"frames": [B, T, D]}``) joins the prefill's
-        batch. On a mesh the cache's leaves are ``spmd.Sharded``."""
+        batch. On a mesh the cache's leaves are ``spmd.Sharded``. The
+        batch is one request (``engine.prefill``, ``core/spans.py``)."""
         b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(f"prompt of {s} tokens exceeds max_len "
                              f"{self.max_len}")
-        if self.mesh is not None:
-            cache = init_mesh_cache(self.model, b, self.max_len, self.mesh)
-        else:
-            cache = self.model.init_cache(b, self.max_len, tokens.device)
-        nxt, cache, last = self._prefill(
-            self.params, {**(extra or {}), "tokens": tokens}, cache)
-        if logits:
-            return _whole(nxt), cache, _whole(last)
-        return _whole(nxt), cache
+        with spans.request("engine.prefill", batch=b, tokens=s):
+            with spans.span("engine.init_cache"):
+                if self.mesh is not None:
+                    cache = init_mesh_cache(self.model, b, self.max_len,
+                                            self.mesh)
+                else:
+                    cache = self.model.init_cache(b, self.max_len,
+                                                  tokens.device)
+            nxt, cache, last = self._prefill(
+                self.params, {**(extra or {}), "tokens": tokens}, cache)
+            if logits:
+                return _whole(nxt), cache, _whole(last)
+            return _whole(nxt), cache
 
     @torch.no_grad()
     def decode(self, cache: Dict[str, torch.Tensor], cur: torch.Tensor,

@@ -50,6 +50,7 @@ from torch import nn
 
 from repro_torch.configs.base import (GLOBAL_ATTN, LOCAL_ATTN, RGLRU, SSD,
                                       ModelConfig)
+from repro_torch.core import spans
 from repro_torch.distributed import spmd
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -240,7 +241,8 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
     load-balance loss, a float32 zero for any other layer. Train mode
     takes no forward-only kernel (``Flags``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    with spans.span("model.norm"):
+        h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == SSD:
         mix, new_cache = S.ssd_layer(p["ssd"], h, scfg=cfg.ssm, mode=mode,
                                      cache=cache,
@@ -250,19 +252,22 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
         mix, new_cache = R.rglru_layer(p["rglru"], h, rcfg=cfg.rglru,
                                        mode=mode, cache=cache)
     else:
-        mix, new_cache = A.attention_layer(
-            p["attn"], h, kind=kind, window=cfg.window,
-            rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads, mode=mode,
-            lengths=lengths, cache=cache,
-            use_kernel=flags.use_flash_kernel,
-            flash_block=flags.flash_block)
+        with spans.span("model.attention"):
+            mix, new_cache = A.attention_layer(
+                p["attn"], h, kind=kind, window=cfg.window,
+                rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads,
+                mode=mode, lengths=lengths, cache=cache,
+                use_kernel=flags.use_flash_kernel,
+                flash_block=flags.flash_block)
     x = x + mix
-    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    if "moe" in p:
-        moe = M.moe_ep if flags.moe_mode == "ep" else M.moe_dense
-        y, aux = moe(p["moe"], h, cfg.moe, cfg.gated_mlp)
-    else:
-        y = L.mlp_apply(p["mlp"], h, cfg.gated_mlp)
+    with spans.span("model.norm"):
+        h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    with spans.span("model.mlp"):
+        if "moe" in p:
+            moe = M.moe_ep if flags.moe_mode == "ep" else M.moe_dense
+            y, aux = moe(p["moe"], h, cfg.moe, cfg.gated_mlp)
+        else:
+            y = L.mlp_apply(p["mlp"], h, cfg.gated_mlp)
     return x + y, new_cache, aux
 
 
@@ -535,6 +540,7 @@ def _embed_inputs(p: Dict[str, Any], cfg: ModelConfig,
     return constrain(x, "act_batch", "act_seq", "act_embed")
 
 
+@spans.spanned("model.forward")
 def lm_apply(params, batch: Dict[str, torch.Tensor], *,
              cfg: ModelConfig, mode: str, flags: Flags = DEFAULT_FLAGS,
              cache: Optional[Dict[str, Any]] = None):
@@ -582,7 +588,8 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
                 # a layer that wrote its cache view in place returns it
                 if v is not c_in[k]:
                     c_in[k].copy_(v)
-    x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    with spans.span("model.norm"):
+        x = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
     if train:
         return x, None, aux
     if cache is None:
@@ -594,6 +601,7 @@ def lm_apply(params, batch: Dict[str, torch.Tensor], *,
     return x, cache
 
 
+@spans.spanned("model.unembed")
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits for a (small) x. [B,S,D] -> [B,S,V]; inside a ``shard_map``
     body, the shard's slice of the vocabulary [B,S,V/tp] where the

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import spans
 from repro_torch.distributed import spmd
 from repro_torch.models.layers import TP_AXIS
 from repro_torch.models.model_zoo import Model
@@ -243,46 +244,49 @@ def tasked_decode_loop(runtime, model: Model, params, cache, tokens,
     written in place, not copied). Returns ``(tokens_obj, lengths_obj,
     cache_objs)`` after the loop's barrier; ``cache_objs`` maps each cache
     leaf's dotted path (``"k"``, ``"periods.5.v"``,
-    ``"decoder.cross.k"``) to its object."""
+    ``"decoder.cross.k"``) to its object. The call is one request
+    (``serve.generation``, ``core/spans.py``)."""
     if serving_mesh(model) is not None or any(
             isinstance(t, spmd.Sharded) for t in (tokens, lengths)):
         raise NotImplementedError(f"tasked_decode_loop on a mesh is "
                                   f"{_NOT_PORTED}")
-    decode = make_decode_step(model)
-    tree = params.tree() if isinstance(params, ParamTree) else params
-    named = flatten(tree)
-    names = [n for n, _ in named]
-    n_p = len(named)
-    c_named = flatten(cache)
-    keys = [n for n, _ in c_named]
-    dev = _device_id(runtime, tokens.device)
-    p_objs = [runtime.adopt_device_array(t, dev, name=f"dec-p:{n}")
-              for n, t in named]
-    c_objs = {key: runtime.adopt_device_array(t, dev,
-                                              name=f"dec-cache:{key}")
-              for key, t in c_named}
-    tok_obj = runtime.adopt_device_array(tokens, dev, name="dec-tok")
-    len_obj = runtime.adopt_device_array(lengths, dev, name="dec-len")
+    with spans.request("serve.generation", steps=n_steps):
+        decode = make_decode_step(model)
+        tree = params.tree() if isinstance(params, ParamTree) else params
+        named = flatten(tree)
+        names = [n for n, _ in named]
+        n_p = len(named)
+        c_named = flatten(cache)
+        keys = [n for n, _ in c_named]
+        dev = _device_id(runtime, tokens.device)
+        with spans.span("serve.adopt"):
+            p_objs = [runtime.adopt_device_array(t, dev, name=f"dec-p:{n}")
+                      for n, t in named]
+            c_objs = {key: runtime.adopt_device_array(t, dev,
+                                                      name=f"dec-cache:{key}")
+                      for key, t in c_named}
+            tok_obj = runtime.adopt_device_array(tokens, dev, name="dec-tok")
+            len_obj = runtime.adopt_device_array(lengths, dev, name="dec-len")
 
-    # one kernel object for the whole loop: the device's launcher cache
-    # hits every step
-    def step_kernel(tok, lens, *leaves):
-        params_ = _unflatten(names, leaves[:n_p])
-        cache_ = _unflatten(keys, leaves[n_p:])
-        new_tok, new_cache = decode(params_, cache_, tok, lens)
-        new_c = dict(flatten(new_cache))
-        # outputs bind to the write-args in arg order: tok, lens, cache
-        return (new_tok, lens + 1, *(new_c[k] for k in keys))
+        # one kernel object for the whole loop: the device's launcher cache
+        # hits every step
+        def step_kernel(tok, lens, *leaves):
+            params_ = _unflatten(names, leaves[:n_p])
+            cache_ = _unflatten(keys, leaves[n_p:])
+            new_tok, new_cache = decode(params_, cache_, tok, lens)
+            new_c = dict(flatten(new_cache))
+            # outputs bind to the write-args in arg order: tok, lens, cache
+            return (new_tok, lens + 1, *(new_c[k] for k in keys))
 
-    args = ([(tok_obj, "rw"), (len_obj, "rw")]
-            + [(o, "r") for o in p_objs]
-            + [(c_objs[k], "rw") for k in keys])
-    for _ in range(n_steps):
-        runtime.run(step_kernel, args, device_type=device_type,
-                    name="decode_step")
-        runtime.step_boundary()
-    runtime.barrier(timeout=timeout)
-    return tok_obj, len_obj, c_objs
+        args = ([(tok_obj, "rw"), (len_obj, "rw")]
+                + [(o, "r") for o in p_objs]
+                + [(c_objs[k], "rw") for k in keys])
+        for _ in range(n_steps):
+            runtime.run(step_kernel, args, device_type=device_type,
+                        name="decode_step")
+            runtime.step_boundary()
+        runtime.barrier(timeout=timeout)
+        return tok_obj, len_obj, c_objs
 
 
 def abstract_params(model: Model) -> Dict[str, Any]:

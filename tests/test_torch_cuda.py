@@ -823,6 +823,65 @@ def test_capture_failure_fails_the_window(cuda):
     assert st["graph_invalidations"] == 1
 
 
+def test_spans_leave_a_captured_decode_bit_for_bit(cuda, monkeypatch):
+    """The yi-9b smoke decode loop under trace_graphs recording spans
+    replays bit for bit as with recording off: the spans record no CUDA
+    event while the capture runs, and the interpreted steps' attention
+    layers get their device times."""
+    import contextlib
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import spans
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    from repro_torch.serve import tasked_decode_loop
+    cfg = get_smoke_config("yi-9b")
+    model = build_smoke(cfg, use_flash_kernel=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    nxt, cache = Engine(model, params, 2, 80).prefill(toks)
+    record = torch.cuda.Event.record
+    in_capture = {False: 0, True: 0}
+    on = False
+
+    def watched(self, stream=None):
+        in_capture[on] += torch.cuda.is_current_stream_capturing()
+        return record(self, stream)
+    monkeypatch.setattr(torch.cuda.Event, "record", watched)
+    out = {}
+    for on in (False, True):
+        c = {k: v.clone() for k, v in cache.items()}
+        with spans.recording() if on else contextlib.nullcontext():
+            with Runtime(RuntimeConfig(trace_graphs=True)) as rt:
+                tok, lens, c_objs = tasked_decode_loop(
+                    rt, model, params, c, nxt.clone(),
+                    torch.full((2,), 64, dtype=torch.int32, device=cuda), 10)
+                out[on] = (tok.get(), lens.get(),
+                           {k: c_objs[k].get() for k in c})
+                st = rt.stats()
+        assert st["graph_captures"] == 1 and st["graph_replays"] == 10 - 3
+    assert in_capture[True] == in_capture[False]
+    for a, b in zip(out[True][:2], out[False][:2], strict=True):
+        np.testing.assert_array_equal(a, b)
+    for k in cache:
+        np.testing.assert_array_equal(out[True][2][k], out[False][2][k])
+    recs = spans.records()
+    cap, = [r for r in recs if r.name == "taskgraph.capture"]
+    captured = [r for r in recs if r.name.startswith("model.")
+                and cap.start_ns <= r.start_ns <= r.end_ns <= cap.end_ns]
+    assert captured and all(r.device_ms is None for r in captured)
+    timed = [r for r in recs if r.name == "model.attention"
+             and r.device_ms is not None]
+    assert len(timed) == 3 * cfg.n_layers
+    assert all(r.device_ms > 0 for r in timed)
+    # a worker's launch is timed on the card's compute stream
+    launches = [r for r in recs if r.name == "runtime.launch"]
+    assert len(launches) == 3
+    assert all(r.device_ms is not None and r.device_ms > 0
+               for r in launches)
+
+
 # ---------------------------------------------------------------------------
 # the SPMD path and gemma3 serving on the card
 # ---------------------------------------------------------------------------

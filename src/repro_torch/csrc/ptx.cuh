@@ -1,8 +1,8 @@
 // Inline PTX shared by the kernels that feed Hopper's tensor cores and
 // pipeline their loads: 16-byte cp.async copies with commit/wait groups,
-// ldmatrix and the bf16 m16n8k16 mma.sync (sm_80 and later); mbarriers, TMA
-// tensor loads, wgmma descriptors and groups, and setmaxnreg (sm_90a); and
-// the host-side lookup of the driver's tensor-map encoder.
+// ldmatrix, movmatrix and the bf16 m16n8k16 mma.sync (sm_80 and later);
+// mbarriers, TMA tensor loads, wgmma descriptors and groups, and setmaxnreg
+// (sm_90a); and the host-side lookup of the driver's tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
@@ -72,6 +72,17 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 8x8 b16 matrix the warp holds in the mma layout (lane holds row
+// lane/4, columns 2*(lane%4) + {0, 1}) transposed: the lane receives rows
+// 2*(lane%4) + {0, 1}, column lane/4 of `a`'s matrix.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d)
+               : "r"(a));
+  return d;
 }
 
 // Two floats rounded to nearest even into one bf16 pair (x in the low half).

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels (CUDA C++ under ``repro_torch/csrc``) for the
-Pallas TPU kernels of ``repro.kernels``, each beside its plain PyTorch
-version. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.
+Pallas TPU kernels of ``repro.kernels``, and one that replaces none (decode
+attention against the KV cache), each beside its plain PyTorch version. A
+CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
@@ -14,9 +15,9 @@ of one call at its operands' shapes (each input read once, each output
 written once), which ``chip_smoke.py`` bounds a kernel's time by and the
 dry-run's counter (``repro_torch.opcount``) adds per launch. A ``meta``
 tensor takes the card's route through the model's kernels (flash
-attention, SSD) without launching: the wrapper returns empty outputs of
-the kernel's shapes and records the launch and its cost with the active
-counter only.
+attention, decode attention, SSD) without launching: the wrapper returns
+empty outputs of the kernel's shapes and records the launch and its cost
+with the active counter only.
 """
 import contextlib
 import threading
@@ -25,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 LAUNCHES = {"jacobi3d": 0, "jacobi3d_faces": 0, "matmul": 0,
-            "flash_attention": 0, "ssd_chunk": 0}
+            "flash_attention": 0, "ssd_chunk": 0, "decode_attention": 0}
 _launch_lock = threading.Lock()
 _capturing = threading.local()
 

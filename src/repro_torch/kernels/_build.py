@@ -46,6 +46,9 @@ SIGNATURES = {
         "flash_attention_f32": [_P] * 4 + [_I] * 7 + [_F, _P],
         "flash_attention_bf16": [_P] * 4 + [_I] * 7 + [_F, _P],
     },
+    "decode_attention": {
+        "decode_attention_bf16": [_P] * 7 + [_I] * 10 + [_F, _P],
+    },
     "ssd": {
         "ssd_chunk_f32": [_P] * 8 + [_I] * 5 + [_P],
         "ssd_workspace_floats": [_I, _I, _I, _P],

@@ -7,6 +7,8 @@ counts the kernel launches of each wrapper.
 from __future__ import annotations
 
 from repro_torch.kernels import LAUNCHES  # noqa: F401
+from repro_torch.kernels.decode_attention import (  # noqa: F401
+    decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention, flash_attention_gqa, flash_attention_plain)
 from repro_torch.kernels.jacobi3d import (jacobi3d,  # noqa: F401

@@ -13,7 +13,8 @@
 - ``window_attention``: exact sliding-window attention via block-banded
   computation (each query block attends to itself + previous block), for
   ``local_attn`` layers.
-- ``decode_attention``: one new token against a KV cache, with a
+- ``decode_attention``: one new token against a KV cache, in plain torch
+  (the CPU's route, cross-attention and anything autograd records), with a
   sequence-sharded variant (``seq_sharded_decode``: logsumexp partials
   combined over a mesh axis of ``distributed.spmd``). Inside a
   ``shard_map`` body whose cache blocks hold a slice of the slots
@@ -23,6 +24,11 @@
   the body splits the activations' sequence (``sharding.split_sequence``)
   ``attention_layer`` gathers it before its projections and
   reduce-scatters ``wo``'s sums.
+- ``KD.decode_attention`` (``kernels/decode_attention.py``): the
+  hand-written CUDA kernel that reads a self-attention cache where it lies,
+  only each row's valid slots, taken in decode when ``use_kernel`` is set
+  for a bf16 cache on the card whose slots are not split
+  (``_takes_decode_kernel``). It replaces no Pallas kernel.
 
 The JAX package computes the blockwise, window and decode paths outside
 any Pallas kernel, and so they are plain torch here, with float32 scores.
@@ -44,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import spmd
+from repro_torch.kernels import decode_attention as KD
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_gqa
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (active_mesh, constrain, is_split,
@@ -389,6 +396,21 @@ def _write_slot(block: torch.Tensor, slot: torch.Tensor,
                                    block[rows, idx])
 
 
+def _takes_decode_kernel(use_kernel: bool, q: torch.Tensor,
+                         cache: torch.Tensor) -> bool:
+    """Whether a decode step's self-attention against ``cache`` [B,T,K,D]
+    (whole along its slots) goes through the hand-written kernel
+    (``kernels/decode_attention.py``): with ``use_kernel`` set, bf16 q and
+    cache on the card (or ``meta``, the dry-run's stand-in), heads the
+    kernel takes (D % 8 == 0, D <= 256, G <= 16) and nothing that
+    autograd records. A CPU cache keeps ``decode_attention``."""
+    d, g = q.shape[-1], q.shape[2]
+    return (use_kernel and cache.device.type in ("cuda", "meta")
+            and q.dtype == cache.dtype == torch.bfloat16
+            and d % 8 == 0 and d <= KD.MAX_D and g <= KD.MAX_G
+            and not L.records(q, cache))
+
+
 def _seq_split_decode(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, valid: torch.Tensor,
                       own) -> torch.Tensor:
@@ -535,7 +557,12 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     takes a prefill's causal attention with T = S and S % 128 == 0 and no
     mask; the rest goes the blockwise way, and so does train mode, which
     never takes the forward-only kernel (the JAX model trains with
-    ``use_pallas`` off).
+    ``use_pallas`` off). In decode it also takes self-attention against a
+    bf16 cache on the card whose slots are not split through the decode
+    kernel, over the valid prefix ``n = pos + 1`` (a ring: ``min(pos + 1,
+    t)``; softmax does not depend on the slots' order); a CPU cache,
+    ``kv_override`` and the sequence-split partials keep
+    ``decode_attention``.
 
     Inside a ``shard_map`` body whose weights split ``heads``
     (``sharding.is_split``) the layer runs on its shard's blocks: the
@@ -636,20 +663,24 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
             slot = pos % t if local else pos
             _write_slot(cache["k"], slot, k[:, 0])
             _write_slot(cache["v"], slot, v[:, 0])
-            iota = torch.arange(cache["k"].shape[1], device=x.device)
-            if kv_seq_axis(cache["k"]) is not None:
-                iota = iota + _slot_offset(cache["k"])
-            iota = iota[None, :]
-            if local:
-                valid = iota < torch.clamp(pos + 1, max=t)[:, None]
+            # the valid slots are a prefix: [0, pos] of a global layer, of
+            # a ring all that have been written
+            n = torch.clamp(pos + 1, max=t) if local else pos + 1
+            kc, vc = own(cache["k"]), own(cache["v"])
+            if kv_seq_axis(cache["k"]) is None \
+                    and _takes_decode_kernel(use_kernel, qd, kc):
+                out = KD.decode_attention(
+                    qd.contiguous(), kc, vc, n.to(torch.int32))[:, None]
             else:
-                valid = iota <= pos[:, None]
-            if kv_seq_axis(cache["k"]) is not None:
-                out = _seq_split_decode(q, cache["k"], cache["v"], valid,
-                                        own)
-            else:
-                out = decode_attention(qd, own(cache["k"]), own(cache["v"]),
-                                       valid=valid)[:, None]
+                iota = torch.arange(cache["k"].shape[1], device=x.device)
+                if kv_seq_axis(cache["k"]) is not None:
+                    iota = iota + _slot_offset(cache["k"])
+                valid = iota[None, :] < n[:, None]
+                if kv_seq_axis(cache["k"]) is not None:
+                    out = _seq_split_decode(q, cache["k"], cache["v"], valid,
+                                            own)
+                else:
+                    out = decode_attention(qd, kc, vc, valid=valid)[:, None]
             new_cache = cache
     else:
         raise ValueError(mode)

@@ -196,11 +196,14 @@ def _dec_block(p, x: torch.Tensor, *, cfg: ModelConfig, mode: str,
     Without a cache a prefill returns new ones (self of length S, cross
     of length T)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    # the JAX package's decoder passes no use_pallas: the blockwise path
+    # the JAX package's decoder passes no use_pallas: the blockwise path in
+    # prefill; decode's self-attention takes the decode kernel, which
+    # replaces no Pallas kernel, as every self-attention cache does
     mix, new_self = A.attention_layer(
         p["self_attn"], h, kind="global_attn", rope_theta=0.0,
         n_kv_heads=cfg.n_kv_heads, mode=mode, lengths=lengths,
         cache=None if cache is None else cache["self"], use_rope=False,
+        use_kernel=flags.use_flash_kernel and mode == "decode",
         flash_block=flags.flash_block)
     x = x + mix
     h = L.rms_norm(x, p["norm_x"], cfg.norm_eps)

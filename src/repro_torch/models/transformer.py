@@ -67,8 +67,10 @@ class Flags:
     ``use_flash_kernel`` is the counterpart of the JAX package's
     ``use_pallas_flash``: causal global self-attention with S a multiple
     of 128 goes through the hand-written CUDA kernel (its plain version on
-    a CPU tensor) in prefill. It is on in ``DEFAULT_FLAGS``, the serving
-    path on the card. Train mode never takes a forward-only kernel: the
+    a CPU tensor) in prefill, and a decode step's self-attention against
+    a bf16 cache on the card through the decode kernel, which replaces no
+    Pallas kernel (``attention.attention_layer``). It is on in
+    ``DEFAULT_FLAGS``, the serving path on the card. Train mode never takes a forward-only kernel: the
     Pallas kernel has no backward, and the JAX model's defaults
     (``use_pallas_flash`` False) train on the blockwise path, so global
     attention in train mode takes the plain blockwise path whatever this

@@ -771,13 +771,19 @@ def _wrapper_cases(dev):
         "ssd_chunk": (ops.ssd_chunk,
                       (r(2, 32, 2, 16), r(2, 32, 2).abs() * 0.1,
                        -r(2).abs(), r(2, 32, 8), r(2, 32, 8))),
+        "decode_attention": (ops.decode_attention,
+                             (r(2, 2, 4, 64, dtype=bf),
+                              r(2, 300, 2, 64, dtype=bf),
+                              r(2, 300, 2, 64, dtype=bf),
+                              torch.tensor([1, 257], dtype=torch.int32,
+                                           device=dev))),
     }
 
 
 @pytest.mark.parametrize("name", ["jacobi3d", "jacobi3d_faces", "matmul_f32",
                                   "matmul_bf16_tma", "flash_bf16",
                                   "flash_bf16_d256", "flash_f32_d256",
-                                  "ssd_chunk"])
+                                  "ssd_chunk", "decode_attention"])
 def test_each_wrapper_replays_under_cuda_graph_capture(cuda, name):
     """Every kernel wrapper stays legal under stream capture (no host sync,
     no allocation outside the graph's pool; the TMA descriptors of the bf16
@@ -1021,6 +1027,137 @@ def test_attention_products_on_bf16_operands_match_the_upcast(cuda,
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
+
+
+# (G, D) of every configuration's self-attention decode, and more
+DECODE_HEADS = [(8, 128), (3, 128), (4, 128), (5, 128), (2, 128), (1, 128),
+                (1, 64), (16, 256), (16, 128), (7, 8), (9, 64)]
+
+
+def _decode_operands(dev, b, t, kh, g, d, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev).bfloat16()
+            for s in ((b, kh, g, d), (b, t, kh, d), (b, t, kh, d))]
+
+
+@pytest.mark.parametrize("g,d", DECODE_HEADS)
+def test_decode_attention_kernel_close_to_plain(cuda, g, d):
+    """The decode kernel against its plain version on the card (the same
+    split arithmetic; float32 sums in another order, one bf16 rounding of
+    the output apart) at each configuration's query group and head dim,
+    ragged lengths from 1 to T, the default split count and three; and
+    NaN in every slot at or past n[b] leaves the output unchanged."""
+    b, t, kh = 6, 1000, 2
+    q, k, v = _decode_operands(cuda, b, t, kh, g, d, seed=g * 1000 + d)
+    n = torch.tensor([1, t, 517, 64, 65, 999], dtype=torch.int32,
+                     device=cuda)
+    for splits in (None, 3):
+        before = LAUNCHES["decode_attention"]
+        got = ops.decode_attention(q, k, v, n, splits=splits)
+        assert LAUNCHES["decode_attention"] == before + 1
+        want = ops.decode_attention_plain(q, k, v, n, splits=splits)
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-2)
+    k2, v2 = k.clone(), v.clone()
+    for i, ni in enumerate(n.tolist()):
+        k2[i, ni:] = float("nan")
+        v2[i, ni:] = float("nan")
+    assert torch.equal(ops.decode_attention(q, k2, v2, n),
+                       ops.decode_attention(q, k, v, n))
+
+
+def test_decode_attention_kernel_at_yi_9b_decode_shape(cuda):
+    """q [64, 4, 8, 128] against caches [64, 2176, 4, 128] (a view of a
+    stacked cache, read through its strides), lengths from 1 to 2,176:
+    the kernel within a bf16 rounding of its plain version, and NaN past
+    each length changes nothing."""
+    b, t, kh, g, d = 64, 2176, 4, 8, 128
+    q, _, _ = _decode_operands(cuda, b, 8, kh, g, d, seed=7)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    stack = torch.randn((2, 2, b, t, kh, d), generator=gen,
+                        device=cuda).bfloat16()
+    k, v = stack[1, 0], stack[1, 1]
+    n = torch.randint(1, t + 1, (b,), generator=gen, device=cuda).int()
+    n[0], n[1] = t, 1
+    got = ops.decode_attention(q, k, v, n)
+    torch.testing.assert_close(
+        got.float(), ops.decode_attention_plain(q, k, v, n).float(),
+        rtol=1e-2, atol=1e-2)
+    for i, ni in enumerate(n.tolist()):
+        stack[1, :, i, ni:] = float("nan")
+    assert torch.equal(ops.decode_attention(q, k, v, n), got)
+
+
+def test_decode_kernel_graph_replays_as_lengths_grow(cuda):
+    """Captured once into a CUDA graph, the kernel reads the lengths on
+    the card at each replay: each replay after the lengths grow equals an
+    interpreted call bit for bit, and the capture counts one launch."""
+    from repro_torch import kernels
+    q, k, v = _decode_operands(cuda, 8, 512, 4, 8, 128, seed=3)
+    n = torch.full((8,), 100, dtype=torch.int32, device=cuda)
+    ops.decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(LAUNCHES)
+    with kernels.recording_launches() as rec, \
+            torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        got = ops.decode_attention(q, k, v, n)
+    assert LAUNCHES == before and rec == {"decode_attention": 1}
+    for _ in range(5):
+        n.add_(67)
+        graph.replay()
+        assert torch.equal(got, ops.decode_attention(q, k, v, n))
+
+
+def test_bf16_tasked_decode_through_the_decode_kernel(cuda):
+    """The yi-9b smoke model in bf16 with the kernel flag on: the tasked
+    decode loop under trace_graphs replays the decode kernel (one launch a
+    layer a step, counted at each replay), bit for bit the interpreted
+    loop; a decode step's hidden state is the plain path's within 5e-2
+    relative L2, the bf16 bound of a kernel prefill against the plain one
+    (chip_smoke.py's ``PREFILL_REL_TOL``): a float32 sum order can flip a
+    bf16 rounding that the layers after carry forward."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    from repro_torch.serve import tasked_decode_loop
+    cfg = get_smoke_config("yi-9b")
+    model = build_smoke(cfg, param_dtype=torch.bfloat16,
+                        use_flash_kernel=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    nxt, cache = Engine(model, params, 2, 80).prefill(toks)
+    lengths = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+    steps, out = 10, {}
+    for traced in (False, True):
+        c = {k: a.clone() for k, a in cache.items()}
+        n = LAUNCHES["decode_attention"]
+        with Runtime(RuntimeConfig(trace_graphs=traced)) as rt:
+            tok, lens, c_objs = tasked_decode_loop(
+                rt, model, params, c, nxt.clone(), lengths.clone(), steps)
+            # bf16 caches compared on the card: reading them back needs a
+            # numpy bfloat16, which a process without JAX may lack
+            out[traced] = (tok.get(), lens.get(),
+                           {k: c_objs[k].copies[0].clone() for k in c})
+            if traced:
+                assert rt.stats()["graph_replays"] == steps - 3
+        assert LAUNCHES["decode_attention"] == n + steps * cfg.n_layers
+    for i in range(2):
+        np.testing.assert_array_equal(out[True][i], out[False][i])
+    for k in cache:
+        assert torch.equal(out[True][2][k], out[False][2][k])
+    plain = build_smoke(cfg, param_dtype=torch.bfloat16)
+    x = {}
+    for m in (model, plain):
+        c = {k: a.clone() for k, a in cache.items()}
+        with torch.no_grad():
+            x[m is model], _ = m.apply(
+                params, {"tokens": nxt, "lengths": lengths}, mode="decode",
+                cache=c)
+    rel = (x[True].float() - x[False].float()).norm() / x[False].float().norm()
+    assert rel <= 5e-2
 
 
 def test_recurrentgemma_serves_on_the_card(cuda):

@@ -40,6 +40,7 @@ from repro_torch.convert import (cache_tree_from_jax, lm_from_jax,
                                  lm_tree_from_jax)
 from repro_torch.distributed import spmd
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import jacobi3d as JC
 from repro_torch.kernels import matmul as MM
@@ -203,7 +204,9 @@ def test_analytic_flops_equal_jaxs(arch):
                                   "codeqwen15_7b"])
 def test_counted_flops_equal_the_analytic_model(arch):
     """Dense smoke configs under the dry-run's flags on one shard: a
-    decode step's counted FLOPs are the analytic total exactly; a
+    decode step counts the analytic total exactly, its attention the
+    decode kernel's (one launch a layer) where the heads are whole 16-byte
+    rows (codeqwen's smoke head of 12 keeps the plain path); a
     prefill's (32,768 tokens, a multiple of 128: the flash kernel's
     route, one launch a layer) outside the kernel are its projections,
     MLP and last-position logits exactly."""
@@ -213,7 +216,13 @@ def test_counted_flops_equal_the_analytic_model(arch):
         ana = TR.analytic_forward_flops(cfg, tbase.SHAPES_BY_NAME[shape])
         kernel = sum(v["flops"] for v in r["kernels"].values())
         if shape == "decode_32k":
-            assert r["kernels"] == {}
+            if cfg.resolved_head_dim % 8:
+                assert r["kernels"] == {}
+            else:
+                assert list(r["kernels"]) == ["decode_attention"]
+                assert r["kernels"]["decode_attention"]["launches"] == \
+                    cfg.n_layers
+                assert kernel == ana["attn"]
             assert r["flops_per_device"] == ana["total"]
         else:
             assert r["kernels"]["flash_attention"]["launches"] == \
@@ -527,42 +536,54 @@ def test_lowerings_round_trip_through_the_table_and_tune(tmp_path):
 
 
 def test_meta_kernel_arms_record_a_launch_and_its_cost():
-    """On meta, flash (both entry points) and ssd_chunk return empty
-    outputs of the kernel's shapes and record one launch and its cost
-    with the counter, leaving ``LAUNCHES`` alone; on the CPU they still
-    take the plain version and record nothing."""
+    """On meta, flash (both entry points), decode attention and ssd_chunk
+    return empty outputs of the kernel's shapes and record one launch and
+    its cost with the counter, leaving ``LAUNCHES`` alone; on the CPU they
+    still take the plain version and record nothing."""
     before = dict(LAUNCHES)
     q = torch.empty((2, 256, 2, 4, 64), dtype=torch.bfloat16, device=META)
     k = torch.empty((2, 256, 2, 64), dtype=torch.bfloat16, device=META)
     q3 = torch.empty((16, 128, 64), device=META)
     k3 = torch.empty((16, 128, 64), device=META)
+    qd = torch.empty((2, 2, 4, 64), dtype=torch.bfloat16, device=META)
+    nd = torch.empty((2,), dtype=torch.int32, device=META)
     ssd_args = [torch.empty(s, device=META) for s in
                 ((4, 64, 8, 16), (4, 64, 8), (8,), (4, 64, 16), (4, 64, 16))]
     counter = opcount.Counter()
     with opcount.counting(counter):
         out = FA.flash_attention_gqa(q, k, k)
         out3 = FA.flash_attention(q3, k3, k3)
+        outd = DA.decode_attention(qd, k, k, nd)
         y, st = SS.ssd_chunk(*ssd_args)
     assert out.shape == q.shape and out.dtype == q.dtype
     assert out3.shape == q3.shape and out.device == META
+    assert outd.shape == qd.shape and outd.dtype == qd.dtype
     assert y.shape == (4, 64, 8, 16) and st.shape == (4, 8, 16, 16)
     got = counter.shards[None].kernels
     c1, c3 = FA.cost(q, k), FA.cost(q3, k3)
-    cs = SS.cost(*ssd_args)
+    cd, cs = DA.cost(qd, k), SS.cost(*ssd_args)
     assert got == {"flash_attention": {"launches": 2,
                                        "flops": c1.flops + c3.flops,
                                        "bytes": c1.bytes + c3.bytes},
+                   "decode_attention": {"launches": 1, "flops": cd.flops,
+                                        "bytes": cd.bytes},
                    "ssd_chunk": {"launches": 1, "flops": cs.flops,
                                  "bytes": cs.bytes}}
-    assert counter.shards[None].ops["aten.empty.memory_format"] == 3
+    # ssd's three buffers and decode's two partials (the outputs are
+    # ``empty_like``)
+    assert counter.shards[None].ops["aten.empty.memory_format"] == 5
     assert dict(LAUNCHES) == before
     gen = torch.Generator().manual_seed(0)
     qc = torch.randn((1, 64, 1, 2, 16), generator=gen)
     kc = torch.randn((1, 64, 1, 16), generator=gen)
+    qdc = torch.randn((1, 1, 2, 16), generator=gen)
+    ndc = torch.tensor([40], dtype=torch.int32)
     counter = opcount.Counter()
     with opcount.counting(counter):
         got = FA.flash_attention_gqa(qc, kc, kc)
+        gotd = DA.decode_attention(qdc, kc, kc, ndc)
     assert torch.equal(got, FA.flash_attention_plain(qc, kc, kc))
+    assert torch.equal(gotd, DA.decode_attention_plain(qdc, kc, kc, ndc))
     assert counter.shards[None].kernels == {}
     assert dict(LAUNCHES) == before
 
@@ -607,6 +628,14 @@ def test_costs_are_phase_twos_formulas():
         work = FA.cost(q3, q3)
         assert float(work.flops) == bh * s * (s + 1) / 2 * 4 * d
         assert work.bytes == 4 * bh * s * d * 4
+    # decode attention at yi-9b's decode shape: q [64, 4, 8, 128] against
+    # a cache of 2,176 slots
+    b, t, kh, g, d = 64, 2176, 4, 8, 128
+    qd = torch.empty((b, kh, g, d), dtype=torch.bfloat16, device=META)
+    kd = torch.empty((b, t, kh, d), dtype=torch.bfloat16, device=META)
+    work = DA.cost(qd, kd)
+    assert work.flops == 4 * b * kh * g * d * t
+    assert work.bytes == (2 * b * kh * g * d + 2 * b * t * kh * d) * 2
     bc, q, h, p, nn = 128, 256, 32, 64, 128
     args = [torch.empty(sh, device=META) for sh in
             ((bc, q, h, p), (bc, q, h), (h,), (bc, q, nn), (bc, q, nn))]

@@ -37,6 +37,18 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PortMoEConfig(MoEConfig):
+    """An ``MoEConfig`` of a configuration the port has and the JAX
+    package has not (``PORT_ONLY_IDS``). ``norm_topk_prob``: whether the
+    top-k routing weights are divided by their sum (True, as every routed
+    configuration of the JAX package routes) or left as the softmax's
+    probabilities over all experts (OLMoE-1B-7B-0924's
+    ``norm_topk_prob: false``). ``models.moe`` reads it with its default
+    from any ``MoEConfig``."""
+    norm_topk_prob: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 128
     expand: int = 2
@@ -151,6 +163,18 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A ``ModelConfig`` of a configuration the port has and the JAX
+    package has not (``PORT_ONLY_IDS``): the ten shared configurations
+    stay field for field the JAX package's. ``qk_norm``: an RMS norm over
+    each position's whole projected query width (H·d) and key width
+    (KH·d), with weights of their own, after the projections and before
+    RoPE (OLMoE's). ``models.transformer`` reads it with its default from
+    any ``ModelConfig``."""
+    qk_norm: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -180,6 +204,12 @@ ARCH_IDS = (
     "olmoe_1b_7b",
 )
 
+# configurations of the port alone: ``get_config`` resolves them, and the
+# dry-run's cells and the parity tests (over ``ARCH_IDS``) leave them out
+PORT_ONLY_IDS = (
+    "olmoe_1b_7b_0924",
+)
+
 # CLI ids use dashes (``--arch recurrentgemma-9b``); module names use
 # underscores.
 _ALIASES = {
@@ -200,7 +230,7 @@ PORTED_ARCH_IDS = ARCH_IDS
 
 def _module(arch_id: str):
     name = canon(arch_id)
-    if name not in ARCH_IDS:
+    if name not in ARCH_IDS + PORT_ONLY_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

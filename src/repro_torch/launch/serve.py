@@ -15,6 +15,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch olmoe-1b-7b-0924 --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-large-v3 --smoke --device cpu
 
 Serves the dense attention configurations (global, or gemma3-27b's local
@@ -23,7 +25,9 @@ passes zero ``vision_embeds`` for the first ``frontend_tokens``
 positions, as the JAX package's does), mamba2-370m, recurrentgemma-9b
 (RG-LRU and local attention layers), the MoE configurations
 (olmoe-1b-7b, llama4-scout-17b-16e: without a mesh every MoE layer takes
-the dense oracle, as under the JAX Engine's 1x1 mesh) and the
+the dense oracle, as under the JAX Engine's 1x1 mesh; and
+olmoe-1b-7b-0924, the port's own: OLMoE as published, with QK-norm and
+top-8 routing weights left unrenormalised) and the
 encoder-decoder whisper-large-v3 (its audio frontend a stub: ``main``
 passes zero ``frames`` of [B, encoder_seq, D], as the JAX package's
 does). Runs on the CUDA card unless ``--device cpu`` is given.

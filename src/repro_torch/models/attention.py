@@ -10,6 +10,9 @@
   CUDA kernel that replaces the Pallas one, taken for causal global
   self-attention when ``use_kernel`` is set, as ``use_pallas`` routes
   ``_pallas_flash``.
+- ``qk_norm``: OLMoE's QK-norm, an RMS norm over each position's whole
+  projected q and k widths before RoPE, where the configuration has it
+  (``configs.PortModelConfig``; the JAX package has none).
 - ``window_attention``: exact sliding-window attention via block-banded
   computation (each query block attends to itself + previous block), for
   ``local_attn`` layers.
@@ -58,10 +61,13 @@ from repro_torch.models.sharding import (active_mesh, constrain, is_split,
 
 
 def attn_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
-              head_dim: int, *, dtype, device, lead: Tuple[int, ...] = ()
-              ) -> Dict[str, torch.Tensor]:
+              head_dim: int, *, dtype, device, lead: Tuple[int, ...] = (),
+              qk_norm: bool = False) -> Dict[str, torch.Tensor]:
+    """``wq``, ``wk``, ``wv``, ``wo`` in ``dtype``; with ``qk_norm`` also
+    the QK-norm scales ``q_norm`` [H·d] and ``k_norm`` [KH·d] (float32,
+    like every norm's, drawn from nothing)."""
     s_in, s_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(n_heads * head_dim)
-    return {
+    p = {
         "wq": L.normal(gen, lead + (d_model, n_heads, head_dim), s_in,
                        dtype, device),
         "wk": L.normal(gen, lead + (d_model, n_kv_heads, head_dim), s_in,
@@ -71,14 +77,25 @@ def attn_init(gen, d_model: int, n_heads: int, n_kv_heads: int,
         "wo": L.normal(gen, lead + (n_heads, head_dim, d_model), s_out,
                        dtype, device),
     }
+    if qk_norm:
+        p["q_norm"] = L.scale_init(n_heads * head_dim, device=device,
+                                   lead=lead)
+        p["k_norm"] = L.scale_init(n_kv_heads * head_dim, device=device,
+                                   lead=lead)
+    return p
 
 
-def attn_axes(lead: L.Axes = ()) -> Dict[str, L.Axes]:
-    """``attn_init``'s logical axes."""
-    return {"wq": lead + ("embed", "heads", "head_dim"),
-            "wk": lead + ("embed", "kv_heads", "head_dim"),
-            "wv": lead + ("embed", "kv_heads", "head_dim"),
-            "wo": lead + ("heads", "head_dim", "embed")}
+def attn_axes(lead: L.Axes = (), qk_norm: bool = False
+              ) -> Dict[str, L.Axes]:
+    """``attn_init``'s logical axes. The QK-norm scales span the
+    flattened heads; no rule splits ``qk_norm``, so they stay whole."""
+    p = {"wq": lead + ("embed", "heads", "head_dim"),
+         "wk": lead + ("embed", "kv_heads", "head_dim"),
+         "wv": lead + ("embed", "kv_heads", "head_dim"),
+         "wo": lead + ("heads", "head_dim", "embed")}
+    if qk_norm:
+        p["q_norm"] = p["k_norm"] = lead + ("qk_norm",)
+    return p
 
 
 def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -499,6 +516,21 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, -1)).view(b, s, *w.shape[1:])
 
 
+def qk_norm(params: Dict[str, torch.Tensor], q: torch.Tensor,
+            k: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """QK-norm: q [B,S,H,D] RMS-normed over each position's whole H·D
+    width with ``q_norm``, and k [B,S,KH,D] over KH·D with ``k_norm``
+    (``layers.rms_norm``: float32 inside, the input's dtype out). The sum runs over every head, so a shard holding some of
+    the heads cannot take it alone: inside a ``shard_map`` body whose
+    weights split the heads it raises."""
+    if is_split("heads") or is_split("kv_heads"):
+        raise NotImplementedError(
+            "QK-norm with the heads split over a mesh needs a sum over the "
+            "shards: not ported (see ROADMAP.md)")
+    return (L.rms_norm(q.flatten(2), params["q_norm"], eps).view_as(q),
+            L.rms_norm(k.flatten(2), params["k_norm"], eps).view_as(k))
+
+
 def local_kv_heads(n_kv_heads: int, h_loc: int) -> Tuple[int, int]:
     """Which kv heads serve a shard's ``h_loc`` query heads inside a
     ``shard_map`` body whose weights split ``heads``: (first, count) among
@@ -532,6 +564,7 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                                                 torch.Tensor]] = None,
                     kv_valid: Optional[torch.Tensor] = None,
                     use_kernel: bool = False, flash_block: int = 512,
+                    qk_norm_eps: Optional[float] = None,
                     ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One attention layer. mode: 'train' | 'prefill' | 'decode'. kind:
     'global_attn' | 'local_attn' (sliding ``window``, a ring-buffer cache).
@@ -562,7 +595,10 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
     kernel, over the valid prefix ``n = pos + 1`` (a ring: ``min(pos + 1,
     t)``; softmax does not depend on the slots' order); a CPU cache,
     ``kv_override`` and the sequence-split partials keep
-    ``decode_attention``.
+    ``decode_attention``. ``qk_norm_eps`` (None: off) RMS-norms the
+    projected q and k over their whole widths (``qk_norm``, with
+    ``params["q_norm"]``, ``["k_norm"]``) before RoPE, in every mode and
+    on every path, so that a decode step writes the normed k to the cache.
 
     Inside a ``shard_map`` body whose weights split ``heads``
     (``sharding.is_split``) the layer runs on its shard's blocks: the
@@ -591,6 +627,8 @@ def attention_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *,
         v = _project(x, params["wv"])
     else:
         k, v = kv_override
+    if qk_norm_eps is not None:
+        q, k = qk_norm(params, q, k, qk_norm_eps)
     kv0, n_kv_heads = local_kv_heads(n_kv_heads, q.shape[2]) \
         if is_split("heads") else (0, n_kv_heads)
 

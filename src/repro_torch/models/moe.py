@@ -25,7 +25,20 @@ two agree. Slot ranks come from a stable sort of the expert ids, as
 token order. Nothing here adds into a location twice through atomics
 (the combine sums over k in a fixed order), so decode steps repeat bit
 for bit. Both paths return ``(out, aux)``; aux is the Switch load-balance
-loss.
+loss. The top-k weights are divided by their sum, as the JAX package's
+are, unless the config says otherwise (``configs.PortMoEConfig.
+norm_topk_prob`` False: OLMoE-1B-7B-0924's softmax probabilities as they
+are).
+
+Every path opens three spans (``core.spans``) a call: ``moe.route`` (the
+router product, softmax, top-k and balance loss, and on the EP path the
+slotting and exchange of the rows to their experts), ``moe.experts`` (the
+expert products, a shared expert's too) and ``moe.combine`` (the weighted
+sum back to the tokens). ``COUNTS`` adds up, on the host and from shapes
+alone (no read-back), the rows routed (tokens × top_k) and the rows the
+expert products ran on: tokens × E in ``moe_dense``, tokens × E_local in
+a body's dense oracle, the capacity slots (E_local × tp × capacity) on
+the EP path. A replayed CUDA graph adds nothing to them.
 """
 from __future__ import annotations
 
@@ -36,10 +49,24 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import sanitizer, spans
 from repro_torch.distributed import spmd
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (active_mesh, is_split, seq_axis,
                                          seq_gather)
+
+
+# rows routed and rows the expert products ran on, since the last reset
+COUNTS: Dict[str, float] = {"routed_rows": 0, "computed_rows": 0}
+_counts_lock = sanitizer.make_lock("moe._counts_lock")
+
+
+def _count(routed: float, computed: float) -> None:
+    """Add a call's rows to ``COUNTS`` (shard bodies run on threads of
+    their own)."""
+    with _counts_lock:
+        COUNTS["routed_rows"] += routed
+        COUNTS["computed_rows"] += computed
 
 
 def moe_init(gen, d_model: int, mcfg: MoEConfig, gated: bool, *, dtype,
@@ -78,10 +105,12 @@ def moe_axes(gated: bool, shared: bool,
 def _route(router_w: torch.Tensor, x: torch.Tensor, mcfg: MoEConfig
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (weights [T,k] float32, expert_idx [T,k], aux_loss
-    scalar)."""
+    scalar). The weights are the top k softmax probabilities, divided by
+    their sum unless ``mcfg.norm_topk_prob`` is False."""
     probs = torch.softmax(x.float() @ router_w, dim=-1)
     weights, idx = probs.topk(mcfg.top_k, dim=-1)
-    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    if getattr(mcfg, "norm_topk_prob", True):
+        weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
     return weights, idx, balance_loss(probs, idx, mcfg)
 
 
@@ -126,16 +155,22 @@ def moe_dense(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool
     b, s, d = x.shape
     e = mcfg.num_experts
     xf = x.reshape(b * s, d)
-    weights, idx, aux = _route(p["router"], xf, mcfg)
-    # every token as every expert's block (a view: no copy per expert)
-    ys = _expert_ffn(p, xf.expand(e, b * s, d), gated)            # [E,T,D]
-    # top-k indices in a row are distinct: a scatter into zeros is the JAX
-    # package's scatter-add, without colliding writes
-    comb = torch.zeros((b * s, e), dtype=x.dtype, device=x.device)
-    comb.scatter_(1, idx, weights.to(x.dtype))
-    out = torch.einsum("te,etd->td", comb, ys)
-    if mcfg.d_ff_shared:
-        out = out + L.mlp_apply(p["shared"], xf, gated)
+    _count(b * s * mcfg.top_k, b * s * e)
+    with spans.span("moe.route"):
+        weights, idx, aux = _route(p["router"], xf, mcfg)
+    with spans.span("moe.experts"):
+        # every token as every expert's block (a view: no copy per expert)
+        ys = _expert_ffn(p, xf.expand(e, b * s, d), gated)        # [E,T,D]
+        sh = L.mlp_apply(p["shared"], xf, gated) if mcfg.d_ff_shared \
+            else None
+    with spans.span("moe.combine"):
+        # top-k indices in a row are distinct: a scatter into zeros is the
+        # JAX package's scatter-add, without colliding writes
+        comb = torch.zeros((b * s, e), dtype=x.dtype, device=x.device)
+        comb.scatter_(1, idx, weights.to(x.dtype))
+        out = torch.einsum("te,etd->td", comb, ys)
+        if sh is not None:
+            out = out + sh
     return out.reshape(b, s, d), aux
 
 
@@ -172,28 +207,34 @@ def _ep_local(p, xf: torch.Tensor, mcfg: MoEConfig, gated: bool, axis: str,
     e_loc = e // tp
     k = mcfg.top_k
     cap = capacity(t_loc, mcfg, capacity_factor)
+    _count(t_loc * k, e_loc * tp * cap)
 
-    weights, idx, aux = _route(p["router"], xf, mcfg)              # [T,k]
-    rank = slot_ranks(idx, e).reshape(-1)
-    keep = rank < cap
-    # each kept assignment's row of the [E*cap, D] dispatch buffers; the
-    # dropped ones write a spare last row, which no one reads
-    rows = torch.where(keep, idx.reshape(-1) * cap + rank, e * cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype, device=xf.device)
-    buf[rows] = xf[:, None].expand(t_loc, k, d).reshape(t_loc * k, d)
-    # exchange: [tp, E_loc, cap, D] -> owner gets [tp, E_loc, cap, D]
-    buf = buf[:e * cap].view(tp, e_loc, cap, d)
-    buf = spmd.all_to_all(buf, axis, 0, 0, tiled=True)
-    h = buf.transpose(0, 1).reshape(e_loc, tp * cap, d)    # [E_loc,tp*cap,D]
-    y = _expert_ffn(p, h, gated)                           # local experts
-    y = y.view(e_loc, tp, cap, d).transpose(0, 1).reshape(tp, e_loc, cap, d)
-    y = spmd.all_to_all(y, axis, 0, 0, tiled=True)
-    # combine back to tokens: each assignment's row, weighted, summed
-    # over k in order
-    gathered = y.view(e * cap, d)[torch.where(keep, rows, 0)]     # [T*k, D]
-    gathered = torch.where(keep[:, None], gathered, 0)
-    w = weights.reshape(-1).to(xf.dtype)
-    out = (gathered * w[:, None]).view(t_loc, k, d).sum(dim=1)
+    with spans.span("moe.route"):
+        weights, idx, aux = _route(p["router"], xf, mcfg)          # [T,k]
+        rank = slot_ranks(idx, e).reshape(-1)
+        keep = rank < cap
+        # each kept assignment's row of the [E*cap, D] dispatch buffers;
+        # the dropped ones write a spare last row, which no one reads
+        rows = torch.where(keep, idx.reshape(-1) * cap + rank, e * cap)
+        buf = torch.zeros((e * cap + 1, d), dtype=xf.dtype,
+                          device=xf.device)
+        buf[rows] = xf[:, None].expand(t_loc, k, d).reshape(t_loc * k, d)
+        # exchange: [tp, E_loc, cap, D] -> owner gets [tp, E_loc, cap, D]
+        buf = buf[:e * cap].view(tp, e_loc, cap, d)
+        buf = spmd.all_to_all(buf, axis, 0, 0, tiled=True)
+        h = buf.transpose(0, 1).reshape(e_loc, tp * cap, d)  # [E_loc,tp*cap,D]
+    with spans.span("moe.experts"):
+        y = _expert_ffn(p, h, gated)                       # local experts
+    with spans.span("moe.combine"):
+        y = y.view(e_loc, tp, cap, d).transpose(0, 1).reshape(
+            tp, e_loc, cap, d)
+        y = spmd.all_to_all(y, axis, 0, 0, tiled=True)
+        # combine back to tokens: each assignment's row, weighted, summed
+        # over k in order
+        gathered = y.view(e * cap, d)[torch.where(keep, rows, 0)]  # [T*k, D]
+        gathered = torch.where(keep[:, None], gathered, 0)
+        w = weights.reshape(-1).to(xf.dtype)
+        out = (gathered * w[:, None]).view(t_loc, k, d).sum(dim=1)
     return out, aux
 
 
@@ -244,7 +285,8 @@ def moe_ep(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
         *(p[n] for n in names), x)
     out, aux = out.full(x.device), aux.full(x.device)
     if mcfg.d_ff_shared:
-        out = out + L.mlp_apply(p["shared"], x, gated)
+        with spans.span("moe.experts"):
+            out = out + L.mlp_apply(p["shared"], x, gated)
     return out, aux
 
 
@@ -300,16 +342,24 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
     # routes)
     if dense or not split:
         xf = x_all.reshape(b * s, d)
-        weights, idx, aux = _route(router, xf, mcfg)
-        if batch_axes:
-            # the whole batch's load-balance loss, as the oracle takes it
-            aux = balance_loss(torch.softmax(xf.float() @ router, dim=-1),
-                               idx, mcfg, batch_axes)
-        comb = torch.zeros((b * s, e), dtype=x.dtype, device=x.device)
-        comb.scatter_(1, idx, weights.to(x.dtype))
-        e0 = spmd.axis_index(axis) * e_loc if split else 0
-        ys = _expert_ffn(experts, xf.expand(e_loc, b * s, d), gated)
-        y = torch.einsum("te,etd->td", comb[:, e0:e0 + e_loc], ys)
+        # the model shards that split the experts route the same tokens:
+        # each counts its share of their rows
+        _count(b * s * mcfg.top_k / (tp if split else 1), b * s * e_loc)
+        with spans.span("moe.route"):
+            weights, idx, aux = _route(router, xf, mcfg)
+            if batch_axes:
+                # the whole batch's load-balance loss, as the oracle takes
+                # it
+                aux = balance_loss(torch.softmax(xf.float() @ router,
+                                                 dim=-1),
+                                   idx, mcfg, batch_axes)
+        with spans.span("moe.experts"):
+            ys = _expert_ffn(experts, xf.expand(e_loc, b * s, d), gated)
+        with spans.span("moe.combine"):
+            comb = torch.zeros((b * s, e), dtype=x.dtype, device=x.device)
+            comb.scatter_(1, idx, weights.to(x.dtype))
+            e0 = spmd.axis_index(axis) * e_loc if split else 0
+            y = torch.einsum("te,etd->td", comb[:, e0:e0 + e_loc], ys)
         y, partial, whole = y.view(b, s, d).float(), split, True
     else:
         seq_shard = s % tp == 0 and s >= tp
@@ -337,7 +387,8 @@ def _moe_in_body(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
         partial = seq_shard and seq is None
     sh = None
     if "shared" in p:
-        sh = L.mlp_partial(p["shared"], x_all, gated)
+        with spans.span("moe.experts"):
+            sh = L.mlp_partial(p["shared"], x_all, gated)
         if partial and is_split("mlp"):
             # row-parallel: its partial sums join the routed part's psum
             y, sh = y + sh, None

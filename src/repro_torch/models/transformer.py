@@ -186,6 +186,12 @@ def _at(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 # pre-norm residual
 # ---------------------------------------------------------------------------
 
+def _qk_norm(cfg: ModelConfig) -> bool:
+    """Whether the attention layers norm q and k (``configs.
+    PortModelConfig.qk_norm``; False for every other configuration)."""
+    return getattr(cfg, "qk_norm", False)
+
+
 def _is_moe_layer(cfg: ModelConfig, kind: str) -> bool:
     return cfg.moe is not None and kind in (GLOBAL_ATTN, LOCAL_ATTN) \
         and cfg.moe.interleave == 1
@@ -203,7 +209,8 @@ def block_init(gen, cfg: ModelConfig, kind: str, *, dtype, device,
     else:
         mix = {"attn": A.attn_init(gen, cfg.d_model, cfg.n_heads,
                                    cfg.n_kv_heads, cfg.resolved_head_dim,
-                                   dtype=dtype, device=device, lead=lead)}
+                                   dtype=dtype, device=device, lead=lead,
+                                   qk_norm=_qk_norm(cfg))}
     if _is_moe_layer(cfg, kind):
         ffn = {"moe": M.moe_init(gen, cfg.d_model, cfg.moe, cfg.gated_mlp,
                                  dtype=dtype, device=device, lead=lead)}
@@ -225,7 +232,7 @@ def block_axes(cfg: ModelConfig, kind: str,
     if kind == SSD:
         return {"norm1": scale, "ssd": S.ssd_axes(lead)}
     mix = {"rglru": R.rglru_axes(lead)} if kind == RGLRU else \
-        {"attn": A.attn_axes(lead)}
+        {"attn": A.attn_axes(lead, _qk_norm(cfg))}
     if _is_moe_layer(cfg, kind):
         ffn = {"moe": M.moe_axes(cfg.gated_mlp, bool(cfg.moe.d_ff_shared),
                                  lead)}
@@ -260,7 +267,8 @@ def block_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                 rope_theta=cfg.rope_theta, n_kv_heads=cfg.n_kv_heads,
                 mode=mode, lengths=lengths, cache=cache,
                 use_kernel=flags.use_flash_kernel,
-                flash_block=flags.flash_block)
+                flash_block=flags.flash_block,
+                qk_norm_eps=cfg.norm_eps if _qk_norm(cfg) else None)
     x = x + mix
     with spans.span("model.norm"):
         h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -418,7 +426,8 @@ def lm_params(gen: torch.Generator, cfg: ModelConfig,
     """Random weights from ``gen`` (a generator on ``device``):
     ``embed`` [V, D], ``final_norm`` [D], ``unembed`` [D, V] (absent when
     tied) and the blocks (module docstring), each stacked leaf with a
-    leading axis: ``norm1``, ``attn.{wq,wk,wv,wo}``, ``norm2``,
+    leading axis: ``norm1``, ``attn.{wq,wk,wv,wo[,q_norm,k_norm]}`` (the
+    norms where the config has QK-norm), ``norm2``,
     ``mlp.{wi,wo[,wg]}`` (an MoE layer: ``moe.{router,wi,wo[,wg]
     [,shared.{wi,wo[,wg]}]}``) for attention, the same with ``rglru.{in_x,
     in_gate,conv_w,conv_b,w_r,b_r,w_i,b_i,lam,out}`` in place of ``attn``

@@ -285,3 +285,34 @@ def test_run_tasked_spans_upload_sweeps_and_download():
                                                          device="cpu"))
     top = [r.name for r in spans.records() if r.name.startswith("jacobi.")]
     assert top == ["jacobi.upload", "jacobi.sweeps", "jacobi.download"]
+
+
+def test_moe_spans_nest_under_each_mlp_and_cost_nothing_off(monkeypatch):
+    """OLMoE's smoke model: ``moe.route``, ``moe.experts`` and
+    ``moe.combine`` once each, in that order, under every layer's
+    ``model.mlp``; with recording off the MoE layer records nothing and
+    calls no profiler."""
+    cfg = get_smoke_config("olmoe-1b-7b-0924")
+    model = build_smoke(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1))
+    eng = Engine(model, params, 2, 16)
+    with spans.recording():
+        eng.prefill(toks)
+    recs = spans.records()
+    mlps = [r for r in recs if r.name == "model.mlp"]
+    assert len(mlps) == cfg.n_layers
+    for mlp in mlps:
+        kids = [r for r in recs if r.parent == mlp.id]
+        assert _names(kids) == ["moe.route", "moe.experts", "moe.combine"]
+        assert all(mlp.start_ns <= r.start_ns <= r.end_ns <= mlp.end_ns
+                   for r in kids)
+    moe_names = [n for n in _names(recs) if n.startswith("moe.")]
+    assert len(moe_names) == 3 * cfg.n_layers
+
+    def no_mark(name):
+        raise AssertionError(f"a mark for {name} while recording is off")
+    monkeypatch.setattr(spans, "_mark", no_mark)
+    eng.prefill(toks)
+    assert _names(spans.records()) == _names(recs)

@@ -78,8 +78,10 @@ the port's main path through the tasking runtime:
     39.4 GB bf16, float32 checks at 4 layers): 4 prompts of 2048 (16 and
     8 ``flash_attention`` launches a prefill; in decode one
     ``decode_attention`` a layer a step) and 32 steps, every MoE layer
-    through ``moe_ep``'s dense fallback (no mesh, as under the JAX
-    Engine's 1x1 mesh); yi-9b's checks, a check between
+    through ``moe_ep``'s one-card path (no mesh): the routed experts
+    (``moe_routed``: one launch of each of ``moe_plan``, ``moe_experts``
+    and ``moe_combine`` a layer a prefill and a step, where the JAX
+    Engine's 1x1 mesh runs the dense oracle); yi-9b's checks, a check between
     two paths taking one path's expert choices in the other where
     rounding reorders near-tied experts (the flips printed); the MoE
     layers' routing, expert products and combine traced by name; then
@@ -239,8 +241,8 @@ VISION_SCALE = 0.02
 # llama4-scout-17b-16e at full width with 8 of its 48 layers (16 experts,
 # top-1, a shared expert; 39.4 GB bf16: 48 layers are 215.5 GB, more than
 # a card holds), float32 checks at 4 layers (43.5 GB). One card serves
-# through moe_ep's dense fallback (no mesh), as the JAX Engine's 1x1 mesh
-# does.
+# through moe_ep's one-card path (no mesh): the routed experts in bf16, the
+# dense oracle with the float32 weights, as the JAX Engine's 1x1 mesh runs.
 MOE_ARCH, SCOUT_ARCH = "olmoe-1b-7b", "llama4-scout-17b-16e"
 SCOUT_LAYERS, SCOUT_F32_LAYERS = 8, 4
 # phase 19: phase 14's model over a (1, MESH_SHARDS) mesh of shards of the
@@ -599,6 +601,22 @@ DECODE_HEADS = ((8, 128), (3, 128), (4, 128), (5, 128), (2, 128), (1, 128),
                 (1, 64), (16, 256))
 # the benchmark's decode cell: 64 requests, 2,048 + 128 slots, yi-9b heads
 DECODE_MAIN = (64, 2176, 4, 8, 128)
+# the routed experts (``moe_experts``) as (T, D, F, E, k): one MoE layer of
+# the benchmark's MoE cell (OLMoE-1B-7B-0924, 4 x 2048 tokens), the same
+# layer in decode (64 tokens), llama4-scout's prefill layer (top-1 of 16,
+# the widest products) and ragged shapes: widths that are not multiples of
+# the 64-column boxes, T*k < E, a tile of 64 rows
+MOE_MAIN = (8192, 2048, 1024, 64, 8)
+MOE_DECODE = (64, 2048, 1024, 64, 8)
+MOE_SCOUT = (8192, 5120, 8192, 16, 1)
+MOE_RAGGED = ((37, 72, 40, 8, 2), (3, 64, 32, 16, 2), (640, 136, 200, 4, 1))
+#  - moe_experts: relative L2 error of the layer's output, 1e-2 against
+#    the plain version (both round h and y to bf16 once; only the float32
+#    sum order of the products differs, which can flip a rounding of h) and
+#    2e-2 against moe_dense (which also rounds the gate and up products to
+#    bf16 before the silu and the product, and sums the combine over all E
+#    experts' weights, most of them zero, in a product of its own order)
+MOE_TOL = {"plain": 1e-2, "dense": 2e-2}
 SSM_PREFILL_REL_TOL = {"bf16": 5e-2, "f32": 1e-4}
 GREEDY_MIN_AGREEMENT = 0.9
 GREEDY_MAX_SHORTFALL = 0.25
@@ -691,6 +709,19 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def replay_ms(fn, reps: int = 50) -> float:
+    """Mean device time of one replay of ``fn`` captured as a CUDA graph
+    (no host time between its launches)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_ms(graph.replay, reps)
+    del graph
+    return ms
 
 
 def bound(nbytes: float, nops: float, op_rate: float, mem_rate: float):
@@ -886,6 +917,7 @@ def kernel_checks(ops, gen, fp32, bf16, mem_rate, earlier_flash) -> dict:
     res["jacobi_half_types"] = jacobi_half_checks(ops, gen)
     res.update(flash_checks(ops, gen, fp32, bf16, mem_rate, earlier_flash))
     res["decode_attention"] = decode_checks(ops, gen, bf16, mem_rate)
+    res.update(moe_checks(ops, gen, bf16, mem_rate))
     res["ssd_chunk"] = ssd_checks(ops, gen, fp32, mem_rate)
     return res
 
@@ -1147,6 +1179,155 @@ def decode_checks(ops, gen, bf16, mem_rate) -> dict:
         bound_ms=b_ms, bound_by=b_by)
 
 
+def moe_checks(ops, gen, bf16, mem_rate) -> dict:
+    """The routed experts, the kernels that replace no Pallas kernel: at
+    each routing shape the plan's kernels equal to its plain version, and
+    the layer (``moe_routed``: the plan, the kernels, the combine) against
+    the plain version (``moe_experts_plain``, ``moe_combine_plain``) and
+    against ``moe_dense``; every assignment to
+    one expert; a CUDA graph captured on one routing and replayed on
+    another, against eager. At MOE_MAIN, MOE_DECODE and MOE_SCOUT the
+    kernels' time beside the plain version's, the layer's beside
+    ``moe_dense``'s, and the products of the library's grouped GEMM
+    (``torch._grouped_mm`` where this PyTorch has it, else a ``torch.bmm``
+    over segments padded to the largest) as the yardstick."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.kernels import moe_experts as KM
+    from repro_torch.models import moe as M
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+
+    def layer(t, d, f, e, k):
+        mcfg = MoEConfig(num_experts=e, top_k=k, d_ff_expert=f)
+        p = M.moe_init(gen, d, mcfg, True, dtype=torch.bfloat16, device=dev)
+        x = torch.randn((1, t, d), generator=gen, device=dev).bfloat16()
+        return mcfg, p, x
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).norm() / b.norm()).item()
+
+    def compare(what, mcfg, p, x):
+        before = ops.LAUNCHES["moe_experts"]
+        got, aux = M.moe_routed(p, x, mcfg, True)
+        check(ops.LAUNCHES["moe_experts"] == before + 1,
+              f"{what}: moe_routed did not launch the kernels once")
+        xf = x[0]
+        w, idx, _ = M._route(p["router"], xf, mcfg)
+        rows, tiles = KM.routed_plan(idx, mcfg.num_experts)
+        want = KM.routed_plan_plain(idx, mcfg.num_experts)
+        check(torch.equal(rows, want[0]) and torch.equal(tiles, want[1]),
+              f"{what}: the plan's kernels differ from its plain version")
+        plain = KM.moe_combine_plain(KM.moe_experts_plain(
+            xf, rows, tiles, p["wg"], p["wi"], p["wo"]), rows, w)
+        dense, daux = M.moe_dense(p, x, mcfg, True)
+        torch.cuda.synchronize()
+        errs = {"plain": rel(got[0], plain), "dense": rel(got, dense)}
+        for key, tol in MOE_TOL.items():
+            check(errs[key] <= tol, f"{what}: relative L2 error {errs[key]} "
+                  f"against {key}, above {tol}")
+        check(torch.equal(aux, daux), f"{what}: aux loss differs")
+        return errs
+
+    res, errs = {}, {}
+    for shape in MOE_RAGGED + (MOE_DECODE,):
+        errs["x".join(map(str, shape))] = compare(shape, *layer(*shape))
+    # every assignment to expert 3: one segment, the other experts idle
+    mcfg, p, x = layer(*MOE_RAGGED[2])
+    p["router"].zero_()
+    p["router"][:, 3] = 1.0
+    x = x.abs() + 0.1
+    errs["one_expert"] = compare("one expert", mcfg, p, x)
+    del p, x
+
+    # a graph captured on one routing replays right on another
+    mcfg, p, x = layer(*MOE_DECODE)
+    static = x.clone()
+    M.moe_routed(p, static, mcfg, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = M.moe_routed(p, static, mcfg, True)
+    x2 = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
+    static.copy_(x2)
+    graph.replay()
+    want, _ = M.moe_routed(p, x2, mcfg, True)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), "moe_routed: a replayed graph differs "
+          "from eager on a new routing")
+    del p, x, x2, static, out, want, graph
+
+    for key, shape in (("moe_experts", MOE_MAIN),
+                       ("moe_experts_decode", MOE_DECODE),
+                       ("moe_experts_scout", MOE_SCOUT)):
+        t, d, f, e, k = shape
+        mcfg, p, x = layer(*shape)
+        err = compare(shape, mcfg, p, x)
+        xf = x[0]
+        w, idx, _ = M._route(p["router"], xf, mcfg)
+        rows, tiles = KM.routed_plan(idx, e)
+        ws = (p["wg"], p["wi"], p["wo"])
+        y = KM.moe_experts(xf, rows, tiles, *ws)
+        counts = torch.bincount(idx.reshape(-1), minlength=e)
+        order = torch.argsort(idx.reshape(-1), stable=True)
+        xs = xf.repeat_interleave(k, dim=0)[order]
+        offs = counts.cumsum(0).to(torch.int32)
+
+        def grouped_products():
+            g = torch._grouped_mm(xs, p["wg"], offs=offs)
+            u = torch._grouped_mm(xs, p["wi"], offs=offs)
+            return torch._grouped_mm(F.silu(g) * u, p["wo"], offs=offs)
+
+        def padded_products():
+            g = torch.bmm(xb, p["wg"])
+            return torch.bmm(F.silu(g) * torch.bmm(xb, p["wi"]), p["wo"])
+
+        try:
+            grouped_products()
+            library, lib_products = "torch._grouped_mm", grouped_products
+        except (AttributeError, RuntimeError) as exc:
+            library = f"torch.bmm over padded segments ({exc!r:.80})"
+            cap = int(counts.max())
+            sorted_e = idx.reshape(-1)[order]
+            pos = torch.arange(t * k, device=dev) - (offs - counts)[sorted_e]
+            xb = torch.zeros((e, cap, d), dtype=xf.dtype, device=dev)
+            xb[sorted_e, pos] = xs
+            lib_products = padded_products
+        work = KM.cost(xf, rows, p["wg"])
+        b_ms, b_by = bound(work.bytes, work.flops, bf16, mem_rate)
+        res[key] = dict(
+            shape=[t, d, f, e, k], dtype="torch.bfloat16", row_tile=
+            KM.row_tile(t * k, e), tiles=tiles.numel(),
+            spare_tiles=int((tiles < 0).sum()),
+            max_abs_err=(y[rows.long()].float() - KM.moe_experts_plain(
+                xf, rows, tiles, *ws)[rows.long()].float()).abs().max()
+            .item(),
+            rel_l2_err=err, tol=MOE_TOL,
+            ms=time_ms(lambda: KM.moe_experts(xf, rows, tiles, *ws), 20),
+            plain_ms=time_ms(lambda: KM.moe_experts_plain(
+                xf, rows, tiles, *ws), 2, warmup=1),
+            library=library,
+            library_ms=time_ms(lib_products, 20),
+            plan_ms=time_ms(lambda: KM.routed_plan(idx, e), 20),
+            plain_plan_ms=time_ms(lambda: KM.routed_plan_plain(idx, e), 5),
+            combine_ms=time_ms(lambda: KM.moe_combine(y, rows, w), 20),
+            layer_ms=time_ms(lambda: M.moe_routed(p, x, mcfg, True), 10),
+            dense_layer_ms=time_ms(lambda: M.moe_dense(p, x, mcfg, True),
+                                   3, warmup=1),
+            bound_ms=b_ms, bound_by=b_by)
+        res[key]["errs_by_shape"] = errs if key == "moe_experts" else {}
+        if key == "moe_experts_decode":
+            # a decode step's layer as the replayed task graphs run it
+            res[key]["replayed_layer_ms"] = replay_ms(
+                lambda: M.moe_routed(p, x, mcfg, True))
+            res[key]["replayed_dense_layer_ms"] = replay_ms(
+                lambda: M.moe_dense(p, x, mcfg, True))
+        del p, x, xs, y, lib_products, grouped_products, padded_products
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 def window_checks(gen, bf16) -> dict:
     """``window_attention`` on bf16 operands (the products' float32
     results from ``aten::bmm.dtype``) against the same function with its
@@ -1348,40 +1529,26 @@ def ranged_device_ms(prof, prefix: str, labels):
 
 
 def moe_prefill_parts(eng, tokens, extra) -> dict:
-    """A traced prefill of an MoE model with each layer's MoE call, its
-    routing and its expert products inside profiler ranges: the device
-    time of the kernels launched under each, and its share of the
-    prefill's busy time. The combine (with a shared expert, where there
-    is one) is the MoE call's time less the other two."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import moe as M
-    labels = {"moe_dense": "moe", "_route": "routing",
-              "_expert_ffn": "expert_products"}
-    saved = {n: getattr(M, n) for n in labels}
-
-    def ranged(label, fn):
-        def call(*args, **kw):
-            with record_function(f"moe.{label}"):
-                return fn(*args, **kw)
-        return call
-
-    try:
-        for n, label in labels.items():
-            setattr(M, n, ranged(label, saved[n]))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            eng.prefill(tokens, extra)
-            torch.cuda.synchronize()
-    finally:
-        for n, fn in saved.items():
-            setattr(M, n, fn)
-    ms, busy = ranged_device_ms(prof, "moe.", labels.values())
-    if busy is None or not ms["moe"]:
-        return {"device_trace": "not measured"}
-    ms["combine_and_shared"] = ms["moe"] - ms["routing"] - \
-        ms["expert_products"]
-    return {"busy_ms": busy, "ms": ms,
-            "share_of_busy": {k: v / busy for k, v in ms.items()}}
+    """A prefill of an MoE model with the program's spans recording
+    (``core.spans``): the device ms of every layer's ``moe.route`` (the
+    router, top-k and balance loss; on one card the routed path's plan),
+    ``moe.experts`` (the expert products, a shared expert's too) and
+    ``moe.combine`` spans, summed over the layers, and each one's share of
+    the prefill's device ms (CUDA events around it)."""
+    from repro_torch.core import spans
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with spans.recording():
+        start.record()
+        eng.prefill(tokens, extra)
+        end.record()
+        torch.cuda.synchronize()
+    total = start.elapsed_time(end)
+    ms = {name: sum(r.device_ms for r in spans.records()
+                    if r.name == f"moe.{name}" and r.device_ms is not None)
+          for name in ("route", "experts", "combine")}
+    return {"prefill_ms": total, "ms": ms,
+            "share_of_prefill": {k: v / total for k, v in ms.items()}}
 
 
 def dense_with_drops(p, slices, mcfg, gated: bool, cf: float):
@@ -1678,16 +1845,24 @@ def serve_phase(ops, Runtime, RuntimeConfig, phase: int) -> dict:
     r["decode_tok_s"] = b * steps / (t3 - t2)
     out = torch.cat([nxt, rest], dim=1)                   # [B, steps + 1]
     # every self-attention layer's decode reads its bf16 cache through the
-    # decode kernel, once a step; nothing else launches in decode
+    # decode kernel, once a step; every MoE layer runs the routed experts'
+    # three wrappers once a prefill and once a step; nothing else launches
+    # in decode
     n_decode = steps * attention_layers(arch, cfg.n_layers)
+    n_moe = attention_layers(arch, cfg.n_layers) if cfg.moe else 0
+    moe_kernels = ("moe_plan", "moe_experts", "moe_combine")
     others = {k: v for k, v in r["launches"].items()
-              if k not in (kernel, "decode_attention")}
+              if k not in (kernel, "decode_attention") + moe_kernels}
     check(not any(others.values())
           and r["launches"]["decode_attention"] == n_decode
-          and r["launches_in_prefill"]["decode_attention"] == 0,
+          and r["launches_in_prefill"]["decode_attention"] == 0
+          and all(r["launches"][m] == n_moe * (steps + 1)
+                  and r["launches_in_prefill"][m] == n_moe
+                  for m in moe_kernels),
           f"{cfg.name} launched {r['launches']} "
           f"({r['launches_in_prefill']} in the prefill), not "
-          f"decode_attention {n_decode} times, all in decode, and "
+          f"decode_attention {n_decode} times, all in decode, the routed "
+          f"experts {n_moe} times a prefill and a step, and "
           f"{kernel or 'no other kernel'}")
     if kernel is not None:
         check(r["launches"][kernel] == n_kernel
@@ -4952,7 +5127,8 @@ def main() -> int:
                 "matmul": dgemm_launches["matmul"],
                 "flash_attention": srv["launches"]["flash_attention"],
                 "decode_attention": srv["launches"]["decode_attention"],
-                "ssd_chunk": ssm["launches"]["ssd_chunk"]}
+                "ssd_chunk": ssm["launches"]["ssd_chunk"],
+                "moe_experts": olmoe["launches"]["moe_experts"]}
     sources = {"jacobi3d_faces": ("src/repro_torch/csrc/jacobi3d.cu",
                                   "src/repro/kernels/jacobi3d.py:19"),
                "matmul": ("src/repro_torch/csrc/matmul.cu",
@@ -4963,7 +5139,10 @@ def main() -> int:
                                     "none: src/repro/models/attention.py:181 "
                                     "is two einsums"),
                "ssd_chunk": ("src/repro_torch/csrc/ssd.cu",
-                             "src/repro/kernels/ssd.py:22")}
+                             "src/repro/kernels/ssd.py:22"),
+               "moe_experts": ("src/repro_torch/csrc/moe_experts.cu",
+                               "none: src/repro/models/moe.py moe_dense "
+                               "runs every expert on every token")}
     kernels = [dict(
         name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
         launches=launches[k], max_abs_err=res[k]["max_abs_err"],

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels (CUDA C++ under ``repro_torch/csrc``) for the
-Pallas TPU kernels of ``repro.kernels``, and one that replaces none (decode
-attention against the KV cache), each beside its plain PyTorch version. A
+Pallas TPU kernels of ``repro.kernels``, and two that replace none (decode
+attention against the KV cache, a mixture-of-experts layer's routed
+experts), each beside its plain PyTorch version. A
 CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 
@@ -15,7 +16,7 @@ of one call at its operands' shapes (each input read once, each output
 written once), which ``chip_smoke.py`` bounds a kernel's time by and the
 dry-run's counter (``repro_torch.opcount``) adds per launch. A ``meta``
 tensor takes the card's route through the model's kernels (flash
-attention, decode attention, SSD) without launching: the wrapper returns
+attention, decode attention, SSD, the routed experts) without launching: the wrapper returns
 empty outputs of the kernel's shapes and records the launch and its cost
 with the active counter only.
 """
@@ -26,7 +27,8 @@ from typing import NamedTuple
 import torch
 
 LAUNCHES = {"jacobi3d": 0, "jacobi3d_faces": 0, "matmul": 0,
-            "flash_attention": 0, "ssd_chunk": 0, "decode_attention": 0}
+            "flash_attention": 0, "ssd_chunk": 0, "decode_attention": 0,
+            "moe_plan": 0, "moe_experts": 0, "moe_combine": 0}
 _launch_lock = threading.Lock()
 _capturing = threading.local()
 

@@ -49,6 +49,11 @@ SIGNATURES = {
     "decode_attention": {
         "decode_attention_bf16": [_P] * 7 + [_I] * 10 + [_F, _P],
     },
+    "moe_experts": {
+        "moe_experts_bf16": [_P] * 9 + [_I] * 7 + [_P],
+        "moe_combine_bf16": [_P] * 4 + [_I] * 3 + [_P],
+        "moe_plan": [_P] * 4 + [_I] * 4 + [_P],
+    },
     "ssd": {
         "ssd_chunk_f32": [_P] * 8 + [_I] * 5 + [_P],
         "ssd_workspace_floats": [_I, _I, _I, _P],

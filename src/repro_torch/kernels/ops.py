@@ -16,4 +16,7 @@ from repro_torch.kernels.jacobi3d import (jacobi3d,  # noqa: F401
                                           jacobi3d_faces_plain,
                                           jacobi3d_plain)
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: F401
+from repro_torch.kernels.moe_experts import (  # noqa: F401
+    moe_combine, moe_combine_plain, moe_experts, moe_experts_plain,
+    routed_plan, routed_plan_plain)
 from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_plain  # noqa: F401

@@ -1,13 +1,25 @@
 """Mixture-of-Experts FFN with top-k routing (``repro/models/moe.py`` at
 the same path).
 
-Two execution paths:
+Three execution paths:
 
 - ``moe_dense``: oracle path — computes every expert on every token and
-  combines with routing weights. Exact, used for smoke tests, for serving
-  on one card (``moe_ep`` falls back to it without a mesh, as the JAX
-  package's does) and as the reference for the EP path's correctness
-  tests. It does ``num_experts / top_k`` times the routed FLOPs.
+  combines with routing weights. Exact, used for smoke tests, for one
+  card's CPU, float32 or training calls (``moe_ep`` falls back to it
+  without a mesh, as the JAX package's does, where ``moe_routed`` does
+  not take the call) and as the reference for the other paths'
+  correctness tests. It does ``num_experts / top_k`` times the routed
+  FLOPs.
+- ``moe_routed``: one card, dropless. Each token goes to its top-k
+  experts only: the assignments are grouped by expert into a padded
+  buffer (``kernels.moe_experts.routed_plan``, on the device with no
+  read-back), the gated experts run as two grouped products
+  (``kernels.moe_experts``, hand-written CUDA on the card, the plain
+  version on the CPU) and the outputs are summed back per token in k
+  order. ``moe_ep``'s no-mesh fallback takes it for a bf16 x on the card
+  (or on ``meta``) of gated experts whose widths the kernels tile, where
+  autograd records nothing (``routes_on_card``); everything else keeps
+  ``moe_dense``.
 - ``moe_ep``: expert parallelism over the ``model`` axis of the active
   mesh (``models.sharding.use_sharding``) inside ``spmd.shard_map``:
   tokens are slotted into per-expert capacity buffers, exchanged with
@@ -24,21 +36,25 @@ two agree. Slot ranks come from a stable sort of the expert ids, as
 ``jnp.argsort(stable=True)``: within an expert a token's rank follows
 token order. Nothing here adds into a location twice through atomics
 (the combine sums over k in a fixed order), so decode steps repeat bit
-for bit. Both paths return ``(out, aux)``; aux is the Switch load-balance
-loss. The top-k weights are divided by their sum, as the JAX package's
-are, unless the config says otherwise (``configs.PortMoEConfig.
-norm_topk_prob`` False: OLMoE-1B-7B-0924's softmax probabilities as they
-are).
+for bit. Every path returns ``(out, aux)``; aux is the Switch
+load-balance loss. The top-k weights are divided by their sum, as the
+JAX package's are, unless the config says otherwise
+(``configs.PortMoEConfig.norm_topk_prob`` False: OLMoE-1B-7B-0924's
+softmax probabilities as they are).
 
 Every path opens three spans (``core.spans``) a call: ``moe.route`` (the
-router product, softmax, top-k and balance loss, and on the EP path the
-slotting and exchange of the rows to their experts), ``moe.experts`` (the
-expert products, a shared expert's too) and ``moe.combine`` (the weighted
-sum back to the tokens). ``COUNTS`` adds up, on the host and from shapes
-alone (no read-back), the rows routed (tokens × top_k) and the rows the
-expert products ran on: tokens × E in ``moe_dense``, tokens × E_local in
-a body's dense oracle, the capacity slots (E_local × tp × capacity) on
-the EP path. A replayed CUDA graph adds nothing to them.
+router product, softmax, top-k and balance loss, on the routed path the
+plan, and on the EP path the slotting and exchange of the rows to their
+experts), ``moe.experts`` (the expert products, on the routed path the
+gather before them, a shared expert's too) and ``moe.combine`` (the
+weighted sum back to the tokens). ``COUNTS`` adds up, on the host and
+from shapes alone (no read-back), the rows routed (tokens × top_k) and
+the rows the expert products ran on: tokens × E in ``moe_dense``, tokens
+× E_local in a body's dense oracle, the capacity slots (E_local × tp ×
+capacity) on the EP path, tokens × top_k on the routed path (whose
+kernels also compute each expert's padding to the row tile, up to E ×
+(bm - 1) rows that depend on the routing and are not counted). A
+replayed CUDA graph adds nothing to them.
 """
 from __future__ import annotations
 
@@ -51,6 +67,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import sanitizer, spans
 from repro_torch.distributed import spmd
+from repro_torch.kernels import moe_experts as KM
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import (active_mesh, is_split, seq_axis,
                                          seq_gather)
@@ -174,6 +191,56 @@ def moe_dense(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool
     return out.reshape(b, s, d), aux
 
 
+def routes_on_card(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool
+                   ) -> bool:
+    """Whether ``moe_routed`` takes a call that ``moe_ep`` would give the
+    dense oracle: x a bf16 tensor on the card (or on ``meta``, the
+    dry-run's stand-in for it), gated experts in bf16 whose widths
+    and number the kernels take (D % 8 == F % 8 == 0, at most
+    ``KM.MAX_EXPERTS``), and nothing that autograd records (the kernels
+    have no backward)."""
+    if not gated or x.device.type not in ("cuda", "meta") \
+            or x.dtype != torch.bfloat16:
+        return False
+    ws = [p[n] for n in ("wg", "wi", "wo")]
+    if any(w.dtype != torch.bfloat16 for w in ws):
+        return False
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in ws + [x, p["router"]]):
+        return False
+    return (x.shape[-1] % 8 == 0 and mcfg.d_ff_expert % 8 == 0
+            and mcfg.num_experts <= KM.MAX_EXPERTS)
+
+
+def moe_routed(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One card, dropless: each token through its top-k experts only.
+    x: [B,S,D]. Routing as ``moe_dense``'s; the assignments are grouped
+    by expert (``KM.routed_plan``), run through the gated experts as two
+    grouped products (``KM.moe_experts``) and summed back per token in k
+    order, the weights cast to x's dtype first (``KM.moe_combine``).
+    Nothing is read back to the host, so a CUDA graph captured once
+    replays right as the routing changes. Gated experts only."""
+    if not gated:
+        raise ValueError("moe_routed: the routed kernels are SwiGLU experts")
+    b, s, d = x.shape
+    t, k = b * s, mcfg.top_k
+    xf = x.reshape(t, d)
+    _count(t * k, t * k)
+    with spans.span("moe.route"):
+        weights, idx, aux = _route(p["router"], xf, mcfg)
+        rows, tiles = KM.routed_plan(idx, mcfg.num_experts)
+    with spans.span("moe.experts"):
+        y = KM.moe_experts(xf, rows, tiles, p["wg"], p["wi"], p["wo"])
+        sh = L.mlp_apply(p["shared"], xf, gated) if mcfg.d_ff_shared \
+            else None
+    with spans.span("moe.combine"):
+        out = KM.moe_combine(y, rows, weights)
+        if sh is not None:
+            out = out + sh
+    return out.reshape(b, s, d), aux
+
+
 def capacity(t_loc: int, mcfg: MoEConfig, capacity_factor: float) -> int:
     """Slots per (shard, expert) buffer for ``t_loc`` local tokens: at
     least 4, a multiple of 4."""
@@ -244,7 +311,8 @@ def moe_ep(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE. x: [B,S,D], sharded over the data axes. Runs
     over the active mesh; without one, with ``axis`` absent or of size 1,
-    or with the experts not dividing over it, the dense oracle. Tokens
+    or with the experts not dividing over it, one device's path:
+    ``moe_routed`` where ``routes_on_card``, else the dense oracle. Tokens
     shard over ``axis`` along S where it divides (each model shard routes
     its own slice), else (decode) every model shard routes them all. The
     result lands on x's device. Inside a ``shard_map`` body
@@ -256,6 +324,8 @@ def moe_ep(p, x: torch.Tensor, mcfg: MoEConfig, gated: bool, *,
     mesh = active_mesh()
     if mesh is None or axis not in mesh.shape or mesh.shape[axis] == 1 \
             or mcfg.num_experts % mesh.shape[axis] != 0:
+        if routes_on_card(p, x, mcfg, gated):
+            return moe_routed(p, x, mcfg, gated)
         return moe_dense(p, x, mcfg, gated)
     s = x.shape[1]
     batch_axes = tuple(a for a in data_axes if a in mesh.shape)

@@ -751,6 +751,9 @@ def _wrapper_cases(dev):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     bf = torch.bfloat16
+    # a routing of 40 tokens, top-2 of 8 experts, and its plan
+    idx = torch.randint(0, 8, (40, 2), generator=g, device=dev)
+    rows, tiles = ops.routed_plan_plain(idx, 8)
     return {
         "jacobi3d": (ops.jacobi3d, (r(20, 18, 16),)),
         "jacobi3d_faces": (ops.jacobi3d_faces,
@@ -777,13 +780,23 @@ def _wrapper_cases(dev):
                               r(2, 300, 2, 64, dtype=bf),
                               torch.tensor([1, 257], dtype=torch.int32,
                                            device=dev))),
+        "moe_plan": (ops.routed_plan, (idx, 8)),
+        # the routed rows (the padding rows are never written)
+        "moe_experts": (lambda *a: ops.moe_experts(*a)[rows.long()],
+                        (r(40, 64, dtype=bf), rows, tiles,
+                         r(8, 64, 32, dtype=bf), r(8, 64, 32, dtype=bf),
+                         r(8, 32, 64, dtype=bf))),
+        "moe_combine": (ops.moe_combine,
+                        (r(tiles.numel() * 64, 64, dtype=bf), rows,
+                         r(40, 2).abs())),
     }
 
 
 @pytest.mark.parametrize("name", ["jacobi3d", "jacobi3d_faces", "matmul_f32",
                                   "matmul_bf16_tma", "flash_bf16",
                                   "flash_bf16_d256", "flash_f32_d256",
-                                  "ssd_chunk", "decode_attention"])
+                                  "ssd_chunk", "decode_attention",
+                                  "moe_plan", "moe_experts", "moe_combine"])
 def test_each_wrapper_replays_under_cuda_graph_capture(cuda, name):
     """Every kernel wrapper stays legal under stream capture (no host sync,
     no allocation outside the graph's pool; the TMA descriptors of the bf16
@@ -1256,6 +1269,143 @@ def test_moe_smoke_model_serves_on_the_card(cuda, arch):
     torch.testing.assert_close(x.cpu(), x_cpu, rtol=1e-4, atol=1e-4)
     out = Engine(model, params, 2, 140).generate(toks, 8)
     assert out.shape == (2, 8) and out.device.type == "cuda"
+
+
+# (T, D, F, E, k): one MoE layer of OLMoE-1B-7B-0924's prefill of 4 x 2048
+# tokens (the benchmark's MoE cell), llama4-scout's prefill layer (top-1 of
+# 16 experts, a shared expert beside them), a decode step's 64 tokens, and
+# a ragged one (widths off the 64-column boxes, a 64-row tile)
+MOE_LAYERS = {"olmoe-0924": (8192, 2048, 1024, 64, 8),
+              "llama4-scout": (8192, 5120, 8192, 16, 1),
+              "decode": (64, 2048, 1024, 64, 8),
+              "ragged": (37, 72, 40, 8, 2)}
+
+
+def _moe_layer(dev, t, d, f, e, k, seed=3, shared=0):
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe as M
+    mcfg = MoEConfig(num_experts=e, top_k=k, d_ff_expert=f,
+                     d_ff_shared=shared)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = M.moe_init(gen, d, mcfg, True, dtype=torch.bfloat16, device=dev)
+    x = torch.randn((1, t, d), generator=gen, device=dev).bfloat16()
+    return mcfg, p, x
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("name", sorted(MOE_LAYERS))
+def test_routed_moe_kernels_against_plain_and_dense(cuda, name):
+    """At each layer shape: the plan's kernels give its plain version's
+    integers; the grouped products the plain version's routed rows within
+    1e-2 relative L2 (both round h and y to bf16 once; the float32 sum
+    order differs); ``moe_ep`` without a mesh takes ``moe_routed`` (one
+    launch of each wrapper) and lands within 2e-2 of ``moe_dense`` (which
+    also rounds the gate and up products to bf16), with its aux loss;
+    llama4-scout's with its shared expert."""
+    from repro_torch.kernels import moe_experts as KM
+    from repro_torch.models import moe as M
+    t, d, f, e, k = MOE_LAYERS[name]
+    mcfg, p, x = _moe_layer(cuda, t, d, f, e, k,
+                            shared=f if name == "llama4-scout" else 0)
+    xf = x[0]
+    w, idx, _ = M._route(p["router"], xf, mcfg)
+    rows, tiles = ops.routed_plan(idx, e)
+    want_rows, want_tiles = KM.routed_plan_plain(idx, e)
+    assert torch.equal(rows, want_rows) and torch.equal(tiles, want_tiles)
+    ws = (p["wg"], p["wi"], p["wo"])
+    sel = rows.long()
+    y = ops.moe_experts(xf, rows, tiles, *ws)
+    assert _rel(y[sel], ops.moe_experts_plain(xf, rows, tiles, *ws)[sel]) \
+        <= 1e-2
+    assert torch.equal(ops.moe_combine(y, rows, w),
+                       ops.moe_combine_plain(y, rows, w))
+    before = dict(LAUNCHES)
+    got, aux = M.moe_ep(p, x, mcfg, True)
+    assert {n: LAUNCHES[n] - before[n] for n in
+            ("moe_plan", "moe_experts", "moe_combine")} == dict.fromkeys(
+        ("moe_plan", "moe_experts", "moe_combine"), 1)
+    want, want_aux = M.moe_dense(p, x, mcfg, True)
+    assert _rel(got, want) <= 2e-2
+    assert torch.equal(aux, want_aux)
+
+
+def test_routed_moe_graph_replays_a_new_routing(cuda):
+    """``moe_routed`` captured once as a CUDA graph, then replayed on an x
+    whose routing differs: the eager call's bits on the new x (the grids
+    and buffers come from shapes; the plan is read on the card only)."""
+    from repro_torch.models import moe as M
+    mcfg, p, x = _moe_layer(cuda, *MOE_LAYERS["decode"])
+    static = x.clone()
+    M.moe_routed(p, static, mcfg, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out, _ = M.moe_routed(p, static, mcfg, True)
+    for seed in (5, 6):
+        x2 = torch.randn(x.shape, device=cuda, generator=torch.Generator(
+            device=cuda).manual_seed(seed)).bfloat16()
+        _, i1, _ = M._route(p["router"], static[0], mcfg)
+        _, i2, _ = M._route(p["router"], x2[0], mcfg)
+        assert not torch.equal(i1, i2)
+        static.copy_(x2)
+        graph.replay()
+        want, _ = M.moe_routed(p, x2, mcfg, True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_bf16_moe_tasked_decode_through_the_routed_kernels(cuda):
+    """The OLMoE-0924 smoke model in bf16 with ``moe_ep`` (no mesh, so the
+    routed path: its widths fit the kernels): the tasked decode loop,
+    interpreted and under trace_graphs (replaying the routed kernels, one
+    launch of each a layer a step), gives the Engine's tokens and KV cache
+    bit for bit; the prefill lies within 5e-2 relative L2 of the dense
+    oracle's, the bf16 bound of a kernel prefill against the plain one
+    (chip_smoke.py's ``PREFILL_REL_TOL``): the paths round the expert
+    products to bf16 at other points, which can also reorder near-tied
+    experts in the second layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Engine
+    from repro_torch.models import build_smoke
+    from repro_torch.serve import tasked_decode_loop
+    cfg = get_smoke_config("olmoe-1b-7b-0924")
+    model = build_smoke(cfg, param_dtype=torch.bfloat16,
+                        use_flash_kernel=True, moe_mode="ep")
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 64), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    steps = 10
+    eng = Engine(model, params, 2, 64 + steps)
+    n = LAUNCHES["moe_experts"]
+    nxt, cache = eng.prefill(toks)
+    assert LAUNCHES["moe_experts"] == n + cfg.n_layers
+    start = {k: a.clone() for k, a in cache.items()}
+    want = eng.decode(cache, nxt, 64, steps)
+    lengths = torch.full((2,), 64, dtype=torch.int32, device=cuda)
+    for traced in (False, True):
+        c = {k: a.clone() for k, a in start.items()}
+        n = LAUNCHES["moe_experts"]
+        with Runtime(RuntimeConfig(trace_graphs=traced)) as rt:
+            tok, lens, c_objs = tasked_decode_loop(
+                rt, model, params, c, nxt.clone(), lengths.clone(), steps)
+            got_tok = tok.get()
+            got_cache = {k: c_objs[k].copies[0].clone() for k in c}
+            if traced:
+                assert rt.stats()["graph_replays"] == steps - 3
+        assert LAUNCHES["moe_experts"] == n + steps * cfg.n_layers
+        np.testing.assert_array_equal(got_tok, want[:, -1:].cpu().numpy())
+        for k in cache:
+            assert torch.equal(got_cache[k], cache[k])
+    dense = build_smoke(cfg, param_dtype=torch.bfloat16,
+                        use_flash_kernel=True)
+    x = {}
+    for m in (model, dense):
+        x[m is model], _ = m.apply(params, {"tokens": toks}, mode="prefill")
+    assert _rel(x[True], x[False]) <= 5e-2
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-scout-17b-16e"])
